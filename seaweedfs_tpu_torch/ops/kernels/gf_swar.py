@@ -1,0 +1,259 @@
+"""GF(2^8) matrix product over packed bytes: the wrapper of the Hopper
+kernel ``csrc/gf_swar.cu`` and its plain PyTorch version.
+
+Counterpart of ``seaweedfs_tpu/ops/pallas/gf_kernel.py``: the wrapper
+takes the place of ``gf_matmul_swar`` (:448), ``gf_matmul_swar_device``
+(:500) and ``_build_swar_call`` (:176); the CUDA kernel that of
+``_swar_kernel`` (:146) with ``_xtime_swar`` (:137).
+
+    out[..., o, N] = C[o, k] ∘GF data[..., k, N]     over GF(2^8)/0x11d
+
+``gf_matmul`` picks by the tensor it is given: a CPU tensor goes through
+:func:`gf_matmul_plain`, a CUDA tensor launches the kernel or raises.
+There is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from . import build
+
+# Shape limits of the kernel (csrc/gf_swar.cu: kMaxOut, kMaxIn); the
+# wrapper raises past them.
+MAX_OUT = 16
+MAX_IN = 64
+MAX_BATCH = 65535
+# Row width quantum of the kernel: one uint4 (16 bytes) per thread.
+QUANTUM = 16
+
+
+class LaunchCounter:
+    """Number of kernel launches since the last ``reset()``: the proof
+    that a run went through the kernel and not its plain version."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._n = 0  # guarded-by: self._lock
+
+    def add(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = 0
+
+    @property
+    def value(self) -> int:
+        with self._lock:
+            return self._n
+
+
+LAUNCHES = LaunchCounter()
+
+
+@dataclass(frozen=True)
+class SwarCoeff:
+    """A coefficient matrix in the kernel's argument form.
+
+    ``matrix`` is the u8 [o, k] matrix itself (the plain version's
+    input); ``packed`` the bytes of the kernel's ``SwarCoeff`` struct:
+    ``mask[64][8]`` u16, bit i of mask[d][b] set when bit b of
+    matrix[i, d] is set, then ``top[64]`` u8, the number of bits input
+    row d needs."""
+
+    matrix: np.ndarray
+    packed: bytes
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return self.matrix.shape
+
+
+def coeff_from_reference(coeff: np.ndarray) -> SwarCoeff:
+    """Turn a u8 [o, k] matrix, as ``gf256.parity_matrix`` or
+    ``gf256.reconstruction_matrix`` return it (either package's), into
+    the kernel's argument form. Raises on a shape past the kernel's
+    limits."""
+    m = np.array(coeff, dtype=np.uint8, copy=True)
+    if m.ndim != 2 or not (1 <= m.shape[0] <= MAX_OUT) or not (
+        1 <= m.shape[1] <= MAX_IN
+    ):
+        raise ValueError(
+            f"coefficient matrix {m.shape} outside the kernel's limits "
+            f"(1..{MAX_OUT} outputs, 1..{MAX_IN} inputs)"
+        )
+    o, k = m.shape
+    bits = (m[:, :, None] >> np.arange(8, dtype=np.uint8)) & 1  # [o, k, 8]
+    weights = (1 << np.arange(o, dtype=np.uint32))[:, None, None]
+    mask = np.zeros((MAX_IN, 8), dtype="<u2")
+    mask[:k] = (bits.astype(np.uint32) * weights).sum(axis=0)
+    top = np.zeros(MAX_IN, dtype=np.uint8)
+    col_or = np.bitwise_or.reduce(m, axis=0)
+    top[:k] = [int(c).bit_length() for c in col_or]
+    m.flags.writeable = False
+    return SwarCoeff(m, mask.tobytes() + top.tobytes())
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version (the CPU path, and the card-side check in
+# chip_smoke.py)
+# ---------------------------------------------------------------------------
+
+
+def _xtime_i32(x: torch.Tensor) -> torch.Tensor:
+    """Byte-parallel doubling of 4 packed bytes per int32 lane. ``>>`` on
+    int32 is arithmetic, so the mask after it clears the sign copies;
+    the ``<<`` wraps into the sign bit, which is the byte we want."""
+    return ((x & 0x7F7F7F7F) << 1) ^ (((x >> 7) & 0x01010101) * 0x1D)
+
+
+def gf_matmul_plain(coeff: SwarCoeff | np.ndarray, data: torch.Tensor):
+    """out[..., o, N] = coeff ∘GF data[..., k, N] in plain tensor ops on
+    whatever device ``data`` lies on: the kernel's algebra on int32
+    lanes of 4 bytes (torch.uint32 has few kernels)."""
+    matrix = coeff.matrix if isinstance(coeff, SwarCoeff) else np.asarray(
+        coeff, dtype=np.uint8
+    )
+    o, k = matrix.shape
+    if data.dtype != torch.uint8 or data.dim() < 2 or data.shape[-2] != k:
+        raise ValueError(
+            f"data must be uint8 [..., {k}, N], got {data.dtype} "
+            f"{tuple(data.shape)}"
+        )
+    n = data.shape[-1]
+    pad = (-n) % 4
+    x8 = F.pad(data, (0, pad)) if pad else data.contiguous()
+    words = x8.view(torch.int32)  # [..., k, N4]
+    acc: list[torch.Tensor | None] = [None] * o
+    for d in range(k):
+        col = [int(c) for c in matrix[:, d]]
+        top = max(c.bit_length() for c in col)
+        x = words[..., d, :]
+        for b in range(top):
+            if b:
+                x = _xtime_i32(x)
+            for i in range(o):
+                if col[i] >> b & 1:
+                    acc[i] = x if acc[i] is None else acc[i] ^ x
+    zero = torch.zeros_like(words[..., 0, :])
+    out = torch.stack([a if a is not None else zero for a in acc], dim=-2)
+    return out.view(torch.uint8)[..., :n]
+
+
+# ---------------------------------------------------------------------------
+# The kernel
+# ---------------------------------------------------------------------------
+
+_lib_lock = threading.Lock()
+_lib = None  # guarded-by: _lib_lock
+
+
+def library():
+    """The built kernel library (``nvcc`` at first use), with its C
+    signatures declared and its limits checked against this module's."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = build.load("gf_swar")  # weedcheck: ignore[lock-held-across-blocking]: first use builds the kernel once; later callers must wait for the declared library
+            lib.gf_swar_launch.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_char_p,
+                ctypes.c_int, ctypes.c_void_p,
+            ]
+            lib.gf_swar_launch.restype = ctypes.c_int
+            lib.gf_swar_error_string.argtypes = [ctypes.c_int]
+            lib.gf_swar_error_string.restype = ctypes.c_char_p
+            for fn in ("gf_swar_coeff_bytes", "gf_swar_max_out",
+                       "gf_swar_max_in"):
+                getattr(lib, fn).argtypes = []
+                getattr(lib, fn).restype = ctypes.c_int
+            expect = (MAX_IN * 8 * 2 + MAX_IN, MAX_OUT, MAX_IN)
+            got = (lib.gf_swar_coeff_bytes(), lib.gf_swar_max_out(),
+                   lib.gf_swar_max_in())
+            if got != expect:
+                raise RuntimeError(
+                    f"gf_swar library limits {got} != wrapper's {expect}"
+                )
+            _lib = lib
+        return _lib
+
+
+def launch(coeff: SwarCoeff, data: torch.Tensor, out: torch.Tensor,
+           stream: torch.cuda.Stream | None = None) -> None:
+    """Launch the kernel: out[B, o, W] = coeff ∘GF data[B, k, W] on CUDA
+    uint8 tensors, contiguous, W a multiple of 16. Enqueues on
+    ``stream`` (default: the current stream) and does not synchronise.
+    Raises on any tensor the kernel does not take and on a launch the
+    runtime refuses."""
+    o, k = coeff.shape
+    if data.device.type != "cuda" or out.device != data.device:
+        raise ValueError("launch needs CUDA tensors on one device")
+    if data.dtype != torch.uint8 or out.dtype != torch.uint8:
+        raise ValueError("launch needs uint8 tensors")
+    if data.dim() != 3 or out.dim() != 3:
+        raise ValueError("launch needs [B, rows, W] tensors")
+    batch, k2, width = data.shape
+    if k2 != k or tuple(out.shape) != (batch, o, width):
+        raise ValueError(
+            f"shapes {tuple(data.shape)} -> {tuple(out.shape)} do not fit "
+            f"a [{o}, {k}] matrix"
+        )
+    if width % QUANTUM or not data.is_contiguous() or not out.is_contiguous():
+        raise ValueError(
+            f"launch needs contiguous rows of a multiple of {QUANTUM} bytes"
+        )
+    if not (1 <= batch <= MAX_BATCH):
+        raise ValueError(f"batch {batch} outside 1..{MAX_BATCH}")
+    if width == 0:
+        return  # nothing to compute, and no launch to count
+    if stream is None:
+        stream = torch.cuda.current_stream(data.device)
+    rc = library().gf_swar_launch(
+        data.data_ptr(), out.data_ptr(), o, k, width // QUANTUM, batch,
+        coeff.packed, data.device.index, stream.cuda_stream,
+    )
+    if rc != 0:
+        msg = library().gf_swar_error_string(rc).decode()
+        raise RuntimeError(f"gf_swar launch failed: {msg} (cuda error {rc})")
+    LAUNCHES.add()
+
+
+def gf_matmul(coeff: SwarCoeff | np.ndarray,
+              data: torch.Tensor) -> torch.Tensor:
+    """out[..., o, N] = coeff ∘GF data[..., k, N] for a uint8 tensor.
+
+    A CPU tensor goes through :func:`gf_matmul_plain`. A CUDA tensor
+    launches the kernel on the current stream, the one that ordered the
+    writes of ``data``: leading dims fold into the kernel's batch, a
+    ragged N is zero-padded to the 16-byte quantum and the result sliced
+    back (the reference pads to its tile the same way,
+    gf_kernel.py:477-485). Any other device raises."""
+    if not isinstance(coeff, SwarCoeff):
+        coeff = coeff_from_reference(coeff)
+    if data.device.type == "cpu":
+        return gf_matmul_plain(coeff, data)
+    if data.device.type != "cuda":
+        raise ValueError(f"gf_matmul runs on cuda or cpu, not {data.device}")
+    o, k = coeff.shape
+    if data.dtype != torch.uint8 or data.dim() < 2 or data.shape[-2] != k:
+        raise ValueError(
+            f"data must be uint8 [..., {k}, N], got {data.dtype} "
+            f"{tuple(data.shape)}"
+        )
+    *lead, _, n = data.shape
+    batch = int(np.prod(lead)) if lead else 1
+    pad = (-n) % QUANTUM
+    x = F.pad(data, (0, pad)) if pad else data.contiguous()
+    x = x.reshape(batch, k, n + pad)
+    out = torch.empty((batch, o, n + pad), dtype=torch.uint8,
+                      device=data.device)
+    launch(coeff, x, out)
+    return out.reshape(*lead, o, n + pad)[..., :n]

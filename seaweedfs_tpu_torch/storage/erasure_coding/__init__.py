@@ -1,0 +1,25 @@
+"""Erasure coding: RS(10,4) striped volumes on the port's CUDA codec.
+
+Layout, encoder and rebuild mirror ``seaweedfs_tpu.storage.
+erasure_coding`` on disk byte for byte; the GF math runs through
+``ops.codec.RSCodec``. The decoder (``ec.decode``) and the multi-volume
+``write_ec_files_batch`` come in later slices.
+"""
+
+from .constants import (  # noqa: F401
+    DATA_SHARDS,
+    PARITY_SHARDS,
+    TOTAL_SHARDS,
+    LARGE_BLOCK_SIZE,
+    SMALL_BLOCK_SIZE,
+    to_ext,
+)
+from .layout import (  # noqa: F401
+    Interval,
+    encode_row_plan,
+    locate_data,
+    shard_file_size,
+    to_shard_id_and_offset,
+)
+from .encoder import write_ec_files, write_sorted_file_from_idx  # noqa: F401
+from .rebuild import rebuild_ec_files  # noqa: F401

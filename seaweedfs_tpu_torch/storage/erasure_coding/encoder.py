@@ -1,0 +1,375 @@
+""".dat → .ec00…ec13 streaming encoder on the port's codec.
+
+The port's counterpart of ``seaweedfs_tpu/storage/erasure_coding/
+encoder.py`` (SeaweedFS weed/storage/erasure_coding/ec_encoder.go:56-231):
+row-major striping per ``layout.encode_row_plan``, zero padding past
+EOF, and ``.ecx`` = the needle-id-sorted, folded copy of the ``.idx``.
+
+Slabs [k, batch] stream through a 3-stage pipeline:
+
+  reader thread:  disk read of slab N+2        (one-deep prefetch)
+  main thread:    async codec dispatch of N+1  (H2D + kernel enqueue)
+  writer thread:  result() of slab N (D2H wait) + 14 shard-file writes
+
+Disk reads land via ``readinto`` directly in a ring of preallocated slab
+buffers (:class:`_SlabRing`). On a ``cuda`` codec the ring is pinned
+host memory, so a full-width slab goes H2D with no staging copy. A slab
+returns to the ring only after the writer finished its chunk (the
+in-flight fence), so it is never refilled while the codec or the writer
+may still read it.
+
+Left for later slices: ``write_ec_files_batch`` (multi-volume) and the
+link-EWMA sizing of ``choose_pipeline``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import queue
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from ...ops import codec as codec_mod
+from .. import idx as idx_mod
+from . import constants as C
+from .layout import encode_row_plan
+
+# Per-shard slab bytes per codec call. 8 MiB × 10 shards = 80 MiB input.
+DEFAULT_BATCH_BYTES = 8 * 1024 * 1024
+
+# Max slabs in flight (read-but-unwritten); bounds host memory.
+PIPELINE_DEPTH = 3
+
+# Shard output files carry a sized write buffer so row views coalesce
+# into few large kernel writes; the per-file buffer shrinks so the sum
+# across one encode's files stays under _MAX_WRITE_BUFFER_TOTAL.
+WRITE_BUFFER_BYTES = 8 << 20
+_MAX_WRITE_BUFFER_TOTAL = 128 << 20
+
+_MIN_BATCH_BYTES = 1 << 20
+# Total ring memory cap: depth is shrunk before slabs are.
+_MAX_RING_BYTES = 512 << 20
+
+
+def _write_buffering(n_files: int, row_bytes: int) -> int:
+    """Per-file write-buffer bytes for an encode opening ``n_files``
+    shard outputs with typical ``row_bytes``-sized appends."""
+    per_file = min(
+        WRITE_BUFFER_BYTES,
+        max(1 << 20, _MAX_WRITE_BUFFER_TOTAL // max(1, n_files)),
+    )
+    return max(per_file, min(row_bytes * 2, WRITE_BUFFER_BYTES))
+
+
+def choose_pipeline(
+    dat_size: int,
+    k: int = C.DATA_SHARDS,
+    batch_bytes: int | None = None,
+) -> tuple[int, int]:
+    """(batch_bytes, pipeline_depth) for one encode run.
+
+    A caller-pinned ``batch_bytes`` is honoured verbatim with the
+    default depth. Otherwise the reference's cold-link choice: the
+    default slab, halved while half of it still covers a shard's share
+    of the volume (never below 1 MiB), and the depth shrunk before ring
+    memory (k × batch × (depth + 1)) would pass ``_MAX_RING_BYTES``."""
+    if batch_bytes is not None:
+        return batch_bytes, PIPELINE_DEPTH
+    batch = DEFAULT_BATCH_BYTES
+    per_shard = -(-dat_size // max(1, k))
+    while batch > _MIN_BATCH_BYTES and batch // 2 >= per_shard:
+        batch //= 2
+    depth = PIPELINE_DEPTH
+    while depth > 2 and (depth + 1) * k * batch > _MAX_RING_BYTES:
+        depth -= 1
+    return batch, depth
+
+
+class _SlabRing:
+    """Ring of preallocated, zeroed slab buffers with an explicit
+    in-flight fence.
+
+    ``acquire()`` blocks until a slab is free; ``release()`` returns
+    one. The pipeline releases a slab only after the writer finished
+    the chunk that used it. ``alloc(shape)`` makes each slab and must
+    return it zeroed (``RSCodec.host_zeros``: pinned on ``cuda``), so a
+    first use may skip EOF zero-fill (``take_pristine``)."""
+
+    def __init__(self, depth: int, shape: tuple[int, ...], alloc=None):
+        alloc = alloc or (lambda s: np.zeros(s, dtype=np.uint8))
+        self._free: queue.Queue[np.ndarray] = queue.Queue()
+        self._pristine: set[int] = set()
+        for _ in range(depth):
+            slab = alloc(shape)
+            self._pristine.add(id(slab))
+            self._free.put(slab)
+
+    def acquire(self) -> np.ndarray:
+        return self._free.get()
+
+    def take_pristine(self, slab: np.ndarray) -> bool:
+        """True exactly once per slab, on its first use while still all
+        zeros — the caller may skip zero-filling padding."""
+        try:
+            self._pristine.remove(id(slab))
+            return True
+        except KeyError:
+            return False
+
+    def release(self, slab: np.ndarray) -> None:
+        self._free.put(slab)
+
+
+@contextlib.contextmanager
+def launcher_for(encoder):
+    """Context manager yielding the async ``launch`` callable for an
+    encoder: an ``RSCodec`` (its ``encode_async``), an object with a
+    sync ``.encode``, or a plain sync callable. Sync encoders run on a
+    worker thread owned here, shut down on every exit path."""
+    launch = getattr(encoder, "encode_async", None)
+    if launch is not None:
+        yield launch
+        return
+    fn = encoder.encode if hasattr(encoder, "encode") else encoder
+    pool = ThreadPoolExecutor(max_workers=1)
+    try:
+        yield lambda data: pool.submit(fn, data)
+    finally:
+        pool.shutdown(wait=True)
+
+
+def _run_pipeline(
+    n_chunks: int, read_fn, launch, write_fn, pt=None,
+    release_fn=None, depth: int = PIPELINE_DEPTH,
+):
+    """Drive the 3-stage overlap: for each chunk index, read
+    (prefetched), launch the encode asynchronously (``launch(data)`` →
+    handle with ``.result()``), and hand (data, pending parity) to the
+    single writer thread, which calls ``pending.result()`` so the D2H
+    wait overlaps the next slab's dispatch. Exceptions from any stage
+    propagate.
+
+    ``release_fn(ci, data)`` runs after chunk ``ci``'s shard writes
+    complete (success or failure): the slab-reuse fence.
+
+    ``pt`` (telemetry/phases.PhaseTimer or None): ``h2d`` = the async
+    launch on the dispatching thread (staging + H2D + enqueue),
+    ``codec`` = the writer-side ``pending.result()`` wait (kernel + D2H),
+    ``write`` = the shard-file writes; ``read``/``stage`` are recorded
+    inside ``_read_row_chunk``."""
+
+    def write_one(ci, data, pending):
+        try:
+            if pt is None:
+                write_fn(ci, data, pending.result())
+                return
+            t0 = time.perf_counter()
+            parity = pending.result()
+            pt.add("codec", time.perf_counter() - t0, int(data.nbytes))
+            t0 = time.perf_counter()
+            write_fn(ci, data, parity)
+            pt.add(
+                "write",
+                time.perf_counter() - t0,
+                int(data.nbytes) + int(getattr(parity, "nbytes", 0)),
+            )
+        finally:
+            if release_fn is not None:
+                release_fn(ci, data)
+
+    with ThreadPoolExecutor(max_workers=1) as reader, \
+            ThreadPoolExecutor(max_workers=1) as writer:
+        nxt = None
+        writes: deque = deque()
+        loop_ok = False
+        try:
+            for ci in range(n_chunks):
+                data = nxt.result() if nxt is not None else read_fn(ci)
+                nxt = (
+                    reader.submit(read_fn, ci + 1)
+                    if ci + 1 < n_chunks
+                    else None
+                )
+                t0 = time.perf_counter()
+                pending = launch(data)
+                if pt is not None:
+                    pt.add("h2d", time.perf_counter() - t0, int(data.nbytes))
+                writes.append(writer.submit(write_one, ci, data, pending))
+                while len(writes) >= depth:
+                    writes.popleft().result()
+            loop_ok = True
+        finally:
+            # drain every in-flight write so no writer task is abandoned;
+            # the first write error surfaces unless the loop itself raised
+            first: BaseException | None = None
+            while writes:
+                try:
+                    writes.popleft().result()
+                except BaseException as e:  # noqa: BLE001
+                    if first is None:
+                        first = e
+            if first is not None and loop_ok:
+                raise first
+
+
+def _read_row_chunk(
+    dat, start: int, block_size: int, chunk_off: int, n: int, k: int,
+    out: np.ndarray, pt=None, assume_zero: bool = False,
+) -> np.ndarray:
+    """Gather [k, n] from the dat file into ``out``: shard i's bytes of
+    this row chunk, zero-padded past EOF (ec_encoder.go:166-176). Stale
+    bytes from a previous use of ``out`` are overwritten or zeroed.
+
+    Rows land via ``readinto`` directly in ``out``. When the chunk
+    covers whole blocks and ``out`` is one contiguous slab, the k rows
+    are back to back in the dat file and the gather is one ``seek`` and
+    one ``readinto``. ``assume_zero`` says ``out`` is already all zeros
+    (a pristine slab), so EOF padding needs no fill. ``pt`` records
+    ``read`` (dat-file reads) and ``stage`` (EOF zero-fill)."""
+    stage_s = 0.0
+    read_s = 0.0
+    read_bytes = 0
+    if chunk_off == 0 and n == block_size and out.flags["C_CONTIGUOUS"]:
+        flat = out.reshape(k * n)
+        t0 = time.perf_counter()
+        dat.seek(start)
+        got = dat.readinto(memoryview(flat))
+        read_s = time.perf_counter() - t0
+        read_bytes = got
+        if got < k * n and not assume_zero:
+            t0 = time.perf_counter()
+            flat[got:] = 0
+            stage_s += time.perf_counter() - t0
+    else:
+        for i in range(k):
+            t0 = time.perf_counter()
+            dat.seek(start + i * block_size + chunk_off)
+            got = dat.readinto(memoryview(out[i]))
+            read_s += time.perf_counter() - t0
+            read_bytes += got
+            if got < n and not assume_zero:
+                t0 = time.perf_counter()
+                out[i, got:] = 0
+                stage_s += time.perf_counter() - t0
+    if pt is not None:
+        pt.add("read", read_s, read_bytes)
+        pt.add("stage", stage_s, k * n)
+    return out
+
+
+def _write_row(f, arr: np.ndarray) -> None:
+    """Append one contiguous shard row with no copy. A row that is all
+    zeros (EOF padding) becomes a seek-forward hole instead of disk IO;
+    callers truncate to the exact shard size at close, so trailing
+    holes materialise. Holes read back as zeros."""
+    if arr[:4096].any() or arr[4096:].any():
+        f.write(arr)
+    else:
+        f.seek(arr.nbytes, 1)
+
+
+def _write_rows(out_files, data, parity, k: int, total: int) -> None:
+    """One chunk's 14 shard appends: contiguous row views handed
+    straight to the buffered files."""
+    for i in range(k):
+        _write_row(out_files[i], data[i])
+    for j in range(total - k):
+        _write_row(out_files[k + j], parity[j])
+
+
+def write_ec_files(
+    base_file_name: str | os.PathLike,
+    rs: codec_mod.RSCodec | None = None,
+    large_block_size: int = C.LARGE_BLOCK_SIZE,
+    small_block_size: int = C.SMALL_BLOCK_SIZE,
+    batch_bytes: int | None = None,
+    phases=None,
+    device: str | torch.device | None = None,
+) -> list[str]:
+    """Generate all shard files for ``<base>.dat``; returns their paths.
+
+    ``rs`` is the codec (default: RS(10,4) on ``device``; ``device=None``
+    means the card and raises without one). ``batch_bytes`` None → the
+    default slab (:func:`choose_pipeline`). ``phases`` (PhaseTimer or
+    None) accumulates read / stage / h2d / codec / write / flush."""
+    base = os.fspath(base_file_name)
+    rs = rs or codec_mod.RSCodec(C.DATA_SHARDS, C.PARITY_SHARDS, device)
+    k, total = rs.data_shards, rs.total_shards
+    dat_size = os.path.getsize(base + ".dat")
+    batch_bytes, depth = choose_pipeline(dat_size, k, batch_bytes)
+    rows = encode_row_plan(dat_size, large_block_size, small_block_size, k)
+    # (row start, block size, chunk offset, chunk len) work list
+    chunks = [
+        (start, bs, co, min(batch_bytes, bs - co))
+        for start, bs in rows
+        for co in range(0, bs, batch_bytes)
+    ]
+    max_n = max((c[3] for c in chunks), default=0)
+    paths = [base + C.to_ext(i) for i in range(total)]
+    buffering = _write_buffering(total, max_n)
+    outs = [open(p, "wb", buffering=buffering) for p in paths]
+    try:
+        with launcher_for(rs) as launch, \
+                open(base + ".dat", "rb") as dat:
+            # depth queued writes + 1 write-ahead read + 1 being encoded
+            ring = _SlabRing(
+                depth + 1, (k, max_n), getattr(rs, "host_zeros", None)
+            )
+            in_flight: dict[int, np.ndarray] = {}
+            if phases is not None:
+                phases.note("batch_bytes", batch_bytes)
+                phases.note("pipeline_depth", depth)
+
+            def read_fn(ci):
+                start, bs, co, n = chunks[ci]
+                slab = ring.acquire()
+                in_flight[ci] = slab
+                return _read_row_chunk(
+                    dat, start, bs, co, n, k, out=slab[:, :n],
+                    pt=phases, assume_zero=ring.take_pristine(slab),
+                )
+
+            def write_fn(ci, data, parity):
+                _write_rows(outs, data, parity, k, total)
+
+            def release_fn(ci, data):
+                ring.release(in_flight.pop(ci))
+
+            _run_pipeline(
+                len(chunks), read_fn, launch, write_fn, pt=phases,
+                release_fn=release_fn, depth=depth,
+            )
+    finally:
+        # closing flushes the write buffers — real IO, timed as its own
+        # phase; truncating to the exact shard size first materialises
+        # trailing sparse holes
+        shard_sz = sum(bs for _, bs in rows)
+        t0 = time.perf_counter()
+        for f in outs:
+            try:
+                f.truncate(shard_sz)
+            finally:
+                f.close()
+        if phases is not None:
+            phases.add("flush", time.perf_counter() - t0)
+    return paths
+
+
+def write_sorted_file_from_idx(
+    base_file_name: str | os.PathLike, ext: str = ".ecx"
+) -> str:
+    """``.idx`` → latest-state, needle-id-sorted ``.ecx``
+    (ec_encoder.go:25-54): the append-only log folded to one live entry
+    per key. Host-only; touches no device."""
+    base = os.fspath(base_file_name)
+    with open(base + ".idx", "rb") as f:
+        entries = idx_mod.parse_entries(f.read())
+    out = base + ext
+    with open(out, "wb") as f:
+        f.write(idx_mod.pack_entries(idx_mod.fold_entries(entries)))
+    return out
