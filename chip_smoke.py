@@ -7,14 +7,18 @@ Run from the root of the repository, on a machine with a CUDA card and
 ``nvcc``. Phases, each of which must pass:
 
 1. header: the card's name and power limit, CUDA and nvcc versions, and
-   the build of every kernel from the sources in the checkout;
+   the build of every kernel from the sources in the checkout (one
+   ``nvcc`` per source, all started together);
 2. every kernel against its plain PyTorch version on the card, byte for
-   byte, at the shapes the main path gives it;
+   byte, at the shapes the main paths give it: gf_swar; gf_repack's u32
+   words and gf_unpack; gf_swar_u8 on ragged widths, a strided row view
+   and a batch; gf_bitplane on four RS shapes and four loss patterns;
 3. kernel timing with CUDA events (L2 flushed between launches) beside
-   the plain version's time and the card's bound for the same work;
+   the plain version's time, the card's bound for the same work and,
+   where one PyTorch call computes the same function, that call's time;
 4. the vendored golden fixture (tests/golden/1.*): encode, ``.ecx`` and
    a 4-shard rebuild byte-identical to the golden shards;
-5. the main path at full size: a ``.dat`` volume made from ``--seed``
+5. the codec path at full size: a ``.dat`` volume made from ``--seed``
    (1 GiB by default) through ``write_ec_files`` →
    ``write_sorted_file_from_idx`` → ``rebuild_ec_files`` of shards
    {0, 5, 11, 13} and of {3}, every parity row checked against the plain
@@ -22,7 +26,16 @@ Run from the root of the repository, on a machine with a CUDA card and
    hash; launch counts read around the run prove it went through the
    kernels;
 6. a second encode of the volume under torch.profiler: device time by
-   kind (kernel, H2D, D2H) and the device's busy and idle share.
+   kind (kernel, H2D, D2H) and the device's busy and idle share;
+7. the device-resident path at full size: a [10, 64 MiB] slab made on the
+   card through ``gf_matmul_fused`` with ``method=None`` (the autotuner
+   measures live into a temporary cache and prints each candidate), then
+   through each method for parity and the {0,5,11,13} reconstruction and
+   through the device-u32 route; the RS(6,3)/(12,4)/(20,4) sweep at
+   32 MiB a shard; an 8-volume batch [8, 10, 64 MiB], as a batch and
+   lane-packed as [10, 8·64 MiB]. Every output is checked against the
+   plain versions on the card, GB/s is printed per route, and launch
+   counts read around the phase prove each of the five kernels ran.
 
 It prints one JSON line describing every kernel, then, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -56,6 +69,8 @@ import numpy as np
 # takes 64.
 HBM_BYTES_PER_S = 3.35e12
 INT_PIPE_OPS_PER_S = 132 * 64 * 1.98e9
+# Dense int8 tensor-core peak of one H100 SXM (NVIDIA data sheet).
+INT8_TENSOR_OPS_PER_S = 1.979e15
 # The instructions of one SWAR doubling of a u32, by pipe, as the built
 # kernel does it (cuobjdump -sass; sass_doubling() checks them on every
 # run). One XOR into an accumulator is one more LOP3 on the ALU pipe.
@@ -84,16 +99,32 @@ def say(*parts) -> None:
     print(*parts, flush=True)
 
 
-def sass_doubling(nvcc: str, lib_path: str) -> dict[str, int]:
-    """How often each instruction form of DOUBLING_FORMS appears in the
-    built SASS of gf_swar_kernel<4>, the instantiation that encode and
-    rebuild launch."""
+def sass_body(nvcc: str, lib_path: str, symbol: str) -> str:
+    """The built SASS of the kernel whose mangled name contains
+    ``symbol``."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
                           text=True, check=True).stdout
-    body = sass.split("gf_swar_kernelILi4E", 1)[1].split("Function :", 1)[0]
+    return sass.split(symbol, 1)[1].split("Function :", 1)[0]
+
+
+def sass_doubling(nvcc: str, lib_path: str,
+                  symbol: str = "gf_swar_kernelILi4E") -> dict[str, int]:
+    """How often each instruction form of DOUBLING_FORMS appears in the
+    built SASS of a swar kernel's o = 4 instantiation, the one encode,
+    rebuild and the RS(10,4) slab launch."""
+    body = sass_body(nvcc, lib_path, symbol)
     return {name: len(re.findall(pattern, body))
             for name, (_, pattern) in DOUBLING_FORMS.items()}
+
+
+def sass_opcodes(nvcc: str, lib_path: str, symbol: str) -> dict[str, int]:
+    """Static count of each opcode (without modifiers) in a kernel's SASS."""
+    ops: dict[str, int] = {}
+    for m in re.finditer(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
+                         sass_body(nvcc, lib_path, symbol)):
+        ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    return dict(sorted(ops.items(), key=lambda kv: -kv[1]))
 
 
 def swar_work(matrix: np.ndarray, n_bytes: int, batch: int = 1):
@@ -111,9 +142,25 @@ def swar_work(matrix: np.ndarray, n_bytes: int, batch: int = 1):
             words * FMA_PER_DOUBLING * xtimes)
 
 
-def bound(moved: int, alu: int, fma: int) -> tuple[float, str]:
+def bitplane_work(o: int, k: int, n_bytes: int, batch: int = 1):
+    """(bytes moved, ALU-pipe ops, FMA-pipe ops, int8 tensor ops) of one
+    gf_bitplane call, counted as the kernel's design does the work and not
+    as it pads it. Bytes: each read and written once. Unpack: every input
+    byte feeds two B fragments, each a nibble spread (SHF, LOP3, IMAD,
+    LOP3): 6 ALU and 2 FMA operations a byte. Pack: per output byte 8 sums
+    masked to bit 0 before the ballot (LOP3), the every-fourth-bit gather
+    (7 SHF/LOP3) and the merge into the lane's word (SHF, LOP3): 17 ALU
+    operations. Tensor cores: 2 * o*8 * k*8 operations a column."""
+    cols = batch * n_bytes
+    return (batch * (k + o) * n_bytes, 6 * k * cols + 17 * o * cols,
+            2 * k * cols, 2 * (o * 8) * (k * 8) * cols)
+
+
+def bound(moved: int, alu: int, fma: int,
+          tensor: int = 0) -> tuple[float, str]:
     t_bytes = moved / HBM_BYTES_PER_S
-    t_ops = max(alu, fma) / INT_PIPE_OPS_PER_S
+    t_ops = max(max(alu, fma) / INT_PIPE_OPS_PER_S,
+                tensor / INT8_TENSOR_OPS_PER_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -243,9 +290,48 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
-    from seaweedfs_tpu_torch.ops import gf256
+    # phase 7's autotuner measures into a cache of its own, never the
+    # repository's
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke-autotune-")
+    os.environ["SEAWEEDFS_TPU_TORCH_AUTOTUNE_CACHE"] = os.path.join(
+        tune_dir, "autotune.json")
+    os.environ["SEAWEEDFS_TPU_TORCH_AUTOTUNE"] = "1"
+    try:
+        return run(args, torch, here)
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
+
+
+KERNELS = {
+    # name: (library, source, TPU kernel it replaces)
+    "gf_swar": ("gf_swar", "seaweedfs_tpu_torch/ops/kernels/csrc/gf_swar.cu",
+                "seaweedfs_tpu/ops/pallas/gf_kernel.py:146"),
+    "gf_repack": ("gf_repack",
+                  "seaweedfs_tpu_torch/ops/kernels/csrc/gf_repack.cu",
+                  "seaweedfs_tpu/ops/pallas/gf_kernel.py:266"),
+    "gf_unpack": ("gf_repack",
+                  "seaweedfs_tpu_torch/ops/kernels/csrc/gf_repack.cu",
+                  "seaweedfs_tpu/ops/pallas/gf_kernel.py:279"),
+    "gf_swar_u8": ("gf_swar_u8",
+                   "seaweedfs_tpu_torch/ops/kernels/csrc/gf_swar_u8.cu",
+                   "seaweedfs_tpu/ops/pallas/gf_kernel.py:202"),
+    "gf_bitplane": ("gf_bitplane",
+                    "seaweedfs_tpu_torch/ops/kernels/csrc/gf_bitplane.cu",
+                    "seaweedfs_tpu/ops/pallas/gf_kernel.py:93"),
+}
+
+
+def run(args, torch, here: str) -> int:
+    from seaweedfs_tpu_torch.ops import autotune, gf256
     from seaweedfs_tpu_torch.ops.codec import RSCodec
-    from seaweedfs_tpu_torch.ops.kernels import build, gf_swar
+    from seaweedfs_tpu_torch.ops.kernels import (
+        build,
+        gf_bitplane,
+        gf_kernel,
+        gf_repack,
+        gf_swar,
+        gf_swar_u8,
+    )
     from seaweedfs_tpu_torch.storage.erasure_coding import (
         constants as C,
         encoder,
@@ -254,6 +340,13 @@ def main() -> int:
     )
     from seaweedfs_tpu_torch.telemetry.phases import PhaseTimer
 
+    counters = {
+        "gf_swar": gf_swar.LAUNCHES,
+        "gf_repack": gf_repack.REPACK_LAUNCHES,
+        "gf_unpack": gf_repack.UNPACK_LAUNCHES,
+        "gf_swar_u8": gf_swar_u8.LAUNCHES,
+        "gf_bitplane": gf_bitplane.LAUNCHES,
+    }
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
@@ -270,22 +363,42 @@ def main() -> int:
     ).stdout.strip().splitlines()[-1]
     say(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"nvcc {nvcc_ver}; device {torch.cuda.get_device_name(0)}")
+    libs = sorted({lib for lib, _, _ in KERNELS.values()})
     t0 = time.perf_counter()
-    gf_swar.library()
-    info = build.build_info["gf_swar"]
-    say(f"build gf_swar: {time.perf_counter() - t0:.3f} s "
-        f"(nvcc {info['seconds']:.3f} s) -> {os.path.relpath(info['path'], here)}")
-    regs = [int(m) for m in re.findall(r"Used (\d+) registers", info["ptxas"])]
-    spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill stores",
-                                            info["ptxas"]))
-    say(f"ptxas: {len(regs)} kernels, registers {min(regs, default=0)}.."
-        f"{max(regs, default=0)}, spill stores {spills} bytes")
-    forms = sass_doubling(nvcc, info["path"])
-    say("SASS gf_swar_kernel<4> doubling forms: " + ", ".join(
-        f"{name} x{n}" for name, n in forms.items()))
-    check(min(forms.values()) > 0 and len(set(forms.values())) == 1,
-          f"the built doubling is no longer {ALU_PER_DOUBLING} ALU + "
-          f"{FMA_PER_DOUBLING} FMA-pipe instructions; recount the bound")
+    build.prebuild(libs)
+    for mod in (gf_swar, gf_repack, gf_swar_u8, gf_bitplane):
+        mod.library()
+    say(f"build {', '.join(libs)}: {time.perf_counter() - t0:.3f} s wall, "
+        "one nvcc each, in parallel")
+    for lib in libs:
+        info = build.build_info[lib]
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers",
+                                           info["ptxas"])]
+        spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill stores",
+                                                info["ptxas"]))
+        smem = [int(m) for m in re.findall(r"(\d+) bytes smem",
+                                           info["ptxas"])]
+        say(f"build {lib}: nvcc {info['seconds']:.3f} s -> "
+            f"{os.path.relpath(info['path'], here)}; ptxas: {len(regs)} "
+            f"kernels, registers {min(regs, default=0)}.."
+            f"{max(regs, default=0)}, spill stores {spills} bytes, static "
+            f"smem {max(smem, default=0)} bytes")
+    for lib, symbol in (("gf_swar", "gf_swar_kernelILi4E"),
+                        ("gf_swar_u8", "gf_swar_u8_kernelILi4E")):
+        forms = sass_doubling(nvcc, build.build_info[lib]["path"], symbol)
+        say(f"SASS {symbol} doubling forms: " + ", ".join(
+            f"{name} x{n}" for name, n in forms.items()))
+        check(min(forms.values()) > 0 and len(set(forms.values())) == 1,
+              f"the built doubling of {lib} is no longer {ALU_PER_DOUBLING} "
+              f"ALU + {FMA_PER_DOUBLING} FMA-pipe instructions; recount the "
+              "bound")
+    bp_ops = sass_opcodes(nvcc, build.build_info["gf_bitplane"]["path"],
+                          "gf_bitplane_kernel")
+    say("SASS gf_bitplane_kernel opcodes (static): " + ", ".join(
+        f"{op} x{n}" for op, n in list(bp_ops.items())[:16]))
+    check(bp_ops.get("IMMA", 0) > 0,
+          "gf_bitplane's SASS holds no IMMA: the product is not on the int8 "
+          "tensor cores")
 
     # -- 2. kernel vs plain on the card -------------------------------------
     gen = torch.Generator(device=dev)
@@ -295,36 +408,95 @@ def main() -> int:
         return torch.randint(0, 256, shape, dtype=torch.uint8,
                              device=dev, generator=gen)
 
-    worst = 0
-    differing = 0
-    n_cases = 0
+    # per kernel: cases compared, bytes differing, max |got - want|
+    stats = {name: {"cases": 0, "differing": 0, "worst": 0}
+             for name in KERNELS}
+
+    def agree(name, got, want, label):
+        """Count one comparison of a kernel's output with its plain
+        version; fail on any differing byte."""
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{name} {label}: {got.dtype} {tuple(got.shape)} != "
+              f"{want.dtype} {tuple(want.shape)}")
+        diff = 0 if torch.equal(got, want) else int((got != want).sum())
+        err = 0
+        if diff:
+            err = int((got.long() - want.long()).abs().max())
+        st = stats[name]
+        st["cases"] += 1
+        st["differing"] += diff
+        st["worst"] = max(st["worst"], err)
+        check(diff == 0, f"{name} differs from plain on {label}: {diff} "
+                         "elements")
 
     def compare(matrix, data, label):
-        nonlocal worst, differing, n_cases
         coeff = gf_swar.coeff_from_reference(matrix)
-        got = gf_swar.gf_matmul(coeff, data)
-        want = gf_swar.gf_matmul_plain(coeff, data)
-        torch.cuda.synchronize()
-        diff = int((got != want).sum())
-        err = int((got.int() - want.int()).abs().max()) if got.numel() else 0
-        worst = max(worst, err)
-        differing += diff
-        n_cases += 1
-        check(diff == 0, f"gf_swar differs from plain on {label}: "
-                         f"{diff} bytes")
+        agree("gf_swar", gf_swar.gf_matmul(coeff, data),
+              gf_swar.gf_matmul_plain(coeff, data), label)
 
-    for k, m in ((10, 4), (6, 3), (12, 4), (20, 4)):
+    def rec_matrix_for(lost):
+        present = [i for i in range(C.TOTAL_SHARDS) if i not in lost]
+        return gf256.reconstruction_matrix(10, 4, present)[0]
+
+    losses = ((3,), (0, 13), (0, 5, 11), (0, 5, 11, 13))
+    rs_shapes = ((10, 4), (6, 3), (12, 4), (20, 4))
+    for k, m in rs_shapes:
         for n in (1, 4095, MIB, MIB + 3):
             compare(gf256.parity_matrix(k, m), rand(k, n),
                     f"parity({k},{m}) N={n}")
     compare(gf256.parity_matrix(10, 4), rand(3, 10, MIB),
             "batched [3,10,1MiB]")
-    for lost in ((3,), (0, 13), (0, 5, 11), (0, 5, 11, 13)):
-        present = [i for i in range(C.TOTAL_SHARDS) if i not in lost]
-        r, _ = gf256.reconstruction_matrix(10, 4, present)
-        compare(r, rand(10, 8 * MIB), f"reconstruct lost={lost}")
-    say(f"kernel vs plain: {n_cases} cases, {differing} bytes differ, "
-        f"max abs err {worst} (tolerance 0: GF(2^8) arithmetic is exact)")
+    for lost in losses:
+        compare(rec_matrix_for(lost), rand(10, 8 * MIB),
+                f"reconstruct lost={lost}")
+
+    # gf_repack: the u32 words themselves; gf_unpack: the bytes back
+    for label, x in (("[10,1]", rand(10, 1)), ("[10,4095]", rand(10, 4095)),
+                     ("[10,1MiB+3]", rand(10, MIB + 3)),
+                     ("[3,10,1MiB]", rand(3, 10, MIB)),
+                     ("rows 0-9 of [14,1MiB]", rand(14, MIB)[:10]),
+                     ("[10,64MiB]", rand(10, 64 * MIB))):
+        n = x.shape[-1]
+        for tile in sorted({gf_repack.choose_tile(n), 256, 4}):
+            words = gf_repack.repack(x, tile)
+            agree("gf_repack", words, gf_repack.repack_plain(x, tile),
+                  f"{label} tile {tile}")
+            agree("gf_unpack", gf_repack.unpack(words, tile, n),
+                  gf_repack.unpack_plain(words, tile, n),
+                  f"{label} tile {tile}")
+    # gf_swar_u8: ragged widths, a strided row view, a batch
+    for k, m in rs_shapes:
+        coeff = gf256.parity_matrix(k, m)
+        for label, x in ((f"[{k},1]", rand(k, 1)),
+                         (f"[{k},4095]", rand(k, 4095)),
+                         (f"[{k},1MiB+3]", rand(k, MIB + 3)),
+                         (f"rows 0-{k - 1} of [{k + m},1MiB+3]",
+                          rand(k + m, MIB + 3)[:k]),
+                         (f"[3,{k},1MiB]", rand(3, k, MIB))):
+            agree("gf_swar_u8", gf_swar_u8.gf_matmul(coeff, x),
+                  gf_swar_u8.gf_matmul_plain(coeff, x),
+                  f"parity({k},{m}) {label}")
+    # gf_bitplane: four RS shapes, four loss patterns
+    for k, m in rs_shapes:
+        coeff = gf256.parity_matrix(k, m)
+        for label, x in ((f"[{k},4095]", rand(k, 4095)),
+                         (f"[{k},1MiB+3]", rand(k, MIB + 3)),
+                         (f"rows 0-{k - 1} of [{k + m},1MiB]",
+                          rand(k + m, MIB)[:k]),
+                         (f"[2,{k},1MiB]", rand(2, k, MIB))):
+            agree("gf_bitplane", gf_bitplane.gf_matmul(coeff, x),
+                  gf_bitplane.gf_matmul_plain(coeff, x),
+                  f"parity({k},{m}) {label}")
+    for lost in losses:
+        r = rec_matrix_for(lost)
+        x = rand(10, 8 * MIB)
+        agree("gf_bitplane", gf_bitplane.gf_matmul(r, x),
+              gf_bitplane.gf_matmul_plain(r, x), f"reconstruct lost={lost}")
+    for name, st in stats.items():
+        say(f"{name} vs plain: {st['cases']} cases, {st['differing']} "
+            f"elements differ, max abs err {st['worst']} (tolerance 0: "
+            "GF(2^8) arithmetic is exact)")
 
     # -- 3. timing ----------------------------------------------------------
     l2_flush = torch.empty(256 * MIB, dtype=torch.uint8, device=dev)
@@ -332,41 +504,88 @@ def main() -> int:
     def flush():
         l2_flush.zero_()
 
-    rec_matrix, _ = gf256.reconstruction_matrix(
-        10, 4, [i for i in range(14) if i not in (0, 5, 11, 13)]
-    )
+    rec_matrix = rec_matrix_for((0, 5, 11, 13))
     shapes = [
         ("encode [10,1MiB]->[4,1MiB]", gf256.parity_matrix(10, 4), MIB),
         ("rebuild [10,8MiB]->[4,8MiB]", rec_matrix, 8 * MIB),
         ("encode [10,64MiB]->[4,64MiB]", gf256.parity_matrix(10, 4),
          64 * MIB),
     ]
-    timings = []
+    plain_reps = max(3, args.reps // 4)
+    timings = {name: [] for name in KERNELS}
+
+    def timed(name, label, fn, plain, work, library=None, **extra):
+        ms = time_ms(torch, fn, args.reps, flush)
+        plain_ms = time_ms(torch, plain, plain_reps, flush)
+        library_ms = (time_ms(torch, library, args.reps, flush)
+                      if library else None)
+        moved, alu, fma, *tensor = work
+        bound_ms, bound_by = bound(moved, alu, fma, *tensor)
+        row = {
+            "shape": label, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "bytes": moved, "alu_ops": alu,
+            "fma_ops": fma, "bound_share": bound_ms / ms, **extra,
+        }
+        if tensor:
+            row["tensor_ops"] = tensor[0]
+        timings[name].append(row)
+        lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+        say(f"time {name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms{lib}, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{100 * row['bound_share']:.1f}% of bound")
+
     for label, matrix, n in shapes:
         coeff = gf_swar.coeff_from_reference(matrix)
         o, k = matrix.shape
         x = rand(1, k, n)
         out = torch.empty((1, o, n), dtype=torch.uint8, device=dev)
-        ms = time_ms(torch, lambda: gf_swar.launch(coeff, x, out),
-                     args.reps, flush)
-        plain_ms = time_ms(torch, lambda: gf_swar.gf_matmul_plain(coeff, x),
-                           max(3, args.reps // 4), flush)
-        moved, alu, fma = swar_work(matrix, n)
-        bound_ms, bound_by = bound(moved, alu, fma)
-        row = {
-            "shape": label, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "bytes": moved, "alu_ops": alu, "fma_ops": fma,
-            "input_GBps": k * n / ms / 1e6,
-            "bound_share": bound_ms / ms,
-        }
-        timings.append(row)
-        say(f"time {label}: kernel {ms:.4f} ms ({row['input_GBps']:.1f} GB/s "
-            f"in), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}), {100 * row['bound_share']:.1f}% of bound")
-    del l2_flush
-    say("library call: none (no single PyTorch call computes a GF(2^8) "
-        "matrix product)")
+        timed("gf_swar", label, lambda: gf_swar.launch(coeff, x, out),
+              lambda: gf_swar.gf_matmul_plain(coeff, x),
+              (*swar_work(matrix, n), 0))
+        row = timings["gf_swar"][-1]
+        row["input_GBps"] = k * n / row["ms"] / 1e6
+
+    n = 64 * MIB
+    tile = gf_repack.choose_tile(n)
+    x = rand(10, n)
+    words = torch.empty((10, n // 4), dtype=torch.int32, device=dev)
+
+    def permute_copy(t, rows, q):  # the library call: one strided copy
+        return t.view(rows, -1, 4, q).transpose(-1, -2).contiguous()
+
+    timed("gf_repack", f"[10,64MiB] u8 -> [10,16Mi] u32, tile {tile}",
+          lambda: gf_repack.repack(x, tile, out=words),
+          lambda: gf_repack.repack_plain(x, tile), (2 * 10 * n, 0, 0),
+          library=lambda: permute_copy(x, 10, tile // 4))
+    parity_words = gf_repack.repack(rand(4, n), tile)
+    timed("gf_unpack", f"[4,16Mi] u32 -> [4,64MiB] u8, tile {tile}",
+          lambda: gf_repack.unpack(parity_words, tile, n),
+          lambda: gf_repack.unpack_plain(parity_words, tile, n),
+          (2 * 4 * n, 0, 0),
+          library=lambda: permute_copy(parity_words.view(torch.uint8), 4,
+                                       tile // 4))
+    del words, parity_words
+    chunk = 8 * MIB
+    for label, matrix in (("encode [10,64MiB]->[4,64MiB]",
+                           gf256.parity_matrix(10, 4)),
+                          ("rebuild {0,5,11,13} [10,64MiB]->[4,64MiB]",
+                           rec_matrix)):
+        coeff = gf_swar.coeff_from_reference(matrix)
+        timed("gf_swar_u8", label, lambda: gf_swar_u8.gf_matmul(coeff, x),
+              lambda: gf_swar_u8.gf_matmul_plain(coeff, x),
+              (*swar_work(matrix, n), 0))
+        # the plain bit-plane version of [10, 64 MiB] would hold 80 float32
+        # bit rows of 64 Mi columns: it runs on 8 MiB column chunks
+        timed("gf_bitplane", label,
+              lambda: gf_bitplane.gf_matmul(matrix, x),
+              lambda: [gf_bitplane.gf_matmul_plain(matrix, x[:, i:i + chunk])
+                       for i in range(0, n, chunk)],
+              bitplane_work(4, 10, n))
+    del l2_flush, x
+    say("library call: none for gf_swar, gf_swar_u8 and gf_bitplane (no "
+        "single PyTorch call computes a GF(2^8) matrix product); the "
+        "repack's and unpack's is one permute(...).contiguous() copy")
 
     work = tempfile.mkdtemp(prefix="chip_smoke-", dir=args.workdir)
     try:
@@ -408,7 +627,8 @@ def main() -> int:
         n_rows = len(layout.encode_row_plan(size))
 
         staged0 = rs.staged_bytes
-        gf_swar.LAUNCHES.reset()
+        for counter in counters.values():
+            counter.reset()
         pt = PhaseTimer("ec.encode")
         t0 = time.perf_counter()
         encoder.write_ec_files(base, rs=rs, phases=pt)
@@ -440,6 +660,8 @@ def main() -> int:
                 check(sha256_file(base + C.to_ext(sid)) == hashes[sid],
                       f"rebuilt shard {sid} (lost {lost}) hash differs")
         main_launches = gf_swar.LAUNCHES.value
+        path_launches = {"ec_files": {name: c.value
+                                      for name, c in counters.items()}}
 
         check(enc_launches == n_rows,
               f"encode launched {enc_launches} kernels for {n_rows} rows")
@@ -507,28 +729,155 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    enc = timings[0]
-    say(json.dumps({"kernels": [{
-        "name": "gf_swar",
-        "route": "cuda",
-        "source": "seaweedfs_tpu_torch/ops/kernels/csrc/gf_swar.cu",
-        "replaces": "seaweedfs_tpu/ops/pallas/gf_kernel.py:146",
-        "replaces_fn": "seaweedfs_tpu/ops/pallas/gf_kernel.py:_swar_kernel",
-        "launches": main_launches,
-        "launches_encode": enc_launches,
-        "launches_rebuild": [r[2] for r in rebuilds],
-        "max_abs_err": worst,
-        "bytes_differing_vs_plain": differing,
-        "ms": enc["ms"],
-        "plain_ms": enc["plain_ms"],
-        "bound_ms": enc["bound_ms"],
-        "bound_by": enc["bound_by"],
-        "library_ms": None,
-        "shape": enc["shape"],
-        "timings": timings,
-        "encode_GBps": gbps,
-        "rebuild_GBps": [size / r[1] / 1e9 for r in rebuilds],
-    }]}))
+    # -- 7. the device-resident path at full size ---------------------------
+    card = torch.cuda.get_device_name(0)
+
+    def event_time(fn):
+        """(output, ms) of the second of two calls, timed with CUDA
+        events; the first warms the allocator and the caches."""
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    def plain_ref(matrix, data):
+        return gf_swar.gf_matmul_plain(gf_swar.coeff_from_reference(matrix),
+                                       data)
+
+    resident = []
+    checked = 0
+
+    def route(label, matrix, data, want, method):
+        """One route of gf_matmul_fused on a tensor on the card: checked
+        byte for byte against ``want`` (the plain version on the card) and
+        timed with CUDA events."""
+        nonlocal checked
+        got, ms = event_time(lambda: gf_kernel.gf_matmul_fused(
+            matrix, data, method=method))
+        torch.cuda.synchronize()
+        check(got.device == data.device and got.dtype == data.dtype,
+              f"{label} {method}: output kind {got.device} {got.dtype} is "
+              f"not the input's")
+        cmp = got.view(torch.uint8) if got.dtype != torch.uint8 else got
+        diff = 0 if torch.equal(cmp, want) else int((cmp != want).sum())
+        check(diff == 0, f"{label} method={method}: {diff} bytes differ "
+                         "from the plain version")
+        checked += 1
+        in_bytes = data.numel() * data.element_size()
+        row = {"case": label, "method": method or "None", "ms": ms,
+               "input_GBps": in_bytes / ms / 1e6}
+        resident.append(row)
+        say(f"device-resident {label} method={method}: {ms:.4f} ms, "
+            f"{row['input_GBps']:.1f} GB/s in; matches plain")
+        return got
+
+    def say_autotune(o, k):
+        choice = autotune.best(o, k, kind="dev8")
+        times = autotune.measured_times(o, k, "dev8")
+        say(f"autotune dev8 {o}x{k} on {card} ({smi}): chose "
+            f"{choice.method}/{choice.tile_n}; candidates at [{k},"
+            f"{autotune.MEASURE_SHARD_BYTES // MIB}MiB], ms: " + ", ".join(
+                f"{key} {ms:.4f}" for key, ms in sorted(
+                    times.items(), key=lambda kv: kv[1])))
+        return choice
+
+    for counter in counters.values():
+        counter.reset()
+    t7 = time.perf_counter()
+    methods = (None, "repack", "swar", "mxu")
+    parity10 = gf256.parity_matrix(10, 4)
+    slab = rand(10, 64 * MIB)
+    want_p = plain_ref(parity10, slab)
+    want_r = plain_ref(rec_matrix, slab)
+    # the first method=None call has the autotuner measure live
+    first = gf_kernel.gf_matmul_fused(parity10, slab)
+    check(torch.equal(first, want_p), "the autotuned slab differs from plain")
+    del first
+    dev8_choice = say_autotune(4, 10)
+    for method in methods:
+        got = route("slab [10,64MiB] parity", parity10, slab, want_p, method)
+        if method == "mxu":  # and against the bit-plane's own plain version
+            agree("gf_bitplane", got, torch.cat([
+                gf_bitplane.gf_matmul_plain(parity10, slab[:, i:i + chunk])
+                for i in range(0, slab.shape[1], chunk)], dim=1),
+                "slab [10,64MiB] parity")
+        route("slab [10,64MiB] rebuild {0,5,11,13}", rec_matrix, slab,
+              want_r, method)
+    route("slab [10,16Mi] u32 parity", parity10, slab.view(torch.int32),
+          want_p, None)
+    route("slab [10,16Mi] u32 parity", parity10, slab.view(torch.int32),
+          want_p, "swar")
+    del slab, want_p, want_r, got
+
+    for k, m in ((6, 3), (12, 4), (20, 4)):
+        coeff = gf256.parity_matrix(k, m)
+        x = rand(k, 32 * MIB)
+        want = plain_ref(coeff, x)
+        say_autotune(m, k)  # measures live for this shape
+        for method in methods:
+            route(f"sweep RS({k},{m}) [{k},32MiB]", coeff, x, want, method)
+        del x, want
+
+    batch = rand(8, 10, 64 * MIB)
+    want_b = plain_ref(parity10, batch)
+    for method in methods:
+        route("batch [8,10,64MiB]", parity10, batch, want_b, method)
+    lane = batch.permute(1, 0, 2).reshape(10, 8 * 64 * MIB)
+    want_lane = want_b.permute(1, 0, 2).reshape(4, 8 * 64 * MIB)
+    del batch, want_b
+    for method in methods:
+        route("lane-packed [10,8x64MiB]", parity10, lane, want_lane, method)
+    del lane, want_lane
+    torch.cuda.synchronize()
+    path_launches["device_resident"] = {name: c.value
+                                        for name, c in counters.items()}
+    say(f"device-resident path: {checked} outputs match the plain versions "
+        f"in {time.perf_counter() - t7:.1f} s; launches " + " ".join(
+            f"{name}={n}" for name, n in
+            path_launches["device_resident"].items()))
+    for name, n in path_launches["device_resident"].items():
+        check(n > 0, f"the device-resident path launched no {name} kernel")
+    say(json.dumps({"device_resident": resident,
+                    "autotune_dev8_4x10": {
+                        "method": dev8_choice.method,
+                        "tile_n": dev8_choice.tile_n,
+                        "candidates_ms": autotune.measured_times(
+                            4, 10, "dev8")}}))
+
+    kernels = []
+    for name, (_, source, replaces) in KERNELS.items():
+        row = timings[name][0]
+        by_path = {path: counts[name] for path, counts in path_launches.items()}
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": stats[name]["worst"],
+            "bytes_differing_vs_plain": stats[name]["differing"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "shape": row["shape"],
+            "timings": timings[name],
+        }
+        if name == "gf_swar":
+            entry.update(
+                launches_encode=enc_launches,
+                launches_rebuild=[r[2] for r in rebuilds],
+                encode_GBps=gbps,
+                rebuild_GBps=[size / r[1] / 1e9 for r in rebuilds],
+            )
+        kernels.append(entry)
+    say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

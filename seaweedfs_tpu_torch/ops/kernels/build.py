@@ -23,6 +23,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
@@ -34,7 +35,10 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}  # guarded-by: _lock
-# name -> (seconds spent building or 0.0 when cached, ptxas report)
+# name -> (library path, seconds spent building, ptxas report) of the
+# sources prebuild() compiled in this process
+_built: dict[str, tuple[str, float, str]] = {}  # guarded-by: _lock
+# name -> path, seconds spent building (0.0 when cached) and ptxas report
 build_info: dict[str, dict] = {}  # guarded-by: _lock
 
 
@@ -99,16 +103,79 @@ def compile_source(name: str) -> tuple[str, float, str]:
     return lib, seconds, report
 
 
+def prebuild(names) -> None:
+    """Compile every named source at once, one ``nvcc`` process each,
+    so a first use of several kernels waits for the slowest build and
+    not for their sum. Raises the first build's error."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        results = list(pool.map(compile_source, names))
+    with _lock:
+        _built.update(zip(names, results))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The ctypes handle of kernel library ``name``, built on first use
     in this process."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            path, seconds, report = compile_source(name)  # weedcheck: ignore[lock-held-across-blocking]: the lock exists to serialize the one-time nvcc build; contenders must wait for the library
+            path, seconds, report = _built.get(name) or compile_source(name)  # weedcheck: ignore[lock-held-across-blocking]: the lock exists to serialize the one-time nvcc build; contenders must wait for the library
             lib = ctypes.CDLL(path)
             _loaded[name] = lib
             build_info[name] = {
                 "path": path, "seconds": seconds, "ptxas": report,
             }
         return lib
+
+
+def declare(lib: ctypes.CDLL, signatures: dict) -> ctypes.CDLL:
+    """Set ``argtypes`` and ``restype`` of each C function named in
+    ``signatures`` (name -> (argtypes, restype)); returns ``lib``."""
+    for fn, (argtypes, restype) in signatures.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
+def check_rc(error_string, rc: int, what: str) -> None:
+    """Raise when a launcher returned a CUDA error code other than 0;
+    ``error_string`` is the library's C function that names the code."""
+    if rc != 0:
+        msg = error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} (cuda error {rc})")
+
+
+class LaunchCounter:
+    """Number of kernel launches since the last ``reset()``: the proof
+    that a run went through the kernel and not its plain version."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._n = 0  # guarded-by: self._lock
+
+    def add(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = 0
+
+    @property
+    def value(self) -> int:
+        with self._lock:
+            return self._n
+
+
+def rows3d(t):
+    """``t`` [..., rows, W] as the [B, rows, W] view the launchers take,
+    leading dims folded into B: a view where the strides allow, a copy
+    otherwise, and a copy whenever a row's bytes are not consecutive."""
+    if t.stride(-1) != 1:
+        t = t.contiguous()
+    if t.dim() == 2:
+        return t.unsqueeze(0)
+    if t.dim() == 3:
+        return t
+    return t.reshape(-1, *t.shape[-2:])

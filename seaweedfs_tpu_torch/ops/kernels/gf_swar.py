@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .build import LaunchCounter
 
 # Shape limits of the kernel (csrc/gf_swar.cu: kMaxOut, kMaxIn); the
 # wrapper raises past them.
@@ -32,28 +33,6 @@ MAX_IN = 64
 MAX_BATCH = 65535
 # Row width quantum of the kernel: one uint4 (16 bytes) per thread.
 QUANTUM = 16
-
-
-class LaunchCounter:
-    """Number of kernel launches since the last ``reset()``: the proof
-    that a run went through the kernel and not its plain version."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._n = 0  # guarded-by: self._lock
-
-    def add(self) -> None:
-        with self._lock:
-            self._n += 1
-
-    def reset(self) -> None:
-        with self._lock:
-            self._n = 0
-
-    @property
-    def value(self) -> int:
-        with self._lock:
-            return self._n
 
 
 LAUNCHES = LaunchCounter()
