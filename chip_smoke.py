@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (seaweedfs_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--volume-mib 1024] [--workdir DIR]
+        [--batch-volumes 4] [--batch-volume-mib 256]
 
 Run from the root of the repository, on a machine with a CUDA card and
 ``nvcc``. Phases, each of which must pass:
@@ -12,7 +13,9 @@ Run from the root of the repository, on a machine with a CUDA card and
 2. every kernel against its plain PyTorch version on the card, byte for
    byte, at the shapes the main paths give it: gf_swar; gf_repack's u32
    words and gf_unpack; gf_swar_u8 on ragged widths, a strided row view
-   and a batch; gf_bitplane on four RS shapes and four loss patterns;
+   and a batch; gf_bitplane, gf_vpu, gf_fused_u8 (tiles of 8, 16 and
+   32 KiB and a scalar tile), gf_swar's batch-fastest launch and
+   gf_swar_fusedv on four RS shapes and four loss patterns;
 3. kernel timing with CUDA events (L2 flushed between launches) beside
    the plain version's time, the card's bound for the same work and,
    where one PyTorch call computes the same function, that call's time;
@@ -33,9 +36,21 @@ Run from the root of the repository, on a machine with a CUDA card and
    through each method for parity and the {0,5,11,13} reconstruction and
    through the device-u32 route; the RS(6,3)/(12,4)/(20,4) sweep at
    32 MiB a shard; an 8-volume batch [8, 10, 64 MiB], as a batch and
-   lane-packed as [10, 8·64 MiB]. Every output is checked against the
-   plain versions on the card, GB/s is printed per route, and launch
-   counts read around the phase prove each of the five kernels ran.
+   lane-packed as [10, 8·64 MiB]; the vpu route on a host array. Every
+   output is checked against the plain versions on the card, GB/s is
+   printed per route, and launch counts read around the phase prove each
+   of the path's six kernels ran;
+8. the three sweeps of tools/exp_dev8.py, tools/exp_dev8b.py and
+   tools/exp_batched.py at their full default sizes, through
+   seaweedfs_tpu_torch/tools: every row byte-exact against the plain
+   version and timed; launch counts read around the phase prove that
+   gf_vpu, gf_repack, gf_fused_u8, gf_swar_fusedv and the batch-fastest
+   launch ran;
+9. the multi-volume encode: ``write_ec_files_batch`` of
+   ``--batch-volumes`` volumes of ``--batch-volume-mib`` made from
+   ``--seed`` plus one volume of odd size (a second group), one parity
+   launch per lane-packed chunk, every shard file hashing equal to
+   ``write_ec_files`` of the same volume; GB/s and the phase split.
 
 It prints one JSON line describing every kernel, then, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -84,6 +99,16 @@ DOUBLING_FORMS = {
 }
 ALU_PER_DOUBLING = sum(p == "alu" for p, _ in DOUBLING_FORMS.values())
 FMA_PER_DOUBLING = sum(p == "fma" for p, _ in DOUBLING_FORMS.values())
+# The instructions of one doubling of a byte alone in a 32-bit lane, as
+# gf_vpu's kernel does it: the SWAR forms without the per-byte mask.
+VPU_DOUBLING_FORMS = {
+    "SHF.R x>>7": ("alu", r"SHF\.R\.U32\.HI R\d+, RZ, 0x7, R\d+"),
+    "LOP3 (x<<1&0xfe)^t": ("alu", r"LOP3\.LUT R\d+, R\d+, 0xfe, R\d+, 0x78"),
+    "IMAD.SHL x<<1": ("fma", r"IMAD\.SHL\.U32 R\d+, R\d+, 0x2, RZ"),
+    "IMAD *0x1d": ("fma", r"IMAD R\d+, R\d+, 0x1d, RZ"),
+}
+VPU_ALU_PER_DOUBLING = sum(p == "alu" for p, _ in VPU_DOUBLING_FORMS.values())
+VPU_FMA_PER_DOUBLING = sum(p == "fma" for p, _ in VPU_DOUBLING_FORMS.values())
 
 MIB = 1 << 20
 GOLDEN_BLOCKS = dict(large_block_size=10_000, small_block_size=100,
@@ -108,14 +133,14 @@ def sass_body(nvcc: str, lib_path: str, symbol: str) -> str:
     return sass.split(symbol, 1)[1].split("Function :", 1)[0]
 
 
-def sass_doubling(nvcc: str, lib_path: str,
-                  symbol: str = "gf_swar_kernelILi4E") -> dict[str, int]:
-    """How often each instruction form of DOUBLING_FORMS appears in the
-    built SASS of a swar kernel's o = 4 instantiation, the one encode,
-    rebuild and the RS(10,4) slab launch."""
+def sass_doubling(nvcc: str, lib_path: str, symbol: str,
+                  forms=DOUBLING_FORMS) -> dict[str, int]:
+    """How often each instruction form of ``forms`` appears in the built
+    SASS of a kernel's o = 4 instantiation, the one encode, rebuild and
+    the RS(10,4) slab launch."""
     body = sass_body(nvcc, lib_path, symbol)
     return {name: len(re.findall(pattern, body))
-            for name, (_, pattern) in DOUBLING_FORMS.items()}
+            for name, (_, pattern) in forms.items()}
 
 
 def sass_opcodes(nvcc: str, lib_path: str, symbol: str) -> dict[str, int]:
@@ -142,6 +167,20 @@ def swar_work(matrix: np.ndarray, n_bytes: int, batch: int = 1):
             words * FMA_PER_DOUBLING * xtimes)
 
 
+def vpu_work(matrix: np.ndarray, n_bytes: int, batch: int = 1):
+    """(bytes moved, ALU-pipe ops, FMA-pipe ops) of one gf_vpu call: the
+    SWAR count per byte instead of per u32 word, each doubling the
+    VPU_DOUBLING_FORMS."""
+    o, k = matrix.shape
+    tops = [int(c).bit_length() for c in np.bitwise_or.reduce(matrix, axis=0)]
+    xtimes = sum(max(0, t - 1) for t in tops)
+    xors = int(np.unpackbits(matrix).sum())
+    cols = batch * n_bytes
+    return (batch * (k + o) * n_bytes,
+            cols * (VPU_ALU_PER_DOUBLING * xtimes + xors),
+            cols * VPU_FMA_PER_DOUBLING * xtimes)
+
+
 def bitplane_work(o: int, k: int, n_bytes: int, batch: int = 1):
     """(bytes moved, ALU-pipe ops, FMA-pipe ops, int8 tensor ops) of one
     gf_bitplane call, counted as the kernel's design does the work and not
@@ -163,24 +202,6 @@ def bound(moved: int, alu: int, fma: int,
                 tensor / INT8_TENSOR_OPS_PER_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
-
-
-def time_ms(torch, fn, reps: int, flush) -> float:
-    """Median milliseconds of ``fn()`` on the current stream, timed with
-    CUDA events, with the L2 flushed before every timed call."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        flush()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def device_activity(torch, fn):
@@ -282,6 +303,9 @@ def main() -> int:
                     help="where the volume and shards go (default: a "
                          "temporary directory, removed at the end)")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--batch-volumes", type=int, default=4,
+                    help="volumes of one size in phase 9's batch encode")
+    ap.add_argument("--batch-volume-mib", type=int, default=256)
     args = ap.parse_args()
 
     import torch
@@ -303,12 +327,15 @@ def main() -> int:
 
 
 KERNELS = {
-    # name: (library, source, TPU kernel it replaces)
+    # name: (library, source, TPU kernels it replaces: the first in
+    # "replaces", the others in "also_replaces")
     "gf_swar": ("gf_swar", "seaweedfs_tpu_torch/ops/kernels/csrc/gf_swar.cu",
                 "seaweedfs_tpu/ops/pallas/gf_kernel.py:146"),
     "gf_repack": ("gf_repack",
                   "seaweedfs_tpu_torch/ops/kernels/csrc/gf_repack.cu",
-                  "seaweedfs_tpu/ops/pallas/gf_kernel.py:266"),
+                  "seaweedfs_tpu/ops/pallas/gf_kernel.py:266",
+                  "tools/exp_dev8.py:31", "tools/exp_dev8b.py:23",
+                  "tools/exp_dev8b.py:32"),
     "gf_unpack": ("gf_repack",
                   "seaweedfs_tpu_torch/ops/kernels/csrc/gf_repack.cu",
                   "seaweedfs_tpu/ops/pallas/gf_kernel.py:279"),
@@ -318,6 +345,27 @@ KERNELS = {
     "gf_bitplane": ("gf_bitplane",
                     "seaweedfs_tpu_torch/ops/kernels/csrc/gf_bitplane.cu",
                     "seaweedfs_tpu/ops/pallas/gf_kernel.py:93"),
+    "gf_vpu": ("gf_vpu", "seaweedfs_tpu_torch/ops/kernels/csrc/gf_vpu.cu",
+               "seaweedfs_tpu/ops/pallas/gf_kernel.py:106"),
+    "gf_fused_u8": ("gf_fused_u8",
+                    "seaweedfs_tpu_torch/ops/kernels/csrc/gf_fused_u8.cu",
+                    "tools/exp_dev8b.py:54"),
+    "gf_swar_fusedv": ("gf_swar",
+                       "seaweedfs_tpu_torch/ops/kernels/csrc/gf_swar.cu",
+                       "tools/exp_batched.py:27"),
+    "gf_swar_batch_fastest": (
+        "gf_swar", "seaweedfs_tpu_torch/ops/kernels/csrc/gf_swar.cu",
+        "tools/exp_batched.py:64"),
+}
+# the kernels each path must launch (counts read around the path's run)
+PATH_KERNELS = {
+    "ec_files": ("gf_swar",),
+    "device_resident": ("gf_swar", "gf_repack", "gf_unpack", "gf_swar_u8",
+                        "gf_bitplane", "gf_vpu"),
+    "sweeps": ("gf_swar", "gf_repack", "gf_swar_u8", "gf_bitplane",
+               "gf_vpu", "gf_fused_u8", "gf_swar_fusedv",
+               "gf_swar_batch_fastest"),
+    "batch_encode": ("gf_swar",),
 }
 
 
@@ -327,11 +375,14 @@ def run(args, torch, here: str) -> int:
     from seaweedfs_tpu_torch.ops.kernels import (
         build,
         gf_bitplane,
+        gf_fused_u8,
         gf_kernel,
         gf_repack,
         gf_swar,
         gf_swar_u8,
+        gf_vpu,
     )
+    from seaweedfs_tpu_torch.ops.timing import l2_flusher, time_ms
     from seaweedfs_tpu_torch.storage.erasure_coding import (
         constants as C,
         encoder,
@@ -346,9 +397,24 @@ def run(args, torch, here: str) -> int:
         "gf_unpack": gf_repack.UNPACK_LAUNCHES,
         "gf_swar_u8": gf_swar_u8.LAUNCHES,
         "gf_bitplane": gf_bitplane.LAUNCHES,
+        "gf_vpu": gf_vpu.LAUNCHES,
+        "gf_fused_u8": gf_fused_u8.LAUNCHES,
+        "gf_swar_fusedv": gf_swar.FUSEDV_LAUNCHES,
+        "gf_swar_batch_fastest": gf_swar.BATCH_FASTEST_LAUNCHES,
     }
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    path_launches: dict[str, dict[str, int]] = {}
+
+    def reset_counts():
+        for counter in counters.values():
+            counter.reset()
+
+    def check_path(path):
+        """Fail unless every kernel of ``path`` was launched in its run."""
+        for name in PATH_KERNELS[path]:
+            check(path_launches[path][name] > 0,
+                  f"the {path} path launched no {name} kernel")
 
     # -- 1. header and build ------------------------------------------------
     smi = subprocess.run(
@@ -363,10 +429,11 @@ def run(args, torch, here: str) -> int:
     ).stdout.strip().splitlines()[-1]
     say(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"nvcc {nvcc_ver}; device {torch.cuda.get_device_name(0)}")
-    libs = sorted({lib for lib, _, _ in KERNELS.values()})
+    libs = sorted({lib for lib, *_ in KERNELS.values()})
     t0 = time.perf_counter()
     build.prebuild(libs)
-    for mod in (gf_swar, gf_repack, gf_swar_u8, gf_bitplane):
+    for mod in (gf_swar, gf_repack, gf_swar_u8, gf_bitplane, gf_vpu,
+                gf_fused_u8):
         mod.library()
     say(f"build {', '.join(libs)}: {time.perf_counter() - t0:.3f} s wall, "
         "one nvcc each, in parallel")
@@ -384,14 +451,38 @@ def run(args, torch, here: str) -> int:
             f"{max(regs, default=0)}, spill stores {spills} bytes, static "
             f"smem {max(smem, default=0)} bytes")
     for lib, symbol in (("gf_swar", "gf_swar_kernelILi4E"),
-                        ("gf_swar_u8", "gf_swar_u8_kernelILi4E")):
+                        ("gf_swar_u8", "gf_swar_u8_kernelILi4E"),
+                        ("gf_swar", "gf_swar_fusedv_kernelILi4E"),
+                        ("gf_swar", "gf_swar_batch_fastest_kernelILi4E")):
         forms = sass_doubling(nvcc, build.build_info[lib]["path"], symbol)
         say(f"SASS {symbol} doubling forms: " + ", ".join(
             f"{name} x{n}" for name, n in forms.items()))
         check(min(forms.values()) > 0 and len(set(forms.values())) == 1,
-              f"the built doubling of {lib} is no longer {ALU_PER_DOUBLING} "
-              f"ALU + {FMA_PER_DOUBLING} FMA-pipe instructions; recount the "
-              "bound")
+              f"the built doubling of {symbol} is no longer "
+              f"{ALU_PER_DOUBLING} ALU + {FMA_PER_DOUBLING} FMA-pipe "
+              "instructions; recount the bound")
+    # gf_fused_u8 does the same doublings; its index math adds forms of
+    # its own (an IMAD.SHL by 2), so its counts are shown, not checked
+    forms = sass_doubling(nvcc, build.build_info["gf_fused_u8"]["path"],
+                          "gf_fused_u8_kernelILi4E")
+    say("SASS gf_fused_u8_kernelILi4E doubling forms: " + ", ".join(
+        f"{name} x{n}" for name, n in forms.items()))
+    vpu_forms = sass_doubling(nvcc, build.build_info["gf_vpu"]["path"],
+                              "gf_vpu_kernelILi4E", VPU_DOUBLING_FORMS)
+    say("SASS gf_vpu_kernelILi4E doubling forms: " + ", ".join(
+        f"{name} x{n}" for name, n in vpu_forms.items()))
+    check(min(vpu_forms.values()) > 0 and len(set(vpu_forms.values())) == 1,
+          f"the built doubling of gf_vpu is no longer {VPU_ALU_PER_DOUBLING} "
+          f"ALU + {VPU_FMA_PER_DOUBLING} FMA-pipe instructions; recount the "
+          "bound")
+    vpu_ops = sass_opcodes(nvcc, build.build_info["gf_vpu"]["path"],
+                           "gf_vpu_kernelILi4E")
+    say("SASS gf_vpu_kernelILi4E opcodes (static): " + ", ".join(
+        f"{op} x{n}" for op, n in list(vpu_ops.items())[:16]))
+    fu_ops = sass_opcodes(nvcc, build.build_info["gf_fused_u8"]["path"],
+                          "gf_fused_u8_kernelILi4E")
+    say("SASS gf_fused_u8_kernelILi4E opcodes (static): " + ", ".join(
+        f"{op} x{n}" for op, n in list(fu_ops.items())[:16]))
     bp_ops = sass_opcodes(nvcc, build.build_info["gf_bitplane"]["path"],
                           "gf_bitplane_kernel")
     say("SASS gf_bitplane_kernel opcodes (static): " + ", ".join(
@@ -493,16 +584,69 @@ def run(args, torch, here: str) -> int:
         x = rand(10, 8 * MIB)
         agree("gf_bitplane", gf_bitplane.gf_matmul(r, x),
               gf_bitplane.gf_matmul_plain(r, x), f"reconstruct lost={lost}")
+    # gf_vpu: the route's inputs (ragged, strided rows, a batch), four RS
+    # shapes and four loss patterns
+    for k, m in rs_shapes:
+        coeff = gf256.parity_matrix(k, m)
+        for label, x in ((f"[{k},1]", rand(k, 1)),
+                         (f"[{k},4095]", rand(k, 4095)),
+                         (f"[{k},1MiB+3]", rand(k, MIB + 3)),
+                         (f"rows 0-{k - 1} of [{k + m},1MiB+3]",
+                          rand(k + m, MIB + 3)[:k]),
+                         (f"[3,{k},1MiB]", rand(3, k, MIB))):
+            agree("gf_vpu", gf_vpu.gf_matmul(coeff, x),
+                  gf_vpu.gf_matmul_plain(coeff, x),
+                  f"parity({k},{m}) {label}")
+    for lost in losses:
+        r = rec_matrix_for(lost)
+        x = rand(10, 8 * MIB)
+        agree("gf_vpu", gf_vpu.gf_matmul(r, x), gf_vpu.gf_matmul_plain(r, x),
+              f"reconstruct lost={lost}")
+    # gf_fused_u8: the sweep's tiles, a scalar tile (quarter of 25 bytes),
+    # a ragged width and strided rows
+    for k, m in rs_shapes:
+        coeff = gf256.parity_matrix(k, m)
+        for tile in (8192, 16384, 32768, 100):
+            for label, x in ((f"[{k},1MiB+3]", rand(k, MIB + 3)),
+                             (f"rows 0-{k - 1} of [{k + m},1MiB]",
+                              rand(k + m, MIB)[:k]),
+                             (f"[2,{k},65536]", rand(2, k, 65536))):
+                agree("gf_fused_u8", gf_fused_u8.gf_matmul(coeff, x, tile),
+                      gf_fused_u8.gf_matmul_plain(coeff, x, tile),
+                      f"parity({k},{m}) tile {tile} {label}")
+    for lost in losses:
+        r = rec_matrix_for(lost)
+        x = rand(10, 8 * MIB)
+        agree("gf_fused_u8", gf_fused_u8.gf_matmul(r, x, 16384),
+              gf_fused_u8.gf_matmul_plain(r, x, 16384),
+              f"reconstruct lost={lost} tile 16384")
+    # gf_swar's two word forms: V volumes of u32 words, ragged word counts
+
+    def words_plain(coeff, words):
+        return gf_swar.gf_matmul_plain(
+            coeff, words.view(torch.uint8)).view(torch.int32)
+
+    for name, form in (("gf_swar_fusedv", gf_swar.gf_matmul_fusedv),
+                       ("gf_swar_batch_fastest",
+                        gf_swar.gf_matmul_batch_fastest)):
+        for k, m in rs_shapes:
+            coeff = gf256.parity_matrix(k, m)
+            for v, n4 in ((1, 1001), (3, MIB // 4), (8, 2 * MIB)):
+                w = rand(v, k, 4 * n4).view(torch.int32)
+                agree(name, form(coeff, w), words_plain(coeff, w),
+                      f"parity({k},{m}) [{v},{k},{n4}] words")
+        for lost in losses:
+            r = rec_matrix_for(lost)
+            w = rand(8, 10, 4 * MIB).view(torch.int32)
+            agree(name, form(r, w), words_plain(r, w),
+                  f"reconstruct lost={lost} [8,10,1Mi] words")
     for name, st in stats.items():
         say(f"{name} vs plain: {st['cases']} cases, {st['differing']} "
             f"elements differ, max abs err {st['worst']} (tolerance 0: "
             "GF(2^8) arithmetic is exact)")
 
     # -- 3. timing ----------------------------------------------------------
-    l2_flush = torch.empty(256 * MIB, dtype=torch.uint8, device=dev)
-
-    def flush():
-        l2_flush.zero_()
+    flush = l2_flusher(dev)
 
     rec_matrix = rec_matrix_for((0, 5, 11, 13))
     shapes = [
@@ -515,9 +659,9 @@ def run(args, torch, here: str) -> int:
     timings = {name: [] for name in KERNELS}
 
     def timed(name, label, fn, plain, work, library=None, **extra):
-        ms = time_ms(torch, fn, args.reps, flush)
-        plain_ms = time_ms(torch, plain, plain_reps, flush)
-        library_ms = (time_ms(torch, library, args.reps, flush)
+        ms = time_ms(fn, args.reps, 3, flush)
+        plain_ms = time_ms(plain, plain_reps, 3, flush)
+        library_ms = (time_ms(library, args.reps, 3, flush)
                       if library else None)
         moved, alu, fma, *tensor = work
         bound_ms, bound_by = bound(moved, alu, fma, *tensor)
@@ -582,10 +726,39 @@ def run(args, torch, here: str) -> int:
               lambda: [gf_bitplane.gf_matmul_plain(matrix, x[:, i:i + chunk])
                        for i in range(0, n, chunk)],
               bitplane_work(4, 10, n))
-    del l2_flush, x
-    say("library call: none for gf_swar, gf_swar_u8 and gf_bitplane (no "
-        "single PyTorch call computes a GF(2^8) matrix product); the "
-        "repack's and unpack's is one permute(...).contiguous() copy")
+        timed("gf_vpu", label, lambda: gf_vpu.gf_matmul(coeff, x),
+              lambda: gf_vpu.gf_matmul_plain(coeff, x), vpu_work(matrix, n))
+        agree("gf_vpu", gf_vpu.gf_matmul(coeff, x),
+              gf_vpu.gf_matmul_plain(coeff, x), label)
+    parity10 = gf256.parity_matrix(10, 4)
+    coeff = gf_swar.coeff_from_reference(parity10)
+    for tile in (8192, 16384, 32768):
+        label = f"encode [10,64MiB]->[4,64MiB], tile {tile}"
+        timed("gf_fused_u8", label,
+              lambda: gf_fused_u8.gf_matmul(coeff, x, tile),
+              lambda: gf_fused_u8.gf_matmul_plain(coeff, x, tile),
+              swar_work(parity10, n), tile=tile)
+        agree("gf_fused_u8", gf_fused_u8.gf_matmul(coeff, x, tile),
+              gf_fused_u8.gf_matmul_plain(coeff, x, tile), label)
+    del x
+    # the batch of exp_batched and of the 8-volume encode: [8, 10, 8 MiB]
+    # as u32 words, and gf_swar's own batch launch beside its two forms
+    batch_words = rand(8, 10, 8 * MIB).view(torch.int32)
+    label = "encode [8,10,2Mi] words -> [8,4,2Mi]"
+    work = swar_work(parity10, 8 * MIB, batch=8)
+    for name, form in (("gf_swar_fusedv", gf_swar.gf_matmul_fusedv),
+                       ("gf_swar_batch_fastest",
+                        gf_swar.gf_matmul_batch_fastest),
+                       ("gf_swar", gf_kernel.u32_route)):
+        timed(name, label, lambda: form(coeff, batch_words),
+              lambda: words_plain(coeff, batch_words), work)
+        agree(name, form(coeff, batch_words),
+              words_plain(coeff, batch_words), label)
+    del batch_words
+    say("library call: none for gf_swar and its two word forms, gf_swar_u8, "
+        "gf_bitplane, gf_vpu and gf_fused_u8 (no single PyTorch call "
+        "computes a GF(2^8) matrix product); the repack's and unpack's is "
+        "one permute(...).contiguous() copy")
 
     work = tempfile.mkdtemp(prefix="chip_smoke-", dir=args.workdir)
     try:
@@ -627,8 +800,7 @@ def run(args, torch, here: str) -> int:
         n_rows = len(layout.encode_row_plan(size))
 
         staged0 = rs.staged_bytes
-        for counter in counters.values():
-            counter.reset()
+        reset_counts()
         pt = PhaseTimer("ec.encode")
         t0 = time.perf_counter()
         encoder.write_ec_files(base, rs=rs, phases=pt)
@@ -660,8 +832,9 @@ def run(args, torch, here: str) -> int:
                 check(sha256_file(base + C.to_ext(sid)) == hashes[sid],
                       f"rebuilt shard {sid} (lost {lost}) hash differs")
         main_launches = gf_swar.LAUNCHES.value
-        path_launches = {"ec_files": {name: c.value
-                                      for name, c in counters.items()}}
+        path_launches["ec_files"] = {name: c.value
+                                     for name, c in counters.items()}
+        check_path("ec_files")
 
         check(enc_launches == n_rows,
               f"encode launched {enc_launches} kernels for {n_rows} rows")
@@ -785,10 +958,9 @@ def run(args, torch, here: str) -> int:
                     times.items(), key=lambda kv: kv[1])))
         return choice
 
-    for counter in counters.values():
-        counter.reset()
+    reset_counts()
     t7 = time.perf_counter()
-    methods = (None, "repack", "swar", "mxu")
+    methods = (None, "repack", "swar", "mxu", "vpu")
     parity10 = gf256.parity_matrix(10, 4)
     slab = rand(10, 64 * MIB)
     want_p = plain_ref(parity10, slab)
@@ -832,6 +1004,18 @@ def run(args, torch, here: str) -> int:
     for method in methods:
         route("lane-packed [10,8x64MiB]", parity10, lane, want_lane, method)
     del lane, want_lane
+    # the vpu route on a host array: to the card and back as numpy
+    host = np.random.default_rng(args.seed).integers(
+        0, 256, (10, 8 * MIB), dtype=np.uint8)
+    got = gf_kernel.gf_matmul_fused(parity10, host, method="vpu")
+    check(isinstance(got, np.ndarray) and got.shape == (4, 8 * MIB),
+          "the host vpu route did not return numpy [4, 8 MiB]")
+    check(np.array_equal(got, plain_ref(
+        parity10, torch.from_numpy(host).to(dev)).cpu().numpy()),
+        "the host vpu route differs from the plain version")
+    checked += 1
+    say("device-resident host [10,8MiB] method=vpu: numpy back, matches "
+        "plain")
     torch.cuda.synchronize()
     path_launches["device_resident"] = {name: c.value
                                         for name, c in counters.items()}
@@ -839,8 +1023,7 @@ def run(args, torch, here: str) -> int:
         f"in {time.perf_counter() - t7:.1f} s; launches " + " ".join(
             f"{name}={n}" for name, n in
             path_launches["device_resident"].items()))
-    for name, n in path_launches["device_resident"].items():
-        check(n > 0, f"the device-resident path launched no {name} kernel")
+    check_path("device_resident")
     say(json.dumps({"device_resident": resident,
                     "autotune_dev8_4x10": {
                         "method": dev8_choice.method,
@@ -848,8 +1031,120 @@ def run(args, torch, here: str) -> int:
                         "candidates_ms": autotune.measured_times(
                             4, 10, "dev8")}}))
 
+    # -- 8. the sweeps at their full default sizes --------------------------
+    from seaweedfs_tpu_torch.tools import exp_batched, exp_dev8, exp_dev8b
+
+    reset_counts()
+    t8 = time.perf_counter()
+    sweeps = {}
+    for mod in (exp_dev8, exp_dev8b, exp_batched):
+        name = mod.__name__.rsplit(".", 1)[1]
+        sweeps[name] = mod.main(device=dev, seed=args.seed)
+        for row in sweeps[name]:
+            check(row["exact"], f"{name} row {row['label']!r} differs from "
+                                "the plain version")
+    torch.cuda.synchronize()
+    path_launches["sweeps"] = {name: c.value for name, c in counters.items()}
+    say(f"sweeps: {sum(len(r) for r in sweeps.values())} rows byte-exact in "
+        f"{time.perf_counter() - t8:.1f} s; launches " + " ".join(
+            f"{name}={n}" for name, n in path_launches["sweeps"].items()))
+    check_path("sweeps")
+    say(json.dumps({"sweeps": sweeps, "card": smi}))
+
+    # -- 9. multi-volume encode ---------------------------------------------
+    batch_dir = tempfile.mkdtemp(prefix="chip_smoke-batch-", dir=args.workdir)
+    try:
+        sizes = ([args.batch_volume_mib * MIB] * args.batch_volumes
+                 + [64 * MIB + 12345])
+        bases = [os.path.join(batch_dir, str(i + 1))
+                 for i in range(len(sizes))]
+        t0 = time.perf_counter()
+        for i, (b, size) in enumerate(zip(bases, sizes)):
+            make_volume(b, size, args.seed + 1 + i)
+        say(f"batch volumes: {len(sizes)} of {sizes} bytes from seed "
+            f"{args.seed + 1}.. in {time.perf_counter() - t0:.2f} s")
+        # one parity launch per lane-packed chunk of each size group
+        want_launches = 0
+        for size in set(sizes):
+            nvol = sizes.count(size)
+            batch, _ = encoder.choose_pipeline(size, C.DATA_SHARDS, None,
+                                               volumes=nvol)
+            want_launches += sum(-(-bs // batch)
+                                 for _, bs in layout.encode_row_plan(size))
+        per_volume = sum(
+            sum(-(-bs // encoder.choose_pipeline(size)[0])
+                for _, bs in layout.encode_row_plan(size))
+            for size in sizes)
+        reset_counts()
+        pt = PhaseTimer("ec.encode.batch")
+        t0 = time.perf_counter()
+        out = encoder.write_ec_files_batch(bases, phases=pt, device=dev)
+        batch_s = time.perf_counter() - t0
+        summary = pt.summary()
+        torch.cuda.synchronize()
+        path_launches["batch_encode"] = {name: c.value
+                                         for name, c in counters.items()}
+        check_path("batch_encode")
+        launches = path_launches["batch_encode"]["gf_swar"]
+        check(launches == want_launches,
+              f"batch encode launched {launches} parity kernels for "
+              f"{want_launches} lane-packed chunks")
+        check(sorted(out) == sorted(bases), "batch encode returned other "
+                                            "volumes")
+        hashes = {b: [sha256_file(p) for p in out[b]] for b in bases}
+        # each volume alone through write_ec_files, from a hard link
+        single_dir = os.path.join(batch_dir, "single")
+        os.mkdir(single_dir)
+        rs = RSCodec(C.DATA_SHARDS, C.PARITY_SHARDS, device=dev)
+        single_s = 0.0
+        for b in bases:
+            s_base = os.path.join(single_dir, os.path.basename(b))
+            os.link(b + ".dat", s_base + ".dat")
+            t0 = time.perf_counter()
+            paths = encoder.write_ec_files(s_base, rs=rs)
+            single_s += time.perf_counter() - t0
+            for i, p in enumerate(paths):
+                check(sha256_file(p) == hashes[b][i],
+                      f"batch shard {C.to_ext(i)} of volume {b} differs "
+                      "from write_ec_files")
+        # the batch once more, after the one-by-one pass, for the spread
+        t0 = time.perf_counter()
+        encoder.write_ec_files_batch(bases, device=dev)
+        batch2_s = time.perf_counter() - t0
+        total_bytes = sum(sizes)
+        phases = summary["phases"]
+        batch_row = {
+            "volumes": len(sizes), "dat_bytes": total_bytes,
+            "seconds": batch_s, "GBps": total_bytes / batch_s / 1e9,
+            "seconds_again": batch2_s,
+            "GBps_again": total_bytes / batch2_s / 1e9,
+            "parity_launches": launches, "launches_one_per_volume":
+                per_volume,
+            "single_seconds": single_s,
+            "single_GBps": total_bytes / single_s / 1e9,
+            "phases": {p: phases[p]["seconds"] for p in phases},
+            "notes": summary.get("notes", {}),
+        }
+        say(f"batch encode of {len(sizes)} volumes ({total_bytes} bytes, "
+            f"two size groups): {batch_s:.3f} s = {batch_row['GBps']:.3f} "
+            f"GB/s, {launches} parity launches (one per lane-packed chunk; "
+            f"{per_volume} one volume at a time); 14 x {len(sizes)} shard "
+            f"files hash equal to write_ec_files ({single_s:.3f} s = "
+            f"{batch_row['single_GBps']:.3f} GB/s one by one); the batch "
+            f"again after them: {batch2_s:.3f} s = "
+            f"{batch_row['GBps_again']:.3f} GB/s")
+        say("batch encode phases (busy s): " + " ".join(
+            f"{p}={phases[p]['seconds']:.3f}"
+            for p in ("read", "stage", "h2d", "codec", "write", "flush")
+            if p in phases
+        ) + f" wall={summary['wall_seconds']:.3f} "
+            f"notes={json.dumps(summary.get('notes', {}))}")
+        say(json.dumps({"batch_encode": batch_row}))
+    finally:
+        shutil.rmtree(batch_dir, ignore_errors=True)
+
     kernels = []
-    for name, (_, source, replaces) in KERNELS.items():
+    for name, (_, source, replaces, *also) in KERNELS.items():
         row = timings[name][0]
         by_path = {path: counts[name] for path, counts in path_launches.items()}
         entry = {
@@ -857,6 +1152,7 @@ def run(args, torch, here: str) -> int:
             "route": "cuda",
             "source": source,
             "replaces": replaces,
+            "also_replaces": also,
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": stats[name]["worst"],

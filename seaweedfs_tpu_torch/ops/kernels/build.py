@@ -5,8 +5,9 @@ Each kernel source under ``csrc/`` is compiled by ``nvcc`` for Hopper
 ``ctypes``. Nothing includes PyTorch's headers, so a build takes seconds.
 
 Builds land in ``_build/`` beside this file (listed in ``.gitignore``),
-keyed by a hash of the source and the flags: a changed source builds
-anew, an unchanged one loads what is there. Several processes may build
+keyed by a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags: a changed source or header builds anew, an unchanged one
+loads what is there. Several processes may build
 at once (a test run with many workers): each compiles to a private
 temporary name and ``os.replace``s it into place, so a reader never sees
 a half-written library.
@@ -63,8 +64,10 @@ def find_nvcc() -> str:
 
 def _source_key(src: str, flags: tuple[str, ...]) -> str:
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    headers = sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, n) for n in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update("\0".join(flags).encode())
     return h.hexdigest()[:16]
 
@@ -106,10 +109,15 @@ def compile_source(name: str) -> tuple[str, float, str]:
 def prebuild(names) -> None:
     """Compile every named source at once, one ``nvcc`` process each,
     so a first use of several kernels waits for the slowest build and
-    not for their sum. Raises the first build's error."""
+    not for their sum. Raises once every build has ended, with the
+    errors of all that failed."""
     names = list(names)
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
-        results = list(pool.map(compile_source, names))
+        futures = [pool.submit(compile_source, n) for n in names]
+    failed = [f.exception() for f in futures if f.exception() is not None]
+    if failed:
+        raise RuntimeError("\n\n".join(str(e) for e in failed))
+    results = [f.result() for f in futures]
     with _lock:
         _built.update(zip(names, results))
 

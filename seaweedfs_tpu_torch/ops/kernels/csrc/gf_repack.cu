@@ -16,7 +16,8 @@
 // On Hopper this is a byte permutation, bound by bytes: each byte is read
 // once and written once. The vector path gives a thread 16 words of one
 // tile: it loads one 16-byte word from each of the four quarters, turns
-// each 4x4 byte block around with __byte_perm (PRMT), and stores 64 bytes
+// each 4x4 byte block around with __byte_perm (PRMT; transpose4 of
+// gf_common.cuh), and stores 64 bytes
 // as four 16-byte stores; neighbouring threads take neighbouring words, so
 // loads and stores are coalesced. It needs q % 16 == 0 (T a multiple of
 // 64) and 16-byte aligned rows; otherwise a scalar path gives a thread one
@@ -28,50 +29,9 @@
 // words for u32 ones. The launchers allocate nothing, launch on the
 // caller's stream and return cudaGetLastError().
 
-#include <cstdint>
-
-#include <cuda_runtime.h>
+#include "gf_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-
-// a[s] holds bytes 4m..4m+3 of quarter s; o[m] gets byte m of each quarter.
-__device__ __forceinline__ void transpose4(uint32_t a0, uint32_t a1,
-                                           uint32_t a2, uint32_t a3,
-                                           uint32_t& o0, uint32_t& o1,
-                                           uint32_t& o2, uint32_t& o3) {
-  const uint32_t t0 = __byte_perm(a0, a1, 0x5140);  // a0.0 a1.0 a0.1 a1.1
-  const uint32_t t1 = __byte_perm(a2, a3, 0x5140);  // a2.0 a3.0 a2.1 a3.1
-  const uint32_t t2 = __byte_perm(a0, a1, 0x7362);  // a0.2 a1.2 a0.3 a1.3
-  const uint32_t t3 = __byte_perm(a2, a3, 0x7362);  // a2.2 a3.2 a2.3 a3.3
-  o0 = __byte_perm(t0, t1, 0x5410);
-  o1 = __byte_perm(t0, t1, 0x7632);
-  o2 = __byte_perm(t2, t3, 0x5410);
-  o3 = __byte_perm(t2, t3, 0x7632);
-}
-
-// 16 bytes from p, of which `avail` exist (the rest read as 0).
-__device__ __forceinline__ uint4 load16(const uint8_t* p, long long avail) {
-  if (avail >= 16) return __ldg(reinterpret_cast<const uint4*>(p));
-  uint32_t w[4] = {0u, 0u, 0u, 0u};
-  for (int i = 0; i < 16 && i < avail; ++i) {
-    w[i >> 2] |= static_cast<uint32_t>(p[i]) << (8 * (i & 3));
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-// the first `avail` of 16 bytes to p.
-__device__ __forceinline__ void store16(uint8_t* p, uint4 v, long long avail) {
-  if (avail >= 16) {
-    *reinterpret_cast<uint4*>(p) = v;
-    return;
-  }
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-  for (int i = 0; i < 16 && i < avail; ++i) {
-    p[i] = static_cast<uint8_t>(w[i >> 2] >> (8 * (i & 3)));
-  }
-}
 
 __device__ __forceinline__ uint8_t byte_at(const uint8_t* row, long long c,
                                            long long n) {
@@ -98,17 +58,26 @@ __global__ void __launch_bounds__(kThreads)
   uint32_t* dst = out + b * r.out_bs + row * r.out_rs + w0;
   const long long t = w0 / q, j = w0 % q;
   const long long c0 = t * 4 * q + j;
-  uint4 a[4];
+  uint32_t a[4][4];  // a[s]: the 16 bytes of quarter s
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
     const long long c = c0 + s * q;
-    a[s] = c < n ? load16(src + c, n - c) : make_uint4(0u, 0u, 0u, 0u);
+    if (c < n) {
+      load_bytes<16>(src + c, n - c, true, a[s]);
+    } else {
+#pragma unroll
+      for (int g = 0; g < 4; ++g) a[s][g] = 0u;
+    }
   }
   uint4 o[4];
-  transpose4(a[0].x, a[1].x, a[2].x, a[3].x, o[0].x, o[0].y, o[0].z, o[0].w);
-  transpose4(a[0].y, a[1].y, a[2].y, a[3].y, o[1].x, o[1].y, o[1].z, o[1].w);
-  transpose4(a[0].z, a[1].z, a[2].z, a[3].z, o[2].x, o[2].y, o[2].z, o[2].w);
-  transpose4(a[0].w, a[1].w, a[2].w, a[3].w, o[3].x, o[3].y, o[3].z, o[3].w);
+  transpose4(a[0][0], a[1][0], a[2][0], a[3][0], o[0].x, o[0].y, o[0].z,
+             o[0].w);
+  transpose4(a[0][1], a[1][1], a[2][1], a[3][1], o[1].x, o[1].y, o[1].z,
+             o[1].w);
+  transpose4(a[0][2], a[1][2], a[2][2], a[3][2], o[2].x, o[2].y, o[2].z,
+             o[2].w);
+  transpose4(a[0][3], a[1][3], a[2][3], a[3][3], o[3].x, o[3].y, o[3].z,
+             o[3].w);
 #pragma unroll
   for (int m = 0; m < 4; ++m) reinterpret_cast<uint4*>(dst)[m] = o[m];
 }
@@ -149,15 +118,16 @@ __global__ void __launch_bounds__(kThreads)
   uint4 u[4];
 #pragma unroll
   for (int m = 0; m < 4; ++m) u[m] = __ldg(src + m);
-  uint4 o[4];
-  transpose4(u[0].x, u[0].y, u[0].z, u[0].w, o[0].x, o[1].x, o[2].x, o[3].x);
-  transpose4(u[1].x, u[1].y, u[1].z, u[1].w, o[0].y, o[1].y, o[2].y, o[3].y);
-  transpose4(u[2].x, u[2].y, u[2].z, u[2].w, o[0].z, o[1].z, o[2].z, o[3].z);
-  transpose4(u[3].x, u[3].y, u[3].z, u[3].w, o[0].w, o[1].w, o[2].w, o[3].w);
+  uint32_t o[4][4];  // o[s]: the 16 bytes of quarter s
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    transpose4(u[m].x, u[m].y, u[m].z, u[m].w, o[0][m], o[1][m], o[2][m],
+               o[3][m]);
+  }
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
     const long long c = c0 + s * q;
-    if (c < n) store16(dst + c, o[s], n - c);
+    if (c < n) store_bytes<16>(dst + c, o[s], n - c, true);
   }
 }
 
@@ -176,11 +146,6 @@ __global__ void __launch_bounds__(kThreads)
     const long long c = c0 + s * q;
     if (c < n) dst[c] = static_cast<uint8_t>(v >> (8 * s));
   }
-}
-
-bool aligned16(const void* p, long long a, long long b) {
-  return ((reinterpret_cast<uintptr_t>(p) | static_cast<uintptr_t>(a) |
-           static_cast<uintptr_t>(b)) & 15u) == 0;
 }
 
 int check_args(int batch, int rows, long long n, long long n4, long long q) {
@@ -212,8 +177,8 @@ int gf_repack_launch(const void* in, void* out, int batch, int rows,
   if (err != cudaSuccess) return static_cast<int>(err);
   const Rows r{rows, in_bs, in_rs, out_bs, out_rs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = q % 16 == 0 && aligned16(in, in_bs, in_rs) &&
-                   aligned16(out, 4 * out_bs, 4 * out_rs);
+  const bool vec = q % 16 == 0 && aligned(in, in_bs, in_rs, 16) &&
+                   aligned(out, 4 * out_bs, 4 * out_rs, 16);
   const long long units = vec ? n4 / 16 : n4;
   const dim3 grid(static_cast<unsigned>((units + kThreads - 1) / kThreads),
                   static_cast<unsigned>(batch * rows));
@@ -240,8 +205,8 @@ int gf_unpack_launch(const void* in, void* out, int batch, int rows,
   if (err != cudaSuccess) return static_cast<int>(err);
   const Rows r{rows, in_bs, in_rs, out_bs, out_rs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = q % 16 == 0 && aligned16(in, 4 * in_bs, 4 * in_rs) &&
-                   aligned16(out, out_bs, out_rs);
+  const bool vec = q % 16 == 0 && aligned(in, 4 * in_bs, 4 * in_rs, 16) &&
+                   aligned(out, out_bs, out_rs, 16);
   const long long units = vec ? n4 / 16 : n4;
   const dim3 grid(static_cast<unsigned>((units + kThreads - 1) / kThreads),
                   static_cast<unsigned>(batch * rows));

@@ -30,55 +30,30 @@
 //
 // Layout: in is [batch, k, n16] and out [batch, O, n16] uint4 words, rows
 // contiguous and 16-byte aligned. Limits: O <= 16, k <= 64, batch <= 65535.
-// The launcher allocates nothing, launches on the caller's stream and
-// returns cudaGetLastError().
+// The launchers allocate nothing, launch on the caller's stream and return
+// cudaGetLastError().
+//
+// Two more launch forms of the same column work answer the questions
+// tools/exp_batched.py asked of the TPU about a batch of volumes: the batch
+// as the fastest block index (its swapped grid of _swar_kernel) and one
+// thread walking all V volumes of its column word on a grid over columns
+// only (its _swar_fusedv_kernel). Each thread of any form does the same
+// work per column word and volume; only the order in which blocks reach
+// the SMs and the number of threads differ.
 
-#include <cstdint>
 #include <cstring>
 
-#include <cuda_runtime.h>
+#include "gf_common.cuh"
 
 namespace {
 
-constexpr int kMaxOut = 16;
-constexpr int kMaxIn = 64;
-constexpr int kThreads = 256;
-
-// The kernel-argument form of a coefficient matrix C[O, k]:
-// mask[d][b] has bit i set when bit b of C[i][d] is set; top[d] is the
-// number of bits input row d needs (0: the row feeds no output).
-struct SwarCoeff {
-  uint16_t mask[kMaxIn][8];
-  uint8_t top[kMaxIn];
-};
-static_assert(sizeof(SwarCoeff) == kMaxIn * 8 * 2 + kMaxIn,
-              "SwarCoeff must match the packing of gf_swar.py");
-
-__device__ __forceinline__ uint32_t xtime(uint32_t x) {
-  return ((x & 0x7f7f7f7fu) << 1) ^ (((x >> 7) & 0x01010101u) * 0x1du);
-}
-
-__device__ __forceinline__ uint4 xtime4(uint4 v) {
-  return make_uint4(xtime(v.x), xtime(v.y), xtime(v.z), xtime(v.w));
-}
-
-__device__ __forceinline__ void xor_into(uint4& acc, const uint4& v) {
-  acc.x ^= v.x;
-  acc.y ^= v.y;
-  acc.z ^= v.z;
-  acc.w ^= v.w;
-}
-
+// out[i] = XOR_d C[i, d] ∘GF in[d] for one uint4 column word; in and out
+// point at row 0 of the column, rows n16 words apart.
 template <int O>
-__global__ void __launch_bounds__(kThreads)
-    gf_swar_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
-                   int k, long long n16, const SwarCoeff coeff) {
-  const long long col =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (col >= n16) return;
-  const uint4* src = in + static_cast<long long>(blockIdx.y) * k * n16 + col;
-  uint4* dst = out + static_cast<long long>(blockIdx.y) * O * n16 + col;
-
+__device__ __forceinline__ void swar_column(const uint4* __restrict__ src,
+                                            uint4* __restrict__ dst, int k,
+                                            long long n16,
+                                            const SwarCoeff& coeff) {
   uint4 acc[O];
 #pragma unroll
   for (int i = 0; i < O; ++i) acc[i] = make_uint4(0u, 0u, 0u, 0u);
@@ -101,14 +76,68 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < O; ++i) dst[i * n16] = acc[i];
 }
 
+// The batch on gridDim.y, columns on x.
 template <int O>
-void launch(const void* in, void* out, int k, long long n16, int batch,
-            const SwarCoeff& coeff, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((n16 + kThreads - 1) / kThreads),
-                  static_cast<unsigned>(batch));
-  gf_swar_kernel<O><<<grid, kThreads, 0, stream>>>(
-      static_cast<const uint4*>(in), static_cast<uint4*>(out), k, n16,
-      coeff);
+__global__ void __launch_bounds__(kThreads)
+    gf_swar_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
+                   int k, long long n16,
+                   const __grid_constant__ SwarCoeff coeff) {
+  const long long col =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (col >= n16) return;
+  swar_column<O>(in + static_cast<long long>(blockIdx.y) * k * n16 + col,
+                 out + static_cast<long long>(blockIdx.y) * O * n16 + col, k,
+                 n16, coeff);
+}
+
+// The batch as the fastest block index: blocks b, b+1, ... of one column
+// block are neighbours in launch order (tools/exp_batched.py's swapped
+// grid, build_batched_swapped).
+template <int O>
+__global__ void __launch_bounds__(kThreads)
+    gf_swar_batch_fastest_kernel(const uint4* __restrict__ in,
+                                 uint4* __restrict__ out, int k,
+                                 long long n16, int batch,
+                                 const __grid_constant__ SwarCoeff coeff) {
+  const long long b = blockIdx.x % batch;
+  const long long col =
+      static_cast<long long>(blockIdx.x / batch) * kThreads + threadIdx.x;
+  if (col >= n16) return;
+  swar_column<O>(in + b * k * n16 + col, out + b * O * n16 + col, k, n16,
+                 coeff);
+}
+
+// All volumes in one thread: a grid over columns only, each thread walking
+// the V volumes of its column word (tools/exp_batched.py's
+// _swar_fusedv_kernel, one program for all volumes).
+template <int O>
+__global__ void __launch_bounds__(kThreads)
+    gf_swar_fusedv_kernel(const uint4* __restrict__ in,
+                          uint4* __restrict__ out, int k, long long n16,
+                          int volumes,
+                          const __grid_constant__ SwarCoeff coeff) {
+  const long long col =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (col >= n16) return;
+  for (int v = 0; v < volumes; ++v) {
+    swar_column<O>(in + static_cast<long long>(v) * k * n16 + col,
+                   out + static_cast<long long>(v) * O * n16 + col, k, n16,
+                   coeff);
+  }
+}
+
+// Argument checks shared by the launchers; 0 when the call may go ahead.
+int check_args(const void* in, const void* out, int o, int k, long long n16,
+               int device) {
+  if (o < 1 || o > kMaxOut || k < 1 || k > kMaxIn || n16 < 0 ||
+      n16 > 0x7fffffffLL * kThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if ((reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out)) &
+      15u) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  return static_cast<int>(cudaSetDevice(device));
 }
 
 }  // namespace
@@ -130,39 +159,63 @@ const char* gf_swar_error_string(int code) {
 // stream: a cudaStream_t (0 for the legacy default stream).
 int gf_swar_launch(const void* in, void* out, int o, int k, long long n16,
                    int batch, const void* coeff, int device, void* stream) {
-  if (o < 1 || o > kMaxOut || k < 1 || k > kMaxIn || n16 < 0 || batch < 1 ||
-      batch > 65535 || n16 > 0x7fffffffLL * kThreads) {
+  if (batch < 1 || batch > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if ((reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out)) &
-      15u) {
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  }
-  if (n16 == 0) return static_cast<int>(cudaSuccess);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  int rc = check_args(in, out, o, k, n16, device);
+  if (rc || n16 == 0) return rc;
   SwarCoeff c;
   std::memcpy(&c, coeff, sizeof(c));
+  const dim3 grid(static_cast<unsigned>((n16 + kThreads - 1) / kThreads),
+                  static_cast<unsigned>(batch));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (o) {
-    case 1: launch<1>(in, out, k, n16, batch, c, s); break;
-    case 2: launch<2>(in, out, k, n16, batch, c, s); break;
-    case 3: launch<3>(in, out, k, n16, batch, c, s); break;
-    case 4: launch<4>(in, out, k, n16, batch, c, s); break;
-    case 5: launch<5>(in, out, k, n16, batch, c, s); break;
-    case 6: launch<6>(in, out, k, n16, batch, c, s); break;
-    case 7: launch<7>(in, out, k, n16, batch, c, s); break;
-    case 8: launch<8>(in, out, k, n16, batch, c, s); break;
-    case 9: launch<9>(in, out, k, n16, batch, c, s); break;
-    case 10: launch<10>(in, out, k, n16, batch, c, s); break;
-    case 11: launch<11>(in, out, k, n16, batch, c, s); break;
-    case 12: launch<12>(in, out, k, n16, batch, c, s); break;
-    case 13: launch<13>(in, out, k, n16, batch, c, s); break;
-    case 14: launch<14>(in, out, k, n16, batch, c, s); break;
-    case 15: launch<15>(in, out, k, n16, batch, c, s); break;
-    case 16: launch<16>(in, out, k, n16, batch, c, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  dispatch_out(o, [&](auto oc) {
+    gf_swar_kernel<decltype(oc)::value><<<grid, kThreads, 0, s>>>(
+        static_cast<const uint4*>(in), static_cast<uint4*>(out), k, n16, c);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same product with the batch as the fastest block index (one
+// dimension of blocks(n16) x batch).
+int gf_swar_batch_fastest_launch(const void* in, void* out, int o, int k,
+                                 long long n16, int batch, const void* coeff,
+                                 int device, void* stream) {
+  const long long blocks = (n16 + kThreads - 1) / kThreads;
+  if (batch < 1 || blocks * batch > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  int rc = check_args(in, out, o, k, n16, device);
+  if (rc || n16 == 0) return rc;
+  SwarCoeff c;
+  std::memcpy(&c, coeff, sizeof(c));
+  const dim3 grid(static_cast<unsigned>(blocks * batch));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dispatch_out(o, [&](auto oc) {
+    gf_swar_batch_fastest_kernel<decltype(oc)::value>
+        <<<grid, kThreads, 0, s>>>(static_cast<const uint4*>(in),
+                                   static_cast<uint4*>(out), k, n16, batch,
+                                   c);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same product over `volumes` volumes in one thread per column word.
+int gf_swar_fusedv_launch(const void* in, void* out, int o, int k,
+                          long long n16, int volumes, const void* coeff,
+                          int device, void* stream) {
+  if (volumes < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int rc = check_args(in, out, o, k, n16, device);
+  if (rc || n16 == 0) return rc;
+  SwarCoeff c;
+  std::memcpy(&c, coeff, sizeof(c));
+  const dim3 grid(static_cast<unsigned>((n16 + kThreads - 1) / kThreads));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dispatch_out(o, [&](auto oc) {
+    gf_swar_fusedv_kernel<decltype(oc)::value><<<grid, kThreads, 0, s>>>(
+        static_cast<const uint4*>(in), static_cast<uint4*>(out), k, n16,
+        volumes, c);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 

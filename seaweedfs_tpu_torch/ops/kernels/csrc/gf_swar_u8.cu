@@ -24,79 +24,22 @@
 // ALU-pipe operations at RS(10,4) (6 a byte against the card's balance of
 // 5), not bytes.
 //
-// Coefficients come at run time in the SwarCoeff struct of gf_swar.cu
-// (same packing, gf_swar.coeff_from_reference). Limits: O <= 16, k <= 64,
+// Coefficients come at run time in the SwarCoeff struct of gf_common.cuh
+// (packed by gf_swar.coeff_from_reference). Limits: O <= 16, k <= 64,
 // batch <= 65535. The launcher allocates nothing, launches on the caller's
 // stream and returns cudaGetLastError().
 
-#include <cstdint>
 #include <cstring>
 
-#include <cuda_runtime.h>
+#include "gf_common.cuh"
 
 namespace {
-
-constexpr int kMaxOut = 16;
-constexpr int kMaxIn = 64;
-constexpr int kThreads = 256;
-
-struct SwarCoeff {
-  uint16_t mask[kMaxIn][8];
-  uint8_t top[kMaxIn];
-};
-static_assert(sizeof(SwarCoeff) == kMaxIn * 8 * 2 + kMaxIn,
-              "SwarCoeff must match the packing of gf_swar.py");
-
-struct Layout {
-  long long n;             // row width in bytes
-  long long in_bs, in_rs;  // byte strides of the input batch and rows
-  long long out_bs, out_rs;
-  bool in_vec, out_vec;    // 16-byte aligned: whole words may move at once
-};
-
-__device__ __forceinline__ uint32_t xtime(uint32_t x) {
-  return ((x & 0x7f7f7f7fu) << 1) ^ (((x >> 7) & 0x01010101u) * 0x1du);
-}
-
-__device__ __forceinline__ uint4 xtime4(uint4 v) {
-  return make_uint4(xtime(v.x), xtime(v.y), xtime(v.z), xtime(v.w));
-}
-
-__device__ __forceinline__ void xor_into(uint4& acc, const uint4& v) {
-  acc.x ^= v.x;
-  acc.y ^= v.y;
-  acc.z ^= v.z;
-  acc.w ^= v.w;
-}
-
-// 16 bytes at p, of which `avail` exist (the rest read as 0).
-__device__ __forceinline__ uint4 load16(const uint8_t* p, long long avail,
-                                        bool vec) {
-  if (vec && avail >= 16) return __ldg(reinterpret_cast<const uint4*>(p));
-  uint32_t w[4] = {0u, 0u, 0u, 0u};
-  for (int i = 0; i < 16 && i < avail; ++i) {
-    w[i >> 2] |= static_cast<uint32_t>(__ldg(p + i)) << (8 * (i & 3));
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-__device__ __forceinline__ void store16(uint8_t* p, const uint4& v,
-                                        long long avail, bool vec) {
-  if (vec && avail >= 16) {
-    *reinterpret_cast<uint4*>(p) = v;
-    return;
-  }
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-  for (int i = 0; i < 16 && i < avail; ++i) {
-    p[i] = static_cast<uint8_t>(w[i >> 2] >> (8 * (i & 3)));
-  }
-}
 
 template <int O>
 __global__ void __launch_bounds__(kThreads)
     gf_swar_u8_kernel(const uint8_t* __restrict__ in,
                       uint8_t* __restrict__ out, int k, const Layout L,
-                      const SwarCoeff coeff) {
+                      const __grid_constant__ SwarCoeff coeff) {
   const long long col =
       (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * 16;
   if (col >= L.n) return;
@@ -111,7 +54,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int d = 0; d < k; ++d) {
     const int top = coeff.top[d];
     if (top == 0) continue;
-    uint4 x = load16(src + d * L.in_rs, avail, L.in_vec);
+    uint32_t w[4];
+    load_bytes<16>(src + d * L.in_rs, avail, L.in_vec, w);
+    uint4 x = make_uint4(w[0], w[1], w[2], w[3]);
     for (int b = 0; b < top; ++b) {
       if (b) x = xtime4(x);
       const unsigned m = coeff.mask[d][b];
@@ -124,7 +69,8 @@ __global__ void __launch_bounds__(kThreads)
 
 #pragma unroll
   for (int i = 0; i < O; ++i) {
-    store16(dst + i * L.out_rs, acc[i], avail, L.out_vec);
+    const uint32_t w[4] = {acc[i].x, acc[i].y, acc[i].z, acc[i].w};
+    store_bytes<16>(dst + i * L.out_rs, w, avail, L.out_vec);
   }
 }
 
@@ -137,11 +83,6 @@ void launch(const void* in, void* out, int k, int batch, const Layout& L,
   gf_swar_u8_kernel<O><<<grid, kThreads, 0, stream>>>(
       static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out), k, L,
       coeff);
-}
-
-bool aligned16(const void* p, long long a, long long b) {
-  return ((reinterpret_cast<uintptr_t>(p) | static_cast<uintptr_t>(a) |
-           static_cast<uintptr_t>(b)) & 15u) == 0;
 }
 
 }  // namespace
@@ -169,28 +110,15 @@ int gf_swar_u8_launch(const void* in, void* out, int o, int k, long long n,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Layout L{n, in_bs, in_rs, out_bs, out_rs,
-                 aligned16(in, in_bs, in_rs), aligned16(out, out_bs, out_rs)};
+                 aligned(in, in_bs, in_rs, 16),
+                 aligned(out, out_bs, out_rs, 16)};
   SwarCoeff c;
   std::memcpy(&c, coeff, sizeof(c));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (o) {
-    case 1: launch<1>(in, out, k, batch, L, c, s); break;
-    case 2: launch<2>(in, out, k, batch, L, c, s); break;
-    case 3: launch<3>(in, out, k, batch, L, c, s); break;
-    case 4: launch<4>(in, out, k, batch, L, c, s); break;
-    case 5: launch<5>(in, out, k, batch, L, c, s); break;
-    case 6: launch<6>(in, out, k, batch, L, c, s); break;
-    case 7: launch<7>(in, out, k, batch, L, c, s); break;
-    case 8: launch<8>(in, out, k, batch, L, c, s); break;
-    case 9: launch<9>(in, out, k, batch, L, c, s); break;
-    case 10: launch<10>(in, out, k, batch, L, c, s); break;
-    case 11: launch<11>(in, out, k, batch, L, c, s); break;
-    case 12: launch<12>(in, out, k, batch, L, c, s); break;
-    case 13: launch<13>(in, out, k, batch, L, c, s); break;
-    case 14: launch<14>(in, out, k, batch, L, c, s); break;
-    case 15: launch<15>(in, out, k, batch, L, c, s); break;
-    case 16: launch<16>(in, out, k, batch, L, c, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (!dispatch_out(o, [&](auto oc) {
+        launch<decltype(oc)::value>(in, out, k, batch, L, c, s);
+      })) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,18 +6,21 @@
 Routing is by the kind of input, and the output is always of the same
 kind; no route copies a tensor on the card to the host:
 
-- host numpy u8 → to the card, ``swar`` (gf_swar) or ``mxu``
-  (gf_bitplane), back as numpy; ``defer=True`` returns a materialiser
-  that does the copy back when called;
+- host numpy u8 → to the card, ``swar`` (gf_swar), ``mxu``
+  (gf_bitplane) or ``vpu`` (gf_vpu), back as numpy; ``defer=True``
+  returns a materialiser that does the copy back when called;
 - u32 lane-packed tensor (torch.uint32 or int32, 4 shard bytes a word,
   little-endian: the reference's "device u32") → gf_swar, same dtype back;
 - u8 tensor → ``repack`` (gf_repack → gf_swar → gf_unpack), ``swar``
-  (gf_swar_u8) or ``mxu`` (gf_bitplane), chosen by ``ops/autotune.py``
-  when ``method`` is None.
+  (gf_swar_u8), ``mxu`` (gf_bitplane) or ``vpu`` (gf_vpu), chosen by
+  ``ops/autotune.py`` when ``method`` is None (which, as the reference's,
+  never measures ``vpu``).
 
 A tensor on the card launches the routes' kernels or raises; a tensor on
-the CPU runs their plain versions. ``vpu`` (the reference's
-``_vpu_kernel``) is not ported yet and raises.
+the CPU runs their plain versions. One difference from the reference is
+deliberate: host numpy input with ``mxu`` or ``vpu`` comes back as numpy,
+as its docstring says, where the reference's bottom route returns a
+device array (gf_kernel.py:646-675).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch
 
 from ... import resolve_device
 from .. import autotune
-from . import gf_bitplane, gf_repack, gf_swar, gf_swar_u8
+from . import gf_bitplane, gf_repack, gf_swar, gf_swar_u8, gf_vpu
 
 METHODS = ("repack", "swar", "mxu", "vpu")
 U32_DTYPES = (torch.uint32, torch.int32)
@@ -82,6 +85,8 @@ def _u8_tensor(coeff: np.ndarray, data: torch.Tensor, method: str | None,
         return repack_route(coeff, data, tile_n)
     if method == "swar":
         return gf_swar_u8.gf_matmul(coeff, data)
+    if method == "vpu":
+        return gf_vpu.gf_matmul(coeff, data)
     return gf_bitplane.gf_matmul(coeff, data)
 
 
@@ -92,10 +97,11 @@ def gf_matmul_fused(coeff: np.ndarray, data, method: str | None = None,
     input's kind selects (module docstring).
 
     ``tile_n`` is the repack route's tile in bytes (the autotuner's when
-    None); ``swar`` and ``mxu`` have fixed tiles and take none. ``device``
-    says where a host numpy array is computed: the card when None (raises
-    without one), the plain versions with ``"cpu"``; a tensor is computed
-    where it lies and takes no ``device``. Raises as the reference does:
+    None); ``swar``, ``mxu`` and ``vpu`` have no tile and ignore it.
+    ``device`` says where a host numpy array is computed: the card when
+    None (raises without one), the plain versions with ``"cpu"``; a
+    tensor is computed where it lies and takes no ``device``. Raises as
+    the reference does:
     ``defer`` with a tensor or with a method other than ``swar``, a u32
     input with a method other than ``swar``, an unknown method."""
     coeff = np.ascontiguousarray(coeff, dtype=np.uint8)
@@ -103,11 +109,6 @@ def gf_matmul_fused(coeff: np.ndarray, data, method: str | None = None,
         raise ValueError(f"coefficient matrix must be 2-D, got {coeff.shape}")
     if method is not None and method not in METHODS:
         raise ValueError(f"unknown gf method: {method}")
-    if method == "vpu":
-        raise NotImplementedError(
-            "the vpu route (_vpu_kernel) is not ported yet: slice 3 of the "
-            "port"
-        )
     is_tensor = isinstance(data, torch.Tensor)
     if defer and (is_tensor or method not in (None, "swar")):
         raise ValueError(
@@ -116,11 +117,13 @@ def gf_matmul_fused(coeff: np.ndarray, data, method: str | None = None,
 
     if not is_tensor:
         host = np.ascontiguousarray(data, dtype=np.uint8)
-        if method not in (None, "swar", "mxu"):
-            raise ValueError(f"host input has no {method} route")
+        if method == "repack":
+            raise ValueError("host input has no repack route")
         x = torch.from_numpy(host).to(resolve_device(device))
         if method == "mxu":
             out = gf_bitplane.gf_matmul(coeff, x)
+        elif method == "vpu":
+            out = gf_vpu.gf_matmul(coeff, x)
         else:
             out = gf_swar.gf_matmul(coeff, x)
 

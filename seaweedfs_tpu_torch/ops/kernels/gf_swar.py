@@ -11,6 +11,13 @@ takes the place of ``gf_matmul_swar`` (:448), ``gf_matmul_swar_device``
 ``gf_matmul`` picks by the tensor it is given: a CPU tensor goes through
 :func:`gf_matmul_plain`, a CUDA tensor launches the kernel or raises.
 There is no fallback from one to the other.
+
+Two more launch forms of the kernel's column work take u32 words
+[V, k, n4] of V volumes and answer the batch-geometry questions of
+``tools/exp_batched.py``: :func:`gf_matmul_batch_fastest` (its swapped
+grid of ``_swar_kernel``, ``build_batched_swapped`` :64) and
+:func:`gf_matmul_fusedv` (its ``_swar_fusedv_kernel`` :27). Their plain
+version is the batched :func:`gf_matmul_plain`.
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ QUANTUM = 16
 
 
 LAUNCHES = LaunchCounter()
+BATCH_FASTEST_LAUNCHES = LaunchCounter()
+FUSEDV_LAUNCHES = LaunchCounter()
 
 
 @dataclass(frozen=True)
@@ -148,6 +157,10 @@ def library():
                 ctypes.c_int, ctypes.c_void_p,
             ]
             lib.gf_swar_launch.restype = ctypes.c_int
+            for fn in ("gf_swar_batch_fastest_launch",
+                       "gf_swar_fusedv_launch"):
+                getattr(lib, fn).argtypes = lib.gf_swar_launch.argtypes
+                getattr(lib, fn).restype = ctypes.c_int
             lib.gf_swar_error_string.argtypes = [ctypes.c_int]
             lib.gf_swar_error_string.restype = ctypes.c_char_p
             for fn in ("gf_swar_coeff_bytes", "gf_swar_max_out",
@@ -236,3 +249,140 @@ def gf_matmul(coeff: SwarCoeff | np.ndarray,
                       device=data.device)
     launch(coeff, x, out)
     return out.reshape(*lead, o, n + pad)[..., :n]
+
+
+# ---------------------------------------------------------------------------
+# Kernels of other libraries that take u8 rows as they lie
+# ---------------------------------------------------------------------------
+
+
+class RowsKernel:
+    """A kernel library whose launcher takes u8 rows by batch and row
+    stride, any width, and this module's coefficient struct:
+    ``<name>_launch(in, out, o, k, n, *extra, batch, in_bs, in_rs, out_bs,
+    out_rs, coeff, device, stream)`` (gf_swar_u8, gf_vpu, gf_fused_u8).
+    Built at first use; counts its launches in ``launches``."""
+
+    def __init__(self, name: str, extra_argtypes=()):
+        self.name = name
+        self.launches = LaunchCounter()
+        self._argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_longlong, *extra_argtypes, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_char_p, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        self._lock = threading.Lock()
+        self._lib = None  # guarded-by: self._lock
+
+    def library(self):
+        """The built library (``nvcc`` at first use), its argument struct
+        checked against this module's packing."""
+        with self._lock:
+            if self._lib is None:
+                lib = build.declare(build.load(self.name), {  # weedcheck: ignore[lock-held-across-blocking]: first use builds the kernel once; later callers must wait for the declared library
+                    f"{self.name}_launch": (self._argtypes, ctypes.c_int),
+                    f"{self.name}_error_string": ([ctypes.c_int],
+                                                  ctypes.c_char_p),
+                    f"{self.name}_coeff_bytes": ([], ctypes.c_int),
+                })
+                got = getattr(lib, f"{self.name}_coeff_bytes")()
+                if got != MAX_IN * 8 * 2 + MAX_IN:
+                    raise RuntimeError(
+                        f"{self.name} takes {got} coefficient bytes, "
+                        f"gf_swar packs {MAX_IN * 8 * 2 + MAX_IN}"
+                    )
+                self._lib = lib
+            return self._lib
+
+    def __call__(self, coeff: SwarCoeff, data: torch.Tensor,
+                 *extra) -> torch.Tensor:
+        """out[..., o, N] = coeff ∘GF data[..., k, N] for a uint8 CUDA
+        tensor whose rows may be strided and N ragged, launched on the
+        current stream; ``extra`` are the launcher's own arguments."""
+        if data.device.type != "cuda":
+            raise ValueError(f"{self.name} runs on cuda, not {data.device}")
+        o, k = coeff.shape
+        if data.dtype != torch.uint8 or data.dim() < 2 or data.shape[-2] != k:
+            raise ValueError(
+                f"data must be uint8 [..., {k}, N], got {data.dtype} "
+                f"{tuple(data.shape)}"
+            )
+        *lead, _, n = data.shape
+        x = build.rows3d(data)
+        batch = x.shape[0]
+        if not 1 <= batch <= MAX_BATCH:
+            raise ValueError(f"batch {batch} outside 1..{MAX_BATCH}")
+        out = torch.empty((batch, o, n), dtype=torch.uint8,
+                          device=data.device)
+        if n:
+            lib = self.library()
+            rc = getattr(lib, f"{self.name}_launch")(
+                x.data_ptr(), out.data_ptr(), o, k, n, *extra, batch,
+                x.stride(0), x.stride(1), out.stride(0), out.stride(1),
+                coeff.packed, data.device.index,
+                torch.cuda.current_stream(data.device).cuda_stream,
+            )
+            build.check_rc(getattr(lib, f"{self.name}_error_string"), rc,
+                           self.name)
+            self.launches.add()
+        return out.reshape(*lead, o, n)
+
+
+# ---------------------------------------------------------------------------
+# Launch forms over u32 words of V volumes
+# ---------------------------------------------------------------------------
+
+
+def _words_form(fn: str, counter: LaunchCounter,
+                coeff: SwarCoeff | np.ndarray,
+                words: torch.Tensor) -> torch.Tensor:
+    """out[V, o, n4] = coeff ∘GF words[V, k, n4] through launcher ``fn``
+    for int32 or uint32 words; the output has the input's dtype. A CPU
+    tensor goes through :func:`gf_matmul_plain` on the bytes."""
+    if not isinstance(coeff, SwarCoeff):
+        coeff = coeff_from_reference(coeff)
+    o, k = coeff.shape
+    if (words.dtype not in (torch.int32, torch.uint32) or words.dim() != 3
+            or words.shape[1] != k):
+        raise ValueError(
+            f"words must be int32 or uint32 [V, {k}, n4], got {words.dtype} "
+            f"{tuple(words.shape)}"
+        )
+    if words.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn} runs on cuda or cpu, not {words.device}")
+    volumes, _, n4 = words.shape
+    pad = (-n4) % (QUANTUM // 4)
+    x = F.pad(words.view(torch.int32), (0, pad)) if pad else (
+        words.view(torch.int32).contiguous())
+    if words.device.type == "cpu":
+        out = gf_matmul_plain(coeff, x.view(torch.uint8)).view(torch.int32)
+        return out[..., :n4].view(words.dtype)
+    out = torch.empty((volumes, o, n4 + pad), dtype=torch.int32,
+                      device=words.device)
+    if n4:
+        rc = getattr(library(), fn)(
+            x.data_ptr(), out.data_ptr(), o, k, (n4 + pad) * 4 // QUANTUM,
+            volumes, coeff.packed, words.device.index,
+            torch.cuda.current_stream(words.device).cuda_stream,
+        )
+        build.check_rc(library().gf_swar_error_string, rc, fn)
+        counter.add()
+    return out[..., :n4].view(words.dtype)
+
+
+def gf_matmul_batch_fastest(coeff: SwarCoeff | np.ndarray,
+                            words: torch.Tensor) -> torch.Tensor:
+    """out[V, o, n4] = coeff ∘GF words[V, k, n4] for u32 words, launched
+    with the batch as the fastest block index."""
+    return _words_form("gf_swar_batch_fastest_launch",
+                       BATCH_FASTEST_LAUNCHES, coeff, words)
+
+
+def gf_matmul_fusedv(coeff: SwarCoeff | np.ndarray,
+                     words: torch.Tensor) -> torch.Tensor:
+    """out[V, o, n4] = coeff ∘GF words[V, k, n4] for u32 words, one
+    thread walking all V volumes of its column word."""
+    return _words_form("gf_swar_fusedv_launch", FUSEDV_LAUNCHES, coeff,
+                       words)

@@ -14,46 +14,14 @@ lie, and the output is a new contiguous [..., o, N] tensor.
 
 from __future__ import annotations
 
-import ctypes
-import threading
-
 import numpy as np
 import torch
 
-from . import build, gf_swar
-from .build import LaunchCounter
+from . import gf_swar
 
-LAUNCHES = LaunchCounter()
-
-_lib_lock = threading.Lock()
-_lib = None  # guarded-by: _lib_lock
-
-
-def library():
-    """The built kernel library (``nvcc`` at first use), its argument
-    struct checked against gf_swar's packing."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = build.declare(build.load("gf_swar_u8"), {  # weedcheck: ignore[lock-held-across-blocking]: first use builds the kernel once; later callers must wait for the declared library
-                "gf_swar_u8_launch": ([
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-                    ctypes.c_longlong, ctypes.c_char_p, ctypes.c_int,
-                    ctypes.c_void_p,
-                ], ctypes.c_int),
-                "gf_swar_u8_error_string": ([ctypes.c_int], ctypes.c_char_p),
-                "gf_swar_u8_coeff_bytes": ([], ctypes.c_int),
-            })
-            want = gf_swar.MAX_IN * 8 * 2 + gf_swar.MAX_IN
-            if lib.gf_swar_u8_coeff_bytes() != want:
-                raise RuntimeError(
-                    f"gf_swar_u8 takes {lib.gf_swar_u8_coeff_bytes()} "
-                    f"coefficient bytes, gf_swar packs {want}"
-                )
-            _lib = lib
-        return _lib
+KERNEL = gf_swar.RowsKernel("gf_swar_u8")
+LAUNCHES = KERNEL.launches
+library = KERNEL.library
 
 
 def gf_matmul_plain(coeff, data: torch.Tensor) -> torch.Tensor:
@@ -71,28 +39,4 @@ def gf_matmul(coeff: gf_swar.SwarCoeff | np.ndarray,
         coeff = gf_swar.coeff_from_reference(coeff)
     if data.device.type == "cpu":
         return gf_matmul_plain(coeff, data)
-    if data.device.type != "cuda":
-        raise ValueError(f"gf_swar_u8 runs on cuda or cpu, not {data.device}")
-    o, k = coeff.shape
-    if data.dtype != torch.uint8 or data.dim() < 2 or data.shape[-2] != k:
-        raise ValueError(
-            f"data must be uint8 [..., {k}, N], got {data.dtype} "
-            f"{tuple(data.shape)}"
-        )
-    *lead, _, n = data.shape
-    x = build.rows3d(data)
-    batch = x.shape[0]
-    if not 1 <= batch <= gf_swar.MAX_BATCH:
-        raise ValueError(f"batch {batch} outside 1..{gf_swar.MAX_BATCH}")
-    out = torch.empty((batch, o, n), dtype=torch.uint8, device=data.device)
-    if n:
-        lib = library()
-        rc = lib.gf_swar_u8_launch(
-            x.data_ptr(), out.data_ptr(), o, k, n, batch, x.stride(0),
-            x.stride(1), out.stride(0), out.stride(1), coeff.packed,
-            data.device.index,
-            torch.cuda.current_stream(data.device).cuda_stream,
-        )
-        build.check_rc(lib.gf_swar_u8_error_string, rc, "gf_swar_u8")
-        LAUNCHES.add()
-    return out.reshape(*lead, o, n)
+    return KERNEL(coeff, data)

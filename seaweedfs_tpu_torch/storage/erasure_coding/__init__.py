@@ -2,8 +2,8 @@
 
 Layout, encoder and rebuild mirror ``seaweedfs_tpu.storage.
 erasure_coding`` on disk byte for byte; the GF math runs through
-``ops.codec.RSCodec``. The decoder (``ec.decode``) and the multi-volume
-``write_ec_files_batch`` come in later slices.
+``ops.codec.RSCodec``; ``write_ec_files_batch`` encodes many volumes at
+once on one card. The decoder (``ec.decode``) comes in a later slice.
 """
 
 from .constants import (  # noqa: F401
@@ -21,5 +21,9 @@ from .layout import (  # noqa: F401
     shard_file_size,
     to_shard_id_and_offset,
 )
-from .encoder import write_ec_files, write_sorted_file_from_idx  # noqa: F401
+from .encoder import (  # noqa: F401
+    write_ec_files,
+    write_ec_files_batch,
+    write_sorted_file_from_idx,
+)
 from .rebuild import rebuild_ec_files  # noqa: F401

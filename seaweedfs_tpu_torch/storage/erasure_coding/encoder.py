@@ -18,8 +18,12 @@ returns to the ring only after the writer finished its chunk (the
 in-flight fence), so it is never refilled while the codec or the writer
 may still read it.
 
-Left for later slices: ``write_ec_files_batch`` (multi-volume) and the
-link-EWMA sizing of ``choose_pipeline``.
+``write_ec_files_batch`` encodes many volumes at once on one card: the
+volumes of one ``.dat`` size share a chunk plan, and each chunk of all of
+them goes to the codec as one lane-packed [k, V·n] slab.
+
+Left for later slices: the mesh branch of ``write_ec_files_batch``
+(multi-GPU) and the link-EWMA sizing of ``choose_pipeline``.
 """
 
 from __future__ import annotations
@@ -70,22 +74,31 @@ def choose_pipeline(
     dat_size: int,
     k: int = C.DATA_SHARDS,
     batch_bytes: int | None = None,
+    volumes: int = 1,
+    devices: int = 1,
 ) -> tuple[int, int]:
-    """(batch_bytes, pipeline_depth) for one encode run.
+    """(batch_bytes, pipeline_depth) for one encode run of ``volumes``
+    volumes of ``dat_size`` bytes encoded in lockstep.
 
     A caller-pinned ``batch_bytes`` is honoured verbatim with the
     default depth. Otherwise the reference's cold-link choice: the
     default slab, halved while half of it still covers a shard's share
     of the volume (never below 1 MiB), and the depth shrunk before ring
-    memory (k × batch × (depth + 1)) would pass ``_MAX_RING_BYTES``."""
+    memory (volumes × k × batch × (depth + 1)) would pass
+    ``_MAX_RING_BYTES``. ``devices`` is the reference's per-device divisor
+    of its link-EWMA target; the cold-link choice has no target, so it
+    changes nothing here, as in the reference without link estimates."""
     if batch_bytes is not None:
         return batch_bytes, PIPELINE_DEPTH
+    if volumes < 1 or devices < 1:
+        raise ValueError(f"volumes {volumes} and devices {devices} must be "
+                         "positive")
     batch = DEFAULT_BATCH_BYTES
     per_shard = -(-dat_size // max(1, k))
     while batch > _MIN_BATCH_BYTES and batch // 2 >= per_shard:
         batch //= 2
     depth = PIPELINE_DEPTH
-    while depth > 2 and (depth + 1) * k * batch > _MAX_RING_BYTES:
+    while depth > 2 and (depth + 1) * k * batch * volumes > _MAX_RING_BYTES:
         depth -= 1
     return batch, depth
 
@@ -273,15 +286,6 @@ def _write_row(f, arr: np.ndarray) -> None:
         f.seek(arr.nbytes, 1)
 
 
-def _write_rows(out_files, data, parity, k: int, total: int) -> None:
-    """One chunk's 14 shard appends: contiguous row views handed
-    straight to the buffered files."""
-    for i in range(k):
-        _write_row(out_files[i], data[i])
-    for j in range(total - k):
-        _write_row(out_files[k + j], parity[j])
-
-
 def write_ec_files(
     base_file_name: str | os.PathLike,
     rs: codec_mod.RSCodec | None = None,
@@ -299,64 +303,146 @@ def write_ec_files(
     None) accumulates read / stage / h2d / codec / write / flush."""
     base = os.fspath(base_file_name)
     rs = rs or codec_mod.RSCodec(C.DATA_SHARDS, C.PARITY_SHARDS, device)
+    return _encode_lockstep(
+        rs, [base], os.path.getsize(base + ".dat"), large_block_size,
+        small_block_size, batch_bytes, phases,
+    )[base]
+
+
+def write_ec_files_batch(
+    base_file_names: list[str | os.PathLike],
+    large_block_size: int = C.LARGE_BLOCK_SIZE,
+    small_block_size: int = C.SMALL_BLOCK_SIZE,
+    batch_bytes: int | None = None,
+    mesh=None,
+    data_shards: int = C.DATA_SHARDS,
+    parity_shards: int = C.PARITY_SHARDS,
+    phases=None,
+    device: str | torch.device | None = None,
+) -> dict[str, list[str]]:
+    """Encode many volumes at once on one card; returns {base: [shard
+    paths]}, the files byte-identical to per-volume :func:`write_ec_files`.
+
+    The counterpart of the reference's ``write_ec_files_batch`` with
+    ``mesh=None`` on one chip (encoder.py:507-705): volumes of one
+    ``.dat`` size share a row plan, so they go in lockstep; each volume's
+    chunk is read into its column band of one pinned [k, V·n] slab, and
+    the codec encodes the slab in one launch (GF(2^8) arithmetic is
+    column-wise, so side-by-side volumes give each volume's own parity).
+    Each volume has its own reader and writer worker, so the volumes'
+    disk reads and shard writes overlap. ``device`` is as for
+    :func:`write_ec_files`. A ``mesh`` (the reference's multi-chip
+    branch) raises: multi-GPU encode is not ported yet."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "write_ec_files_batch runs on one card; the mesh branch comes "
+            "with the multi-GPU compute plane (ROADMAP queue 1 item 10)"
+        )
+    rs = codec_mod.RSCodec(data_shards, parity_shards, device)
+    # identical .dat size ⇒ identical row plan ⇒ lockstep chunks
+    groups: dict[int, list[str]] = {}
+    for b in base_file_names:
+        b = os.fspath(b)
+        groups.setdefault(os.path.getsize(b + ".dat"), []).append(b)
+    result: dict[str, list[str]] = {}
+    for dat_size, group in groups.items():
+        result.update(_encode_lockstep(
+            rs, group, dat_size, large_block_size, small_block_size,
+            batch_bytes, phases,
+        ))
+    return result
+
+
+def _encode_lockstep(rs, group: list[str], dat_size: int,
+                     large_block_size: int, small_block_size: int,
+                     batch_bytes: int | None,
+                     phases) -> dict[str, list[str]]:
+    """Encode the volumes of one ``.dat`` size in lockstep: chunk by chunk,
+    volume v's chunk in column band [v·n, (v+1)·n) of one [k, V·n] slab
+    from the ring, one codec launch a slab."""
     k, total = rs.data_shards, rs.total_shards
-    dat_size = os.path.getsize(base + ".dat")
-    batch_bytes, depth = choose_pipeline(dat_size, k, batch_bytes)
+    nvol = len(group)
+    batch, depth = choose_pipeline(dat_size, k, batch_bytes, volumes=nvol)
     rows = encode_row_plan(dat_size, large_block_size, small_block_size, k)
     # (row start, block size, chunk offset, chunk len) work list
     chunks = [
-        (start, bs, co, min(batch_bytes, bs - co))
+        (start, bs, co, min(batch, bs - co))
         for start, bs in rows
-        for co in range(0, bs, batch_bytes)
+        for co in range(0, bs, batch)
     ]
     max_n = max((c[3] for c in chunks), default=0)
-    paths = [base + C.to_ext(i) for i in range(total)]
-    buffering = _write_buffering(total, max_n)
-    outs = [open(p, "wb", buffering=buffering) for p in paths]
+    if phases is not None:
+        phases.note("batch_bytes", batch)
+        phases.note("pipeline_depth", depth)
+        if nvol > 1:
+            phases.note("readers", nvol)
+    paths = {b: [b + C.to_ext(i) for i in range(total)] for b in group}
+    buffering = _write_buffering(nvol * total, max_n)
+    # depth queued writes + 1 write-ahead read + 1 being encoded
+    ring = _SlabRing(depth + 1, (k, nvol * max_n), rs.host_zeros)
+    in_flight: dict[int, np.ndarray] = {}
+
+    def read_fn(ci: int) -> np.ndarray:
+        start, bs, co, n = chunks[ci]
+        slab = ring.acquire()
+        in_flight[ci] = slab
+        pristine = ring.take_pristine(slab)
+        out = slab[:, : nvol * n]
+        list(readers.map(lambda vi: _read_row_chunk(
+            dats[vi], start, bs, co, n, k,
+            out=out[:, vi * n:(vi + 1) * n], pt=phases,
+            assume_zero=pristine,
+        ), range(nvol)))
+        return out
+
+    def write_volume(ci, data, parity, vi):
+        n = chunks[ci][3]
+        band = slice(vi * n, (vi + 1) * n)
+        files = shard_files[vi * total:(vi + 1) * total]
+        for i in range(k):
+            _write_row(files[i], data[i, band])
+        for j in range(total - k):
+            _write_row(files[k + j], parity[j, band])
+
+    def write_fn(ci, data, parity):
+        list(writers.map(lambda vi: write_volume(ci, data, parity, vi),
+                         range(nvol)))
+
+    def release_fn(ci, data):
+        ring.release(in_flight.pop(ci))
+
+    dats = [open(b + ".dat", "rb") for b in group]
     try:
-        with launcher_for(rs) as launch, \
-                open(base + ".dat", "rb") as dat:
-            # depth queued writes + 1 write-ahead read + 1 being encoded
-            ring = _SlabRing(
-                depth + 1, (k, max_n), getattr(rs, "host_zeros", None)
-            )
-            in_flight: dict[int, np.ndarray] = {}
-            if phases is not None:
-                phases.note("batch_bytes", batch_bytes)
-                phases.note("pipeline_depth", depth)
-
-            def read_fn(ci):
-                start, bs, co, n = chunks[ci]
-                slab = ring.acquire()
-                in_flight[ci] = slab
-                return _read_row_chunk(
-                    dat, start, bs, co, n, k, out=slab[:, :n],
-                    pt=phases, assume_zero=ring.take_pristine(slab),
+        shard_files = [open(p, "wb", buffering=buffering)
+                       for b in group for p in paths[b]]
+        try:
+            # one reader and one writer worker per volume: the volumes'
+            # reads of a chunk overlap, and so do their shard writes (each
+            # volume's files are written by one worker a chunk; the
+            # pipeline's one writer thread keeps the chunks in order)
+            with ThreadPoolExecutor(max_workers=nvol) as readers, \
+                    ThreadPoolExecutor(max_workers=nvol) as writers, \
+                    launcher_for(rs) as launch:
+                _run_pipeline(
+                    len(chunks), read_fn, launch, write_fn, pt=phases,
+                    release_fn=release_fn, depth=depth,
                 )
-
-            def write_fn(ci, data, parity):
-                _write_rows(outs, data, parity, k, total)
-
-            def release_fn(ci, data):
-                ring.release(in_flight.pop(ci))
-
-            _run_pipeline(
-                len(chunks), read_fn, launch, write_fn, pt=phases,
-                release_fn=release_fn, depth=depth,
-            )
+        finally:
+            # closing flushes the write buffers, timed as its own phase;
+            # truncating to the exact shard size first materialises
+            # trailing sparse holes
+            shard_sz = sum(bs for _, bs in rows)
+            t0 = time.perf_counter()
+            for f in shard_files:
+                try:
+                    f.truncate(shard_sz)
+                finally:
+                    f.close()
+            if phases is not None:
+                phases.add("flush", time.perf_counter() - t0)
     finally:
-        # closing flushes the write buffers — real IO, timed as its own
-        # phase; truncating to the exact shard size first materialises
-        # trailing sparse holes
-        shard_sz = sum(bs for _, bs in rows)
-        t0 = time.perf_counter()
-        for f in outs:
-            try:
-                f.truncate(shard_sz)
-            finally:
-                f.close()
-        if phases is not None:
-            phases.add("flush", time.perf_counter() - t0)
+        for f in dats:
+            f.close()
     return paths
 
 

@@ -9,6 +9,8 @@ import os
 import pytest
 
 torch = pytest.importorskip("torch")
+# the suite runs in parallel workers on shared cores: two threads each
+torch.set_num_threads(2)
 
 from seaweedfs_tpu_torch.ops import autotune  # noqa: E402
 

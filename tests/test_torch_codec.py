@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the suite runs in parallel workers on shared cores: two threads each
+torch.set_num_threads(2)
 
 from seaweedfs_tpu.ops.codec import RSCodec as RefCodec  # noqa: E402
 import seaweedfs_tpu_torch  # noqa: E402

@@ -14,6 +14,8 @@ import pytest
 from jax.experimental import pallas as pl
 
 torch = pytest.importorskip("torch")
+# the suite runs in parallel workers on shared cores: two threads each
+torch.set_num_threads(2)
 
 from seaweedfs_tpu.ops import gf256 as ref_gf256  # noqa: E402
 from seaweedfs_tpu.ops.pallas import gf_kernel as ref_kernel  # noqa: E402
@@ -23,12 +25,13 @@ from seaweedfs_tpu_torch.ops.kernels import (  # noqa: E402
     gf_repack,
     gf_swar,
     gf_swar_u8,
+    gf_vpu,
 )
 
-METHODS = ["repack", "swar", "mxu"]
+METHODS = ["repack", "swar", "mxu"]  # vpu: tests/test_torch_gf_vpu.py
 COUNTERS = [gf_swar.LAUNCHES, gf_repack.REPACK_LAUNCHES,
             gf_repack.UNPACK_LAUNCHES, gf_swar_u8.LAUNCHES,
-            gf_bitplane.LAUNCHES]
+            gf_bitplane.LAUNCHES, gf_vpu.LAUNCHES]
 needs_card = pytest.mark.skipif("not torch.cuda.is_available()",
                                 reason="needs a CUDA device")
 
@@ -163,7 +166,7 @@ def test_strided_rows_need_no_copy():
         rng_for("strided").integers(0, 256, (14, 4099), dtype=np.uint8))
     coeff = ref_gf256.parity_matrix(10, 4)
     want = ref_gf256.gf_matmul_cpu(coeff, shards[:10].numpy())
-    for method in METHODS:
+    for method in METHODS + ["vpu"]:
         got = gf_kernel.gf_matmul_fused(coeff, shards[:10], method=method)
         np.testing.assert_array_equal(got.numpy(), want)
 
@@ -200,8 +203,16 @@ def test_contract_errors():
         gf_kernel.gf_matmul_fused(coeff, u8, device="cpu")
     with pytest.raises(ValueError):
         gf_kernel.gf_matmul_fused(coeff, u8.to(torch.int16))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        gf_kernel.gf_matmul_fused(coeff, u8, method="vpu")
+    # the vpu route: u8 only, no defer, the product itself
+    with pytest.raises(ValueError):
+        gf_kernel.gf_matmul_fused(coeff, u32, method="vpu")
+    with pytest.raises(ValueError):
+        gf_kernel.gf_matmul_fused(coeff, np.zeros((10, 128), np.uint8),
+                                  method="vpu", defer=True, device="cpu")
+    x = rng_for("contract-vpu").integers(0, 256, (10, 128), dtype=np.uint8)
+    got = gf_kernel.gf_matmul_fused(coeff, torch.from_numpy(x), method="vpu")
+    np.testing.assert_array_equal(got.numpy(),
+                                  ref_gf256.gf_matmul_cpu(coeff, x))
 
 
 def test_host_input_without_a_card_raises(monkeypatch):
@@ -215,7 +226,7 @@ def test_cpu_tensors_never_launch():
     coeff = ref_gf256.parity_matrix(10, 4)
     before = [c.value for c in COUNTERS]
     x = torch.zeros((10, 256), dtype=torch.uint8)
-    for method in METHODS:
+    for method in METHODS + ["vpu"]:
         gf_kernel.gf_matmul_fused(coeff, x, method=method)
     gf_kernel.gf_matmul_fused(coeff, x.view(torch.int32))
     assert [c.value for c in COUNTERS] == before

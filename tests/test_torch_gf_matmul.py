@@ -6,6 +6,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the suite runs in parallel workers on shared cores: two threads each
+torch.set_num_threads(2)
 
 from seaweedfs_tpu.ops import gf256 as ref_gf256  # noqa: E402
 from seaweedfs_tpu.ops import gf_matmul as ref_gf_matmul  # noqa: E402

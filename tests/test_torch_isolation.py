@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``seaweedfs_tpu_torch`` and not
-``chip_smoke.py`` imports ``jax`` or anything of ``seaweedfs_tpu``."""
+``chip_smoke.py`` imports ``jax``, anything of ``seaweedfs_tpu``, or the
+reference's scripts (``bench.py``, ``tools/``)."""
 
 import ast
 import os
@@ -12,7 +13,7 @@ pytest.importorskip("torch")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "seaweedfs_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "seaweedfs_tpu")
+FORBIDDEN = ("jax", "jaxlib", "seaweedfs_tpu", "bench", "tools")
 
 
 def port_files():
@@ -57,6 +58,10 @@ def test_port_files_exist():
     names = {os.path.relpath(p, REPO) for p in files}
     assert "chip_smoke.py" in names
     assert os.path.join("seaweedfs_tpu_torch", "ops", "codec.py") in names
+    for sweep in ("__init__", "exp_dev8", "exp_dev8b", "exp_batched"):
+        assert os.path.join("seaweedfs_tpu_torch", "tools",
+                            sweep + ".py") in names
+    assert os.path.join("seaweedfs_tpu_torch", "ops", "timing.py") in names
     assert len(files) > 10
 
 
@@ -80,9 +85,11 @@ def test_scan_catches_a_forbidden_import(tmp_path):
         "import jax.numpy as jnp\n"
         "from seaweedfs_tpu.ops import gf256\n"
         "from ..seaweedfs_tpu import ops\n"
+        "from bench import make_slope_timer\n"
+        "import tools.exp_dev8\n"
     )
     mods = list(imported_modules(str(bad), root=str(tmp_path)))
-    assert sum(is_forbidden(m) for m in mods) >= 3, mods
+    assert sum(is_forbidden(m) for m in mods) >= 5, mods
 
 
 def test_importing_the_port_loads_no_jax():
@@ -91,8 +98,11 @@ def test_importing_the_port_loads_no_jax():
         "import seaweedfs_tpu_torch.storage.erasure_coding\n"
         "import seaweedfs_tpu_torch.ops.codec\n"
         "import seaweedfs_tpu_torch.telemetry.phases\n"
+        "import seaweedfs_tpu_torch.tools.exp_dev8\n"
+        "import seaweedfs_tpu_torch.tools.exp_dev8b\n"
+        "import seaweedfs_tpu_torch.tools.exp_batched\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'seaweedfs_tpu')]\n"
+        "('jax', 'jaxlib', 'seaweedfs_tpu', 'bench', 'tools')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
