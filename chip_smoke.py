@@ -9,9 +9,16 @@ Run from the root of the repository, on a machine with a CUDA card and
 
 1. header: the card's name and power limit, CUDA and nvcc versions, and
    the build of every kernel from the sources in the checkout (one
-   ``nvcc`` per source, all started together);
+   ``nvcc`` per source, all started together), with ptxas's registers and
+   spills (none allowed in gf_swar) and SASS checks: the doubling's
+   instruction forms, and the XOR LOP3s a word of gf_swar's compile-time
+   RS(10,4) form, no more than the matrix's set bits, which decides how
+   the bound counts XORs (for the parity, the lower of that count and
+   the pairs');
 2. every kernel against its plain PyTorch version on the card, byte for
-   byte, at the shapes the main paths give it: gf_swar; gf_repack's u32
+   byte, at the shapes the main paths give it: gf_swar, and gf_swar in
+   each coefficient form at each column width W on word counts with
+   tails; gf_repack's u32
    words and gf_unpack; gf_swar_u8 on ragged widths, a strided row view
    and a batch; gf_bitplane, gf_vpu, gf_fused_u8 (tiles of 8, 16 and
    32 KiB and a scalar tile), gf_swar's batch-fastest launch and
@@ -19,6 +26,8 @@ Run from the root of the repository, on a machine with a CUDA card and
 3. kernel timing with CUDA events (L2 flushed between launches) beside
    the plain version's time, the card's bound for the same work and,
    where one PyTorch call computes the same function, that call's time;
+   gf_swar at the form and W its wrapper chooses, then in each other form
+   and W;
 4. the vendored golden fixture (tests/golden/1.*): encode, ``.ecx`` and
    a 4-shard rebuild byte-identical to the golden shards;
 5. the codec path at full size: a ``.dat`` volume made from ``--seed``
@@ -27,7 +36,8 @@ Run from the root of the repository, on a machine with a CUDA card and
    {0, 5, 11, 13} and of {3}, every parity row checked against the plain
    version on the card and every rebuilt shard against its original
    hash; launch counts read around the run prove it went through the
-   kernels;
+   kernels, the encode's in gf_swar's compile-time RS(10,4) form and the
+   rebuilds' in its run-time form;
 6. a second encode of the volume under torch.profiler: device time by
    kind (kernel, H2D, D2H) and the device's busy and idle share;
 7. the device-resident path at full size: a [10, 64 MiB] slab made on the
@@ -49,8 +59,9 @@ Run from the root of the repository, on a machine with a CUDA card and
 9. the multi-volume encode: ``write_ec_files_batch`` of
    ``--batch-volumes`` volumes of ``--batch-volume-mib`` made from
    ``--seed`` plus one volume of odd size (a second group), one parity
-   launch per lane-packed chunk, every shard file hashing equal to
-   ``write_ec_files`` of the same volume; GB/s and the phase split.
+   launch per lane-packed chunk, all in the compile-time RS(10,4) form,
+   every shard file hashing equal to ``write_ec_files`` of the same
+   volume; GB/s and the phase split.
 
 It prints one JSON line describing every kernel, then, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -60,6 +71,7 @@ repository beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import os
@@ -152,17 +164,33 @@ def sass_opcodes(nvcc: str, lib_path: str, symbol: str) -> dict[str, int]:
     return dict(sorted(ops.items(), key=lambda kv: -kv[1]))
 
 
-def swar_work(matrix: np.ndarray, n_bytes: int, batch: int = 1):
+def xor_ops(matrix: np.ndarray, folded: bool) -> int:
+    """ALU instructions of the XORs of one u32 word: one a set coefficient
+    bit, or, ``folded``, the least a three-input LOP3 allows: an output
+    of t terms starts from its first and folds two more into each LOP3,
+    ceil((t - 1) / 2)."""
+    terms = np.unpackbits(matrix, axis=1).sum(axis=1)
+    if not folded:
+        return int(terms.sum())
+    return int(sum(t // 2 for t in terms))  # ceil((t - 1) / 2) for t >= 0
+
+
+def swar_work(matrix: np.ndarray, n_bytes: int, batch: int = 1, *,
+              folded: bool, xors: float | None = None):
     """(bytes moved, ALU-pipe ops, FMA-pipe ops) of one kernel call:
     each input byte read once and each output byte written once; per u32
     word, one doubling per coefficient bit past the first of each input
-    row and one XOR per set coefficient bit."""
+    row and ``xors`` XOR instructions, by default those of
+    :func:`xor_ops`. ``folded`` counts them as the compile-time
+    instantiation's SASS shows ptxas issuing them (phase 1 checks it);
+    False, one LOP3 per set bit, as the bound was first counted."""
     o, k = matrix.shape
     tops = [int(c).bit_length() for c in np.bitwise_or.reduce(matrix, axis=0)]
     xtimes = sum(max(0, t - 1) for t in tops)
-    xors = int(np.unpackbits(matrix).sum())
     words = batch * (-(-n_bytes // 4))
     moved = batch * (k + o) * n_bytes
+    if xors is None:
+        xors = xor_ops(matrix, folded)
     return (moved, words * (ALU_PER_DOUBLING * xtimes + xors),
             words * FMA_PER_DOUBLING * xtimes)
 
@@ -401,6 +429,9 @@ def run(args, torch, here: str) -> int:
         "gf_fused_u8": gf_fused_u8.LAUNCHES,
         "gf_swar_fusedv": gf_swar.FUSEDV_LAUNCHES,
         "gf_swar_batch_fastest": gf_swar.BATCH_FASTEST_LAUNCHES,
+        # the launches of gf_swar's three forms that took the compile-time
+        # RS(10,4) parity instantiation
+        "gf_swar_rs10x4": gf_swar.RS10X4_LAUNCHES,
     }
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -450,10 +481,18 @@ def run(args, torch, here: str) -> int:
             f"kernels, registers {min(regs, default=0)}.."
             f"{max(regs, default=0)}, spill stores {spills} bytes, static "
             f"smem {max(smem, default=0)} bytes")
-    for lib, symbol in (("gf_swar", "gf_swar_kernelILi4E"),
+        if lib == "gf_swar":
+            spilling = re.findall(
+                r"Function properties for (\S+)\n\s+\d+ bytes stack frame, "
+                r"([1-9]\d*) bytes spill stores", info["ptxas"])
+            check(spills == 0, f"gf_swar spills {spills} bytes: {spilling}")
+    # gf_swar's symbols: <form (0 run-time, 1 RS(10,4) constants), O, W>
+    for lib, symbol in (("gf_swar", "gf_swar_kernelILi0ELi4ELi1EE"),
+                        ("gf_swar", "gf_swar_kernelILi0ELi4ELi2EE"),
                         ("gf_swar_u8", "gf_swar_u8_kernelILi4E"),
-                        ("gf_swar", "gf_swar_fusedv_kernelILi4E"),
-                        ("gf_swar", "gf_swar_batch_fastest_kernelILi4E")):
+                        ("gf_swar", "gf_swar_fusedv_kernelILi0ELi4ELi1EE"),
+                        ("gf_swar",
+                         "gf_swar_batch_fastest_kernelILi0ELi4ELi1EE")):
         forms = sass_doubling(nvcc, build.build_info[lib]["path"], symbol)
         say(f"SASS {symbol} doubling forms: " + ", ".join(
             f"{name} x{n}" for name, n in forms.items()))
@@ -461,6 +500,50 @@ def run(args, torch, here: str) -> int:
               f"the built doubling of {symbol} is no longer "
               f"{ALU_PER_DOUBLING} ALU + {FMA_PER_DOUBLING} FMA-pipe "
               "instructions; recount the bound")
+    # the compile-time RS(10,4) form (W = 1): its doublings keep their
+    # forms, except that ptxas issues some x<<1 as IADD3 or LEA on the ALU
+    # pipe instead of IMAD.SHL, so 3 ALU + 2 FMA a doubling stays the
+    # least work; and its LOP3s that are no doubling's are its XORs: at
+    # most the matrix's set bits, one LOP3 each, and fewer where ptxas
+    # folds two XORs into one three-input LOP3
+    parity10 = gf256.parity_matrix(10, 4)
+    set_bits = xor_ops(parity10, folded=False)
+    fold_bits = xor_ops(parity10, folded=True)
+    symbol = "gf_swar_kernelILi1ELi4ELi1EE"
+    path = build.build_info["gf_swar"]["path"]
+    ops = sass_opcodes(nvcc, path, symbol)
+    forms = sass_doubling(nvcc, path, symbol)
+    say(f"SASS {symbol} doubling forms: " + ", ".join(
+        f"{name} x{n}" for name, n in forms.items()))
+    others = [n for name, n in forms.items() if name != "IMAD.SHL x<<1"]
+    check(min(others) > 0 and len(set(others)) == 1
+          and forms["IMAD.SHL x<<1"] <= others[0],
+          f"the built doubling of {symbol} is no longer at least "
+          f"{ALU_PER_DOUBLING} ALU + {FMA_PER_DOUBLING} FMA-pipe "
+          "instructions; recount the bound")
+    doubling_lop3 = sum(n for name, n in forms.items()
+                        if name.startswith("LOP3"))
+    xor_per_word = (ops.get("LOP3", 0) - doubling_lop3) / 4
+    say(f"SASS {symbol} opcodes (static): " + ", ".join(
+        f"{op} x{n}" for op, n in list(ops.items())[:12])
+        + f"; XOR LOP3s a u32 word {xor_per_word:.2f} (set bits "
+        f"{set_bits}, folded in pairs {fold_bits})")
+    check(xor_per_word <= set_bits,
+          f"{symbol} issues {xor_per_word:.2f} XOR LOP3s a word, more than "
+          f"the {set_bits} set bits of the parity")
+    # step d: the bound counts the least work. Where ptxas folds XORs, the
+    # pair-folded count is it for every SWAR-family row; for the parity,
+    # the built kernel's own count where that is lower still (every output
+    # there has an odd number of terms, so a count below the pairs' means
+    # a three-input XOR shared by two outputs)
+    folded = xor_per_word < set_bits
+    parity_xors = min(xor_per_word, fold_bits) if folded else set_bits
+    say(f"bound: XORs counted {'folded' if folded else 'one per set bit'} "
+        f"({parity_xors:g} a word for the RS(10,4) parity)")
+
+    def work_of(matrix, n_bytes, batch=1):
+        xors = parity_xors if np.array_equal(matrix, parity10) else None
+        return swar_work(matrix, n_bytes, batch, folded=folded, xors=xors)
     # gf_fused_u8 does the same doublings; its index math adds forms of
     # its own (an IMAD.SHL by 2), so its counts are shown, not checked
     forms = sass_doubling(nvcc, build.build_info["gf_fused_u8"]["path"],
@@ -541,6 +624,34 @@ def run(args, torch, here: str) -> int:
     for lost in losses:
         compare(rec_matrix_for(lost), rand(10, 8 * MIB),
                 f"reconstruct lost={lost}")
+    # each coefficient form at each W, forced, on column-word counts with
+    # tails past every W (n16 % W != 0), a batch, and the codec's widths
+    marked = gf_swar.coeff_from_reference(parity10)
+    check(marked.rs10x4, "the RS(10,4) parity is not marked for its "
+                         "compile-time form")
+    form_cases = (("RS(10,4) constants", marked),
+                  ("RS(10,4) run-time", dataclasses.replace(marked,
+                                                            rs10x4=False)),
+                  ("rebuild {0,5,11,13} run-time",
+                   gf_swar.coeff_from_reference(
+                       rec_matrix_for((0, 5, 11, 13)))),
+                  ("RS(12,4) run-time", gf_swar.coeff_from_reference(
+                      gf256.parity_matrix(12, 4))))
+    for label, coeff in form_cases:
+        o, k = coeff.shape
+        form = gf_swar.launch_plan(coeff, 1, 1, 1)[1]
+        for w in gf_swar.WIDTHS[:gf_swar.WIDTHS.index(
+                gf_swar.max_width(o, form)) + 1]:
+            for batch, n16 in ((1, 1), (1, 3), (1, 4095), (3, 1027),
+                               (1, MIB // 16 + 5), (1, MIB // 16),
+                               (2, 8 * MIB // 16 + 1)):
+                x = rand(batch, k, 16 * n16)
+                out = torch.empty((batch, o, 16 * n16), dtype=torch.uint8,
+                                  device=dev)
+                gf_swar.launch(coeff, x, out, width=w)
+                agree("gf_swar", out, gf_swar.gf_matmul_plain(coeff, x),
+                      f"{label} W={w} [{batch},{k},{n16}x16]")
+    del x, out
 
     # gf_repack: the u32 words themselves; gf_unpack: the bytes back
     for label, x in (("[10,1]", rand(10, 1)), ("[10,4095]", rand(10, 4095)),
@@ -631,7 +742,8 @@ def run(args, torch, here: str) -> int:
                         gf_swar.gf_matmul_batch_fastest)):
         for k, m in rs_shapes:
             coeff = gf256.parity_matrix(k, m)
-            for v, n4 in ((1, 1001), (3, MIB // 4), (8, 2 * MIB)):
+            for v, n4 in ((1, 1001), (3, MIB // 4), (8, 2 * MIB),
+                          (8, 2 * MIB + 4)):
                 w = rand(v, k, 4 * n4).view(torch.int32)
                 agree(name, form(coeff, w), words_plain(coeff, w),
                       f"parity({k},{m}) [{v},{k},{n4}] words")
@@ -659,10 +771,15 @@ def run(args, torch, here: str) -> int:
     timings = {name: [] for name in KERNELS}
 
     def timed(name, label, fn, plain, work, library=None, **extra):
+        """Time ``fn`` (and ``plain``, and ``library``, where given)
+        beside the bound of ``work``; a SWAR-family row also gives the
+        bound as it was first counted (``unfolded``: one LOP3 a set
+        bit)."""
         ms = time_ms(fn, args.reps, 3, flush)
-        plain_ms = time_ms(plain, plain_reps, 3, flush)
+        plain_ms = time_ms(plain, plain_reps, 3, flush) if plain else None
         library_ms = (time_ms(library, args.reps, 3, flush)
                       if library else None)
+        unfolded = extra.pop("unfolded", None)
         moved, alu, fma, *tensor = work
         bound_ms, bound_by = bound(moved, alu, fma, *tensor)
         row = {
@@ -673,22 +790,53 @@ def run(args, torch, here: str) -> int:
         }
         if tensor:
             row["tensor_ops"] = tensor[0]
+        old = ""
+        if unfolded is not None:
+            row["bound_ms_unfolded"] = bound(*unfolded)[0]
+            row["bound_share_unfolded"] = row["bound_ms_unfolded"] / ms
+            old = (f"; one LOP3 a set bit: {row['bound_ms_unfolded']:.4f} "
+                   f"ms, {100 * row['bound_share_unfolded']:.1f}%")
         timings[name].append(row)
         lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
-        say(f"time {name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-            f"ms{lib}, bound {bound_ms:.4f} ms ({bound_by}), "
-            f"{100 * row['bound_share']:.1f}% of bound")
+        pl = "" if plain_ms is None else f", plain {plain_ms:.4f} ms"
+        say(f"time {name} {label}: kernel {ms:.4f} ms{pl}{lib}, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), {100 * row['bound_share']:.1f}% "
+            f"of bound{old}")
 
+    def swar_timed(name, label, fn, plain, matrix, n, batch=1, **extra):
+        timed(name, label, fn, plain, work_of(matrix, n, batch),
+              unfolded=swar_work(matrix, n, batch, folded=False), **extra)
+
+    sms = gf_swar.sm_count(dev.index)
     for label, matrix, n in shapes:
         coeff = gf_swar.coeff_from_reference(matrix)
         o, k = matrix.shape
         x = rand(1, k, n)
         out = torch.empty((1, o, n), dtype=torch.uint8, device=dev)
-        timed("gf_swar", label, lambda: gf_swar.launch(coeff, x, out),
-              lambda: gf_swar.gf_matmul_plain(coeff, x),
-              (*swar_work(matrix, n), 0))
+        width, form = gf_swar.launch_plan(coeff, n // 16, 1, sms)
+        form_name = "constants" if form == gf_swar.FORM_RS10X4 else "run-time"
+        swar_timed("gf_swar", f"{label} ({form_name}, W={width} chosen)",
+                   lambda: gf_swar.launch(coeff, x, out),
+                   lambda: gf_swar.gf_matmul_plain(coeff, x), matrix, n,
+                   width=width, form=form_name)
         row = timings["gf_swar"][-1]
         row["input_GBps"] = k * n / row["ms"] / 1e6
+        # each form and W on its own, so each step's gain shows alone
+        variants = [(coeff, form_name)]
+        if coeff.rs10x4:
+            variants.append((dataclasses.replace(coeff, rs10x4=False),
+                             "run-time"))
+        for c, f_name in variants:
+            for w in gf_swar.WIDTHS:
+                c_form = gf_swar.launch_plan(c, 1, 1, 1)[1]
+                if (w > gf_swar.max_width(o, c_form)
+                        or (c is coeff and w == width)):
+                    continue
+                swar_timed("gf_swar", f"{label} ({f_name}, W={w})",
+                           lambda c=c, w=w: gf_swar.launch(c, x, out,
+                                                           width=w),
+                           None, matrix, n, width=w, form=f_name)
+        del x, out
 
     n = 64 * MIB
     tile = gf_repack.choose_tile(n)
@@ -716,9 +864,9 @@ def run(args, torch, here: str) -> int:
                           ("rebuild {0,5,11,13} [10,64MiB]->[4,64MiB]",
                            rec_matrix)):
         coeff = gf_swar.coeff_from_reference(matrix)
-        timed("gf_swar_u8", label, lambda: gf_swar_u8.gf_matmul(coeff, x),
-              lambda: gf_swar_u8.gf_matmul_plain(coeff, x),
-              (*swar_work(matrix, n), 0))
+        swar_timed("gf_swar_u8", label,
+                   lambda: gf_swar_u8.gf_matmul(coeff, x),
+                   lambda: gf_swar_u8.gf_matmul_plain(coeff, x), matrix, n)
         # the plain bit-plane version of [10, 64 MiB] would hold 80 float32
         # bit rows of 64 Mi columns: it runs on 8 MiB column chunks
         timed("gf_bitplane", label,
@@ -734,10 +882,10 @@ def run(args, torch, here: str) -> int:
     coeff = gf_swar.coeff_from_reference(parity10)
     for tile in (8192, 16384, 32768):
         label = f"encode [10,64MiB]->[4,64MiB], tile {tile}"
-        timed("gf_fused_u8", label,
-              lambda: gf_fused_u8.gf_matmul(coeff, x, tile),
-              lambda: gf_fused_u8.gf_matmul_plain(coeff, x, tile),
-              swar_work(parity10, n), tile=tile)
+        swar_timed("gf_fused_u8", label,
+                   lambda: gf_fused_u8.gf_matmul(coeff, x, tile),
+                   lambda: gf_fused_u8.gf_matmul_plain(coeff, x, tile),
+                   parity10, n, tile=tile)
         agree("gf_fused_u8", gf_fused_u8.gf_matmul(coeff, x, tile),
               gf_fused_u8.gf_matmul_plain(coeff, x, tile), label)
     del x
@@ -745,13 +893,16 @@ def run(args, torch, here: str) -> int:
     # as u32 words, and gf_swar's own batch launch beside its two forms
     batch_words = rand(8, 10, 8 * MIB).view(torch.int32)
     label = "encode [8,10,2Mi] words -> [8,4,2Mi]"
-    work = swar_work(parity10, 8 * MIB, batch=8)
-    for name, form in (("gf_swar_fusedv", gf_swar.gf_matmul_fusedv),
-                       ("gf_swar_batch_fastest",
-                        gf_swar.gf_matmul_batch_fastest),
-                       ("gf_swar", gf_kernel.u32_route)):
-        timed(name, label, lambda: form(coeff, batch_words),
-              lambda: words_plain(coeff, batch_words), work)
+    for name, form, threads_over in (
+            ("gf_swar_fusedv", gf_swar.gf_matmul_fusedv, 1),
+            ("gf_swar_batch_fastest", gf_swar.gf_matmul_batch_fastest, 8),
+            ("gf_swar", gf_kernel.u32_route, 8)):
+        width, _ = gf_swar.launch_plan(coeff, 8 * MIB // 16, threads_over,
+                                       sms)
+        swar_timed(name, f"{label} (constants, W={width} chosen)",
+                   lambda: form(coeff, batch_words),
+                   lambda: words_plain(coeff, batch_words), parity10,
+                   8 * MIB, 8, width=width)
         agree(name, form(coeff, batch_words),
               words_plain(coeff, batch_words), label)
     del batch_words
@@ -807,6 +958,7 @@ def run(args, torch, here: str) -> int:
         encoder.write_sorted_file_from_idx(base)
         enc_s = time.perf_counter() - t0
         enc_launches = gf_swar.LAUNCHES.value
+        enc_rs10x4 = gf_swar.RS10X4_LAUNCHES.value
         enc_staged = rs.staged_bytes - staged0
         summary = pt.summary()
 
@@ -818,12 +970,16 @@ def run(args, torch, here: str) -> int:
             for sid in lost:
                 os.remove(base + C.to_ext(sid))
             before = gf_swar.LAUNCHES.value
+            before_rs = gf_swar.RS10X4_LAUNCHES.value
             staged0 = rs.staged_bytes
             t0 = time.perf_counter()
             got_ids = rebuild.rebuild_ec_files(base, rs=rs)
             rebuilds.append((lost, time.perf_counter() - t0,
                              gf_swar.LAUNCHES.value - before,
                              rs.staged_bytes - staged0))
+            check(gf_swar.RS10X4_LAUNCHES.value == before_rs,
+                  f"rebuild {lost} launched the compile-time parity form; "
+                  "its matrices take the run-time form")
             check(got_ids == list(lost), f"rebuild ids {got_ids} != {lost}")
             check(rebuilds[-1][3] == 0,
                   f"rebuild {lost} staged {rebuilds[-1][3]} bytes; its "
@@ -838,6 +994,9 @@ def run(args, torch, here: str) -> int:
 
         check(enc_launches == n_rows,
               f"encode launched {enc_launches} kernels for {n_rows} rows")
+        check(enc_rs10x4 == enc_launches,
+              f"encode launched {enc_rs10x4} of {enc_launches} kernels in "
+              "the compile-time RS(10,4) form")
         check(enc_staged == 0,
               f"encode staged {enc_staged} bytes; pinned slabs should not be")
         check(main_launches > 0, "main path launched no gf_swar kernel")
@@ -867,8 +1026,9 @@ def run(args, torch, here: str) -> int:
 
         gbps = size / enc_s / 1e9
         say(f"encode {size} bytes: {enc_s:.3f} s = {gbps:.3f} GB/s, "
-            f"{enc_launches} launches ({n_rows} rows), {enc_staged} bytes "
-            "staged; parity rows match the plain version")
+            f"{enc_launches} launches ({n_rows} rows; {enc_rs10x4} in the "
+            f"compile-time RS(10,4) form), {enc_staged} bytes staged; "
+            "parity rows match the plain version")
         phases = summary["phases"]
         say("encode phases (busy s): " + " ".join(
             f"{p}={phases[p]['seconds']:.3f}"
@@ -879,7 +1039,8 @@ def run(args, torch, here: str) -> int:
         for lost, secs, launches, staged in rebuilds:
             say(f"rebuild lost={list(lost)}: {secs:.3f} s = "
                 f"{size / secs / 1e9:.3f} GB/s (.dat bytes), {launches} "
-                f"launches, {staged} bytes staged; hashes match")
+                f"launches (all run-time form), {staged} bytes staged; "
+                "hashes match")
         say(f"main path launches: gf_swar={main_launches}")
 
         # -- 6. device activity over a second, profiled encode --------------
@@ -1089,6 +1250,10 @@ def run(args, torch, here: str) -> int:
         check(launches == want_launches,
               f"batch encode launched {launches} parity kernels for "
               f"{want_launches} lane-packed chunks")
+        check(path_launches["batch_encode"]["gf_swar_rs10x4"] == launches,
+              f"batch encode launched "
+              f"{path_launches['batch_encode']['gf_swar_rs10x4']} of "
+              f"{launches} parity kernels in the compile-time form")
         check(sorted(out) == sorted(bases), "batch encode returned other "
                                             "volumes")
         hashes = {b: [sha256_file(p) for p in out[b]] for b in bases}
@@ -1127,7 +1292,8 @@ def run(args, torch, here: str) -> int:
         }
         say(f"batch encode of {len(sizes)} volumes ({total_bytes} bytes, "
             f"two size groups): {batch_s:.3f} s = {batch_row['GBps']:.3f} "
-            f"GB/s, {launches} parity launches (one per lane-packed chunk; "
+            f"GB/s, {launches} parity launches (one per lane-packed chunk, "
+            "all in the compile-time RS(10,4) form; "
             f"{per_volume} one volume at a time); 14 x {len(sizes)} shard "
             f"files hash equal to write_ec_files ({single_s:.3f} s = "
             f"{batch_row['single_GBps']:.3f} GB/s one by one); the batch "
@@ -1167,6 +1333,9 @@ def run(args, torch, here: str) -> int:
         }
         if name == "gf_swar":
             entry.update(
+                launches_rs10x4_by_path={
+                    path: counts["gf_swar_rs10x4"]
+                    for path, counts in path_launches.items()},
                 launches_encode=enc_launches,
                 launches_rebuild=[r[2] for r in rebuilds],
                 encode_GBps=gbps,

@@ -10,23 +10,41 @@
 // For each input row the kernel doubles the word once per coefficient bit
 // and XORs it into every output accumulator whose coefficient has that bit.
 //
-// What bounds it on an H100 SXM: per u32 of an RS(10,4) parity product it
-// does 60 doublings and 156 XORs against 56 bytes of traffic. As built, a
-// doubling is 3 instructions on the integer ALU pipe (SHF, two LOP3) and 2
-// on the FMA pipe (IMAD.SHL, IMAD), and an XOR is one LOP3: 336 ALU-pipe
-// operations, 6 a byte, above the card's balance of 5 (the ALU pipe's
-// 16.7 T op/s over HBM3 at 3.35 TB/s). So it is bound by integer
-// operations, not bytes. The design follows: keep every accumulator in
-// registers (a template over O), load 16 bytes a thread with neighbouring
-// threads on neighbouring words so the loads are few and coalesced, and
-// pay little for run-time coefficients. The coefficients arrive in a
-// kernel-argument struct (reconstruction matrices change with the loss
-// pattern, 1,470 of them for 1-4 losses of RS(10,4), so they cannot be
-// compile-time); the branch on each coefficient bit reads constant-bank
-// parameters that are the same for the whole warp, so it never diverges.
-// The compiler turns that branch into predicated XORs, which issue whether
-// or not the bit is set: O per input row and bit where the work needs one
-// per set bit (280 against 156 per word for the RS(10,4) parity).
+// What bounds it on an H100 SXM. Per u32 of an RS(10,4) parity product it
+// does 60 doublings and 156 XORs against 56 bytes of traffic. A doubling
+// is 3 instructions on the integer ALU pipe (SHF, two LOP3) and 2 on the
+// FMA pipe (IMAD.SHL, IMAD); an XOR is at most one LOP3. With run-time
+// coefficients the per-bit branch reads the kernel-argument struct, the
+// same for the whole warp, so it never diverges, but it compiles to
+// predicated XORs that issue whether or not the bit is set: O per input
+// row and bit, 280 a word for the parity against the 156 it needs, about
+// 460 ALU-pipe instructions a word in all. That issue rate bounds it, on
+// large launches and on the encode's [10, 1 MiB] alike, where 65,536
+// column words give each SM two blocks and nothing to overlap them with.
+// HBM3 (3.35 TB/s) would allow the 56 bytes a word in less time. The
+// design:
+//
+// - A compile-time form of the one matrix every ec.encode launch uses,
+//    the RS(10,4) parity (rs10x4_coef). Each row, bit and output is a
+//    template argument, so the kernel holds an XOR only for a set bit, as
+//    the TPU kernel's trace-time constants do (_build_swar_call), and
+//    ptxas folds two XORs into one three-input LOP3: 75 a word in the
+//    built SASS where the run-time form issues 280, which leaves the
+//    product nearer its byte bound than its operation bound. Every other matrix (the
+//    1,470 reconstruction matrices of 1-4 losses, the other RS shapes,
+//    the sweeps') takes the run-time form.
+// - W column words a thread (a template parameter), chosen per launch by
+//    the wrapper (gf_swar.py: choose_width). In the run-time form W = 2
+//    shares each per-bit test among twice the words, where the launch
+//    still gives every SM enough threads and the O x 2 accumulators fit
+//    in registers (O <= 4); W = 4 measured slower than 2. The
+//    compile-time form has no tests to share and stays at W = 1. Word j
+//    of a thread is column block * kThreads * W + j * kThreads + thread,
+//    so each load and store instruction of a warp stays coalesced; words
+//    past n16 are masked.
+// - One row loaded at a time: issuing the loads of several rows ahead
+//    of their algebra measured no faster in either form (PERF.md), since
+//    the small launch waits on ALU issue, not on load round trips.
 //
 // Layout: in is [batch, k, n16] and out [batch, O, n16] uint4 words, rows
 // contiguous and 16-byte aligned. Limits: O <= 16, k <= 64, batch <= 65535.
@@ -36,101 +54,258 @@
 // Two more launch forms of the same column work answer the questions
 // tools/exp_batched.py asked of the TPU about a batch of volumes: the batch
 // as the fastest block index (its swapped grid of _swar_kernel) and one
-// thread walking all V volumes of its column word on a grid over columns
+// thread walking all V volumes of its column words on a grid over columns
 // only (its _swar_fusedv_kernel). Each thread of any form does the same
 // work per column word and volume; only the order in which blocks reach
 // the SMs and the number of threads differ.
 
 #include <cstring>
+#include <utility>
 
 #include "gf_common.cuh"
 
 namespace {
 
-// out[i] = XOR_d C[i, d] ∘GF in[d] for one uint4 column word; in and out
-// point at row 0 of the column, rows n16 words apart.
-template <int O>
+// The coefficient forms (the launchers' `form` argument).
+constexpr int kRunTime = 0;  // the SwarCoeff kernel argument: any matrix
+constexpr int kRs10x4 = 1;   // the RS(10,4) parity as compile-time constants
+
+constexpr int kRsOut = 4;
+constexpr int kRsIn = 10;
+
+// C[i][d] of gf256.parity_matrix(10, 4), the parity rows of ec.encode.
+__host__ __device__ constexpr unsigned rs10x4_coef(int i, int d) {
+  constexpr unsigned char kRs10x4Parity[kRsOut][kRsIn] = {
+      {0x81, 0x96, 0xaf, 0xb8, 0xd2, 0xc4, 0xfe, 0xe8, 0x03, 0x02},
+      {0x96, 0x81, 0xb8, 0xaf, 0xc4, 0xd2, 0xe8, 0xfe, 0x02, 0x03},
+      {0xbf, 0xd6, 0x62, 0x0a, 0x06, 0x6f, 0xdf, 0xb7, 0x05, 0x04},
+      {0xd6, 0xbf, 0x0a, 0x62, 0x6f, 0x06, 0xb7, 0xdf, 0x04, 0x05},
+  };
+  return kRs10x4Parity[i][d];
+}
+
+// The bits input row d of the parity needs: the bit length of its column.
+__host__ __device__ constexpr int rs10x4_top(int d) {
+  unsigned c = 0;
+  for (int i = 0; i < kRsOut; ++i) c |= rs10x4_coef(i, d);
+  int top = 0;
+  for (; c; c >>= 1) ++top;
+  return top;
+}
+
+// The widest W of a form: in the run-time form 2 for up to 4 outputs,
+// whose 8 accumulator words stay in registers (at 7 outputs ptxas
+// spilled; W = 4 measured slower than 2); the compile-time form, with no
+// per-bit tests to share among words, has only W = 1.
+constexpr int max_width(int o, int form) {
+  return form == kRunTime && o <= 4 ? 2 : 1;
+}
+
+// Word j of the thread whose first word is column `col`.
+__device__ __forceinline__ long long word_col(long long col, int j) {
+  return col + static_cast<long long>(j) * kThreads;
+}
+
+// x[j] = row[word j], or 0 for a word past n16.
+template <int W>
+__device__ __forceinline__ void load_words(uint4 (&x)[W],
+                                           const uint4* __restrict__ row,
+                                           long long col, long long n16) {
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    const long long c = word_col(col, j);
+    x[j] = c < n16 ? __ldg(row + c) : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void double_words(uint4 (&x)[W]) {
+#pragma unroll
+  for (int j = 0; j < W; ++j) x[j] = xtime4(x[j]);
+}
+
+template <int W>
+__device__ __forceinline__ void xor_words(uint4 (&acc)[W],
+                                          const uint4 (&x)[W]) {
+#pragma unroll
+  for (int j = 0; j < W; ++j) xor_into(acc[j], x[j]);
+}
+
+// Run-time form: row x through its `top` bits, XORed where mask[b] says.
+template <int O, int W>
+__device__ __forceinline__ void fold_row(uint4 (&acc)[O][W], uint4 (&x)[W],
+                                         int top, const uint16_t (&mask)[8]) {
+  for (int b = 0; b < top; ++b) {
+    if (b) double_words(x);
+    const unsigned m = mask[b];
+#pragma unroll
+    for (int i = 0; i < O; ++i) {
+      if (m & (1u << i)) xor_words(acc[i], x);
+    }
+  }
+}
+
+// Compile-time form: every row, bit and output is a template argument, so
+// only the XORs of set bits exist.
+template <bool On, int W>
+__device__ __forceinline__ void xor_if(uint4 (&acc)[W], const uint4 (&x)[W]) {
+  if constexpr (On) xor_words(acc, x);
+}
+
+template <int D, int B, int O, int W, int... I>
+__device__ __forceinline__ void xor_bit(uint4 (&acc)[O][W],
+                                        const uint4 (&x)[W],
+                                        std::integer_sequence<int, I...>) {
+  (xor_if<((rs10x4_coef(I, D) >> B) & 1u) != 0, W>(acc[I], x), ...);
+}
+
+template <int D, int O, int W, int... B>
+__device__ __forceinline__ void fold_row_rs(uint4 (&acc)[O][W], uint4 (&x)[W],
+                                            std::integer_sequence<int, B...>) {
+  ((B ? double_words(x) : void(),
+    xor_bit<D, B, O, W>(acc, x, std::make_integer_sequence<int, O>{})),
+   ...);
+}
+
+// Row D of the parity: load it, then fold it through its bits.
+template <int D, int O, int W>
+__device__ __forceinline__ void rs_row(const uint4* __restrict__ src,
+                                       long long col, long long n16,
+                                       uint4 (&acc)[O][W]) {
+  uint4 x[W];
+  load_words<W>(x, src + D * n16, col, n16);
+  fold_row_rs<D, O, W>(acc, x,
+                       std::make_integer_sequence<int, rs10x4_top(D)>{});
+}
+
+template <int O, int W, int... D>
+__device__ __forceinline__ void rs_rows(const uint4* __restrict__ src,
+                                        long long col, long long n16,
+                                        uint4 (&acc)[O][W],
+                                        std::integer_sequence<int, D...>) {
+  (rs_row<D, O, W>(src, col, n16, acc), ...);
+}
+
+// out[i] = XOR_d C[i, d] ∘GF in[d] for the W column words of one thread;
+// src and dst point at row 0, rows n16 words apart.
+template <int F, int O, int W>
 __device__ __forceinline__ void swar_column(const uint4* __restrict__ src,
-                                            uint4* __restrict__ dst, int k,
+                                            uint4* __restrict__ dst,
+                                            long long col, int k,
                                             long long n16,
                                             const SwarCoeff& coeff) {
-  uint4 acc[O];
+  uint4 acc[O][W];
 #pragma unroll
-  for (int i = 0; i < O; ++i) acc[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (int i = 0; i < O; ++i) {
+#pragma unroll
+    for (int j = 0; j < W; ++j) acc[i][j] = make_uint4(0u, 0u, 0u, 0u);
+  }
 
-  for (int d = 0; d < k; ++d) {
-    const int top = coeff.top[d];
-    if (top == 0) continue;
-    uint4 x = __ldg(src + d * n16);
-    for (int b = 0; b < top; ++b) {
-      if (b) x = xtime4(x);
-      const unsigned m = coeff.mask[d][b];
-#pragma unroll
-      for (int i = 0; i < O; ++i) {
-        if (m & (1u << i)) xor_into(acc[i], x);
-      }
+  if constexpr (F == kRs10x4) {
+    rs_rows<O, W>(src, col, n16, acc,
+                  std::make_integer_sequence<int, kRsIn>{});
+  } else {
+    for (int d = 0; d < k; ++d) {
+      const int top = coeff.top[d];
+      if (top == 0) continue;
+      uint4 x[W];
+      load_words<W>(x, src + d * n16, col, n16);
+      fold_row<O, W>(acc, x, top, coeff.mask[d]);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < O; ++i) dst[i * n16] = acc[i];
+  for (int i = 0; i < O; ++i) {
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      const long long c = word_col(col, j);
+      if (c < n16) dst[i * n16 + c] = acc[i][j];
+    }
+  }
+}
+
+// The first column of the thread in column block `block`.
+__device__ __forceinline__ long long first_col(long long block, int width) {
+  return block * kThreads * width + threadIdx.x;
 }
 
 // The batch on gridDim.y, columns on x.
-template <int O>
+template <int F, int O, int W>
 __global__ void __launch_bounds__(kThreads)
     gf_swar_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
                    int k, long long n16,
                    const __grid_constant__ SwarCoeff coeff) {
-  const long long col =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const long long col = first_col(blockIdx.x, W);
   if (col >= n16) return;
-  swar_column<O>(in + static_cast<long long>(blockIdx.y) * k * n16 + col,
-                 out + static_cast<long long>(blockIdx.y) * O * n16 + col, k,
-                 n16, coeff);
+  swar_column<F, O, W>(in + static_cast<long long>(blockIdx.y) * k * n16,
+                       out + static_cast<long long>(blockIdx.y) * O * n16,
+                       col, k, n16, coeff);
 }
 
 // The batch as the fastest block index: blocks b, b+1, ... of one column
 // block are neighbours in launch order (tools/exp_batched.py's swapped
 // grid, build_batched_swapped).
-template <int O>
+template <int F, int O, int W>
 __global__ void __launch_bounds__(kThreads)
     gf_swar_batch_fastest_kernel(const uint4* __restrict__ in,
                                  uint4* __restrict__ out, int k,
                                  long long n16, int batch,
                                  const __grid_constant__ SwarCoeff coeff) {
   const long long b = blockIdx.x % batch;
-  const long long col =
-      static_cast<long long>(blockIdx.x / batch) * kThreads + threadIdx.x;
+  const long long col = first_col(blockIdx.x / batch, W);
   if (col >= n16) return;
-  swar_column<O>(in + b * k * n16 + col, out + b * O * n16 + col, k, n16,
-                 coeff);
+  swar_column<F, O, W>(in + b * k * n16, out + b * O * n16, col, k, n16,
+                       coeff);
 }
 
 // All volumes in one thread: a grid over columns only, each thread walking
-// the V volumes of its column word (tools/exp_batched.py's
+// the V volumes of its column words (tools/exp_batched.py's
 // _swar_fusedv_kernel, one program for all volumes).
-template <int O>
+template <int F, int O, int W>
 __global__ void __launch_bounds__(kThreads)
     gf_swar_fusedv_kernel(const uint4* __restrict__ in,
                           uint4* __restrict__ out, int k, long long n16,
                           int volumes,
                           const __grid_constant__ SwarCoeff coeff) {
-  const long long col =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const long long col = first_col(blockIdx.x, W);
   if (col >= n16) return;
   for (int v = 0; v < volumes; ++v) {
-    swar_column<O>(in + static_cast<long long>(v) * k * n16 + col,
-                   out + static_cast<long long>(v) * O * n16 + col, k, n16,
-                   coeff);
+    swar_column<F, O, W>(in + static_cast<long long>(v) * k * n16,
+                         out + static_cast<long long>(v) * O * n16, col, k,
+                         n16, coeff);
   }
+}
+
+template <int V>
+using IntC = std::integral_constant<int, V>;
+
+// f(form, O, W) as integral constants for a checked (form, o, width).
+template <typename Fn>
+void dispatch(int form, int o, int width, Fn&& f) {
+  if (form == kRs10x4) {
+    f(IntC<kRs10x4>{}, IntC<kRsOut>{}, IntC<1>{});
+    return;
+  }
+  dispatch_out(o, [&](auto oc) {
+    constexpr int O = decltype(oc)::value;
+    if constexpr (max_width(O, kRunTime) >= 2) {
+      if (width == 2) return f(IntC<kRunTime>{}, oc, IntC<2>{});
+    }
+    f(IntC<kRunTime>{}, oc, IntC<1>{});
+  });
 }
 
 // Argument checks shared by the launchers; 0 when the call may go ahead.
 int check_args(const void* in, const void* out, int o, int k, long long n16,
-               int device) {
+               int width, int form, int device) {
   if (o < 1 || o > kMaxOut || k < 1 || k > kMaxIn || n16 < 0 ||
       n16 > 0x7fffffffLL * kThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (form == kRs10x4 ? (o != kRsOut || k != kRsIn) : form != kRunTime) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (width < 1 || width > max_width(o, form)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if ((reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out)) &
@@ -138,6 +313,11 @@ int check_args(const void* in, const void* out, int o, int k, long long n16,
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
   return static_cast<int>(cudaSetDevice(device));
+}
+
+long long column_blocks(long long n16, int width) {
+  const long long per_block = static_cast<long long>(kThreads) * width;
+  return (n16 + per_block - 1) / per_block;
 }
 
 }  // namespace
@@ -150,49 +330,59 @@ int gf_swar_max_out() { return kMaxOut; }
 
 int gf_swar_max_in() { return kMaxIn; }
 
+int gf_swar_max_width(int o, int form) { return max_width(o, form); }
+
 const char* gf_swar_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 // in: device [batch, k, n16] uint4; out: device [batch, o, n16] uint4;
 // coeff: host pointer to gf_swar_coeff_bytes() bytes of SwarCoeff;
+// width: column words a thread (1 to gf_swar_max_width(o, form));
+// form: 0 for the run-time coefficients, 1 for the compile-time RS(10,4)
+// parity (o = 4, k = 10; coeff is then not read);
 // stream: a cudaStream_t (0 for the legacy default stream).
 int gf_swar_launch(const void* in, void* out, int o, int k, long long n16,
-                   int batch, const void* coeff, int device, void* stream) {
+                   int batch, const void* coeff, int width, int form,
+                   int device, void* stream) {
   if (batch < 1 || batch > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int rc = check_args(in, out, o, k, n16, device);
+  int rc = check_args(in, out, o, k, n16, width, form, device);
   if (rc || n16 == 0) return rc;
   SwarCoeff c;
   std::memcpy(&c, coeff, sizeof(c));
-  const dim3 grid(static_cast<unsigned>((n16 + kThreads - 1) / kThreads),
+  const dim3 grid(static_cast<unsigned>(column_blocks(n16, width)),
                   static_cast<unsigned>(batch));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dispatch_out(o, [&](auto oc) {
-    gf_swar_kernel<decltype(oc)::value><<<grid, kThreads, 0, s>>>(
+  dispatch(form, o, width, [&](auto fc, auto oc, auto wc) {
+    gf_swar_kernel<decltype(fc)::value, decltype(oc)::value,
+                   decltype(wc)::value><<<grid, kThreads, 0, s>>>(
         static_cast<const uint4*>(in), static_cast<uint4*>(out), k, n16, c);
   });
   return static_cast<int>(cudaGetLastError());
 }
 
 // The same product with the batch as the fastest block index (one
-// dimension of blocks(n16) x batch).
+// dimension of column blocks x batch).
 int gf_swar_batch_fastest_launch(const void* in, void* out, int o, int k,
                                  long long n16, int batch, const void* coeff,
-                                 int device, void* stream) {
-  const long long blocks = (n16 + kThreads - 1) / kThreads;
+                                 int width, int form, int device,
+                                 void* stream) {
+  int rc = check_args(in, out, o, k, n16, width, form, device);
+  if (rc) return rc;
+  const long long blocks = column_blocks(n16, width);
   if (batch < 1 || blocks * batch > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int rc = check_args(in, out, o, k, n16, device);
-  if (rc || n16 == 0) return rc;
+  if (n16 == 0) return 0;
   SwarCoeff c;
   std::memcpy(&c, coeff, sizeof(c));
   const dim3 grid(static_cast<unsigned>(blocks * batch));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dispatch_out(o, [&](auto oc) {
-    gf_swar_batch_fastest_kernel<decltype(oc)::value>
+  dispatch(form, o, width, [&](auto fc, auto oc, auto wc) {
+    gf_swar_batch_fastest_kernel<decltype(fc)::value, decltype(oc)::value,
+                                 decltype(wc)::value>
         <<<grid, kThreads, 0, s>>>(static_cast<const uint4*>(in),
                                    static_cast<uint4*>(out), k, n16, batch,
                                    c);
@@ -200,19 +390,20 @@ int gf_swar_batch_fastest_launch(const void* in, void* out, int o, int k,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The same product over `volumes` volumes in one thread per column word.
+// The same product over `volumes` volumes in one thread per column words.
 int gf_swar_fusedv_launch(const void* in, void* out, int o, int k,
                           long long n16, int volumes, const void* coeff,
-                          int device, void* stream) {
+                          int width, int form, int device, void* stream) {
   if (volumes < 1) return static_cast<int>(cudaErrorInvalidValue);
-  int rc = check_args(in, out, o, k, n16, device);
+  int rc = check_args(in, out, o, k, n16, width, form, device);
   if (rc || n16 == 0) return rc;
   SwarCoeff c;
   std::memcpy(&c, coeff, sizeof(c));
-  const dim3 grid(static_cast<unsigned>((n16 + kThreads - 1) / kThreads));
+  const dim3 grid(static_cast<unsigned>(column_blocks(n16, width)));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dispatch_out(o, [&](auto oc) {
-    gf_swar_fusedv_kernel<decltype(oc)::value><<<grid, kThreads, 0, s>>>(
+  dispatch(form, o, width, [&](auto fc, auto oc, auto wc) {
+    gf_swar_fusedv_kernel<decltype(fc)::value, decltype(oc)::value,
+                          decltype(wc)::value><<<grid, kThreads, 0, s>>>(
         static_cast<const uint4*>(in), static_cast<uint4*>(out), k, n16,
         volumes, c);
   });

@@ -18,11 +18,19 @@ Two more launch forms of the kernel's column work take u32 words
 grid of ``_swar_kernel``, ``build_batched_swapped`` :64) and
 :func:`gf_matmul_fusedv` (its ``_swar_fusedv_kernel`` :27). Their plain
 version is the batched :func:`gf_matmul_plain`.
+
+Each launch takes two choices that this module alone makes
+(:func:`launch_plan`): the column words a thread takes (W, from the
+launch's size and the card's SM count, :func:`choose_width`), and the
+coefficient form: the compile-time RS(10,4) parity instantiation for a
+coefficient :func:`coeff_from_reference` marked as that matrix, the
+run-time struct for every other.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from dataclasses import dataclass
 
@@ -30,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import gf256
 from . import build
 from .build import LaunchCounter
 
@@ -38,13 +47,25 @@ from .build import LaunchCounter
 MAX_OUT = 16
 MAX_IN = 64
 MAX_BATCH = 65535
-# Row width quantum of the kernel: one uint4 (16 bytes) per thread.
+# Row width quantum of the kernel: one uint4 (16 bytes), a column word.
 QUANTUM = 16
+# Column words a thread may take (the kernel's template parameter W).
+WIDTHS = (1, 2)
+# A wider W is taken only while the launch still gives every SM this many
+# threads (16 warps): the encode's [10, 1 MiB] launch, 65,536 words, has
+# about 500 a SM at W = 1 and keeps W = 1.
+MIN_THREADS_PER_SM = 512
+# The coefficient forms of the launchers' ``form`` argument.
+FORM_RUNTIME = 0
+FORM_RS10X4 = 1
 
 
 LAUNCHES = LaunchCounter()
 BATCH_FASTEST_LAUNCHES = LaunchCounter()
 FUSEDV_LAUNCHES = LaunchCounter()
+# launches of any of the three forms that took the compile-time RS(10,4)
+# parity instantiation
+RS10X4_LAUNCHES = LaunchCounter()
 
 
 @dataclass(frozen=True)
@@ -55,10 +76,12 @@ class SwarCoeff:
     input); ``packed`` the bytes of the kernel's ``SwarCoeff`` struct:
     ``mask[64][8]`` u16, bit i of mask[d][b] set when bit b of
     matrix[i, d] is set, then ``top[64]`` u8, the number of bits input
-    row d needs."""
+    row d needs. ``rs10x4`` is set when ``matrix`` is the RS(10,4)
+    parity, which the kernel also holds as compile-time constants."""
 
     matrix: np.ndarray
     packed: bytes
+    rs10x4: bool = False
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -87,7 +110,51 @@ def coeff_from_reference(coeff: np.ndarray) -> SwarCoeff:
     col_or = np.bitwise_or.reduce(m, axis=0)
     top[:k] = [int(c).bit_length() for c in col_or]
     m.flags.writeable = False
-    return SwarCoeff(m, mask.tobytes() + top.tobytes())
+    rs10x4 = m.shape == (4, 10) and np.array_equal(m, _rs10x4_parity())
+    return SwarCoeff(m, mask.tobytes() + top.tobytes(), rs10x4)
+
+
+@functools.lru_cache(maxsize=1)
+def _rs10x4_parity() -> np.ndarray:
+    """The matrix of the kernel's compile-time form (csrc/gf_swar.cu:
+    rs10x4_coef)."""
+    return gf256.parity_matrix(10, 4)
+
+
+def max_width(o: int, form: int = FORM_RUNTIME) -> int:
+    """The widest W the kernel has for ``o`` outputs in ``form``: 2 in the
+    run-time form for up to 4 outputs, whose 8 accumulator words stay in
+    registers, else 1; the compile-time form has W = 1 only."""
+    return 2 if form == FORM_RUNTIME and o <= 4 else 1
+
+
+def choose_width(n16: int, threads_over: int, o: int, sms: int,
+                 form: int = FORM_RUNTIME) -> int:
+    """Column words a thread takes for a launch of ``n16`` column words
+    in each of ``threads_over`` independent slices (the batch, or 1 for
+    the fused-volume form): :func:`max_width` where that still leaves
+    :data:`MIN_THREADS_PER_SM` threads on each of ``sms`` SMs, else 1.
+    A wider W shares the run-time form's per-bit tests among more words;
+    the compile-time form has none to share."""
+    w = max_width(o, form)
+    if w > 1 and threads_over * -(-n16 // w) >= sms * MIN_THREADS_PER_SM:
+        return w
+    return 1
+
+
+def launch_plan(coeff: SwarCoeff, n16: int, threads_over: int,
+                sms: int) -> tuple[int, int]:
+    """(W, form) of one launch: the compile-time form for a coefficient
+    marked ``rs10x4``, the run-time one else, and :func:`choose_width`
+    for that form."""
+    form = FORM_RS10X4 if coeff.rs10x4 else FORM_RUNTIME
+    return choose_width(n16, threads_over, coeff.shape[0], sms, form), form
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 # ---------------------------------------------------------------------------
@@ -154,7 +221,7 @@ def library():
             lib.gf_swar_launch.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                 ctypes.c_longlong, ctypes.c_int, ctypes.c_char_p,
-                ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ]
             lib.gf_swar_launch.restype = ctypes.c_int
             for fn in ("gf_swar_batch_fastest_launch",
@@ -167,9 +234,15 @@ def library():
                        "gf_swar_max_in"):
                 getattr(lib, fn).argtypes = []
                 getattr(lib, fn).restype = ctypes.c_int
-            expect = (MAX_IN * 8 * 2 + MAX_IN, MAX_OUT, MAX_IN)
+            lib.gf_swar_max_width.argtypes = [ctypes.c_int, ctypes.c_int]
+            lib.gf_swar_max_width.restype = ctypes.c_int
+            forms = [(o, f) for f in (FORM_RUNTIME, FORM_RS10X4)
+                     for o in range(1, MAX_OUT + 1)]
+            expect = (MAX_IN * 8 * 2 + MAX_IN, MAX_OUT, MAX_IN,
+                      [max_width(o, f) for o, f in forms])
             got = (lib.gf_swar_coeff_bytes(), lib.gf_swar_max_out(),
-                   lib.gf_swar_max_in())
+                   lib.gf_swar_max_in(),
+                   [lib.gf_swar_max_width(o, f) for o, f in forms])
             if got != expect:
                 raise RuntimeError(
                     f"gf_swar library limits {got} != wrapper's {expect}"
@@ -179,43 +252,52 @@ def library():
 
 
 def launch(coeff: SwarCoeff, data: torch.Tensor, out: torch.Tensor,
-           stream: torch.cuda.Stream | None = None) -> None:
-    """Launch the kernel: out[B, o, W] = coeff ∘GF data[B, k, W] on CUDA
-    uint8 tensors, contiguous, W a multiple of 16. Enqueues on
+           stream: torch.cuda.Stream | None = None, *,
+           width: int | None = None) -> None:
+    """Launch the kernel: out[B, o, N] = coeff ∘GF data[B, k, N] on CUDA
+    uint8 tensors, contiguous, N a multiple of 16. Enqueues on
     ``stream`` (default: the current stream) and does not synchronise.
-    Raises on any tensor the kernel does not take and on a launch the
-    runtime refuses."""
+    ``width`` (column words a thread) is :func:`launch_plan`'s unless
+    given, for timing one W against another. Raises on any tensor the
+    kernel does not take and on a launch the runtime refuses."""
     o, k = coeff.shape
     if data.device.type != "cuda" or out.device != data.device:
         raise ValueError("launch needs CUDA tensors on one device")
     if data.dtype != torch.uint8 or out.dtype != torch.uint8:
         raise ValueError("launch needs uint8 tensors")
     if data.dim() != 3 or out.dim() != 3:
-        raise ValueError("launch needs [B, rows, W] tensors")
-    batch, k2, width = data.shape
-    if k2 != k or tuple(out.shape) != (batch, o, width):
+        raise ValueError("launch needs [B, rows, N] tensors")
+    batch, k2, n = data.shape
+    if k2 != k or tuple(out.shape) != (batch, o, n):
         raise ValueError(
             f"shapes {tuple(data.shape)} -> {tuple(out.shape)} do not fit "
             f"a [{o}, {k}] matrix"
         )
-    if width % QUANTUM or not data.is_contiguous() or not out.is_contiguous():
+    if n % QUANTUM or not data.is_contiguous() or not out.is_contiguous():
         raise ValueError(
             f"launch needs contiguous rows of a multiple of {QUANTUM} bytes"
         )
     if not (1 <= batch <= MAX_BATCH):
         raise ValueError(f"batch {batch} outside 1..{MAX_BATCH}")
-    if width == 0:
+    form = FORM_RS10X4 if coeff.rs10x4 else FORM_RUNTIME
+    if width is not None and not 1 <= width <= max_width(o, form):
+        raise ValueError(f"width {width} outside 1..{max_width(o, form)} "
+                         f"for {o} outputs in form {form}")
+    if n == 0:
         return  # nothing to compute, and no launch to count
+    n16 = n // QUANTUM
+    w, form = launch_plan(coeff, n16, batch, sm_count(data.device.index))
+    w = width or w
     if stream is None:
         stream = torch.cuda.current_stream(data.device)
     rc = library().gf_swar_launch(
-        data.data_ptr(), out.data_ptr(), o, k, width // QUANTUM, batch,
-        coeff.packed, data.device.index, stream.cuda_stream,
+        data.data_ptr(), out.data_ptr(), o, k, n16, batch, coeff.packed, w,
+        form, data.device.index, stream.cuda_stream,
     )
-    if rc != 0:
-        msg = library().gf_swar_error_string(rc).decode()
-        raise RuntimeError(f"gf_swar launch failed: {msg} (cuda error {rc})")
+    build.check_rc(library().gf_swar_error_string, rc, "gf_swar")
     LAUNCHES.add()
+    if form == FORM_RS10X4:
+        RS10X4_LAUNCHES.add()
 
 
 def gf_matmul(coeff: SwarCoeff | np.ndarray,
@@ -336,11 +418,13 @@ class RowsKernel:
 
 
 def _words_form(fn: str, counter: LaunchCounter,
-                coeff: SwarCoeff | np.ndarray,
-                words: torch.Tensor) -> torch.Tensor:
+                coeff: SwarCoeff | np.ndarray, words: torch.Tensor,
+                per_volume_threads: bool) -> torch.Tensor:
     """out[V, o, n4] = coeff ∘GF words[V, k, n4] through launcher ``fn``
     for int32 or uint32 words; the output has the input's dtype. A CPU
-    tensor goes through :func:`gf_matmul_plain` on the bytes."""
+    tensor goes through :func:`gf_matmul_plain` on the bytes.
+    ``per_volume_threads``: the launcher gives each volume its own
+    threads (else one thread walks all volumes of its words)."""
     if not isinstance(coeff, SwarCoeff):
         coeff = coeff_from_reference(coeff)
     o, k = coeff.shape
@@ -353,6 +437,7 @@ def _words_form(fn: str, counter: LaunchCounter,
     if words.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{fn} runs on cuda or cpu, not {words.device}")
     volumes, _, n4 = words.shape
+    threads_over = volumes if per_volume_threads else 1
     pad = (-n4) % (QUANTUM // 4)
     x = F.pad(words.view(torch.int32), (0, pad)) if pad else (
         words.view(torch.int32).contiguous())
@@ -362,13 +447,18 @@ def _words_form(fn: str, counter: LaunchCounter,
     out = torch.empty((volumes, o, n4 + pad), dtype=torch.int32,
                       device=words.device)
     if n4:
+        n16 = (n4 + pad) * 4 // QUANTUM
+        width, form = launch_plan(coeff, n16, threads_over,
+                                  sm_count(words.device.index))
         rc = getattr(library(), fn)(
-            x.data_ptr(), out.data_ptr(), o, k, (n4 + pad) * 4 // QUANTUM,
-            volumes, coeff.packed, words.device.index,
+            x.data_ptr(), out.data_ptr(), o, k, n16, volumes, coeff.packed,
+            width, form, words.device.index,
             torch.cuda.current_stream(words.device).cuda_stream,
         )
         build.check_rc(library().gf_swar_error_string, rc, fn)
         counter.add()
+        if form == FORM_RS10X4:
+            RS10X4_LAUNCHES.add()
     return out[..., :n4].view(words.dtype)
 
 
@@ -377,7 +467,7 @@ def gf_matmul_batch_fastest(coeff: SwarCoeff | np.ndarray,
     """out[V, o, n4] = coeff ∘GF words[V, k, n4] for u32 words, launched
     with the batch as the fastest block index."""
     return _words_form("gf_swar_batch_fastest_launch",
-                       BATCH_FASTEST_LAUNCHES, coeff, words)
+                       BATCH_FASTEST_LAUNCHES, coeff, words, True)
 
 
 def gf_matmul_fusedv(coeff: SwarCoeff | np.ndarray,
@@ -385,4 +475,4 @@ def gf_matmul_fusedv(coeff: SwarCoeff | np.ndarray,
     """out[V, o, n4] = coeff ∘GF words[V, k, n4] for u32 words, one
     thread walking all V volumes of its column word."""
     return _words_form("gf_swar_fusedv_launch", FUSEDV_LAUNCHES, coeff,
-                       words)
+                       words, False)

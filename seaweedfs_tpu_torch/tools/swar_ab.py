@@ -1,0 +1,164 @@
+"""Time gf_swar of two checkouts of this repository on one card, in turns.
+
+    python seaweedfs_tpu_torch/tools/swar_ab.py --parent DIR [--reps 20]
+
+``DIR`` is the root of another checkout of the repository (an earlier
+commit, unpacked with ``git archive``). The script runs its worker four
+times, each in a fresh process that imports the port from one root: the
+other checkout, this one, this one, the other. Each worker builds that
+checkout's gf_swar from its own sources and times it with that
+checkout's ``ops/timing.time_ms`` (CUDA events, L2 flushed) at the
+shapes the port launches it with:
+
+- ``[10, 1 MiB]`` RS(10,4) parity, one ``ec.encode`` row;
+- ``[10, 8 MiB]`` reconstruction of shards {0,5,11,13}, one rebuild window;
+- ``[10, 64 MiB]`` RS(10,4) parity, the device-resident slab;
+- ``[8, 10, 2 Mi]`` u32 words of the parity through the three launch forms
+  (the batch on a grid axis, batch-fastest, one thread over all volumes).
+
+The worker calls only what every checkout since the first word forms has
+(``gf_swar.launch``, ``coeff_from_reference``, the two word forms,
+``gf_kernel.u32_route``); in a checkout whose wrapper chooses a column
+width and a coefficient form (``gf_swar.launch_plan``) it also times the
+run-time form at W = 1 and at the chosen W, so each design step shows on
+its own. It prints the card's name and power limit, a table of every
+shape's times by run, and one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+MIB = 1 << 20
+
+
+def worker(root: str, reps: int, seed: int) -> dict:
+    """Times of the checkout at ``root``, in ms by label."""
+    sys.path.insert(0, root)
+    import dataclasses
+
+    import torch
+
+    from seaweedfs_tpu_torch.ops import gf256
+    from seaweedfs_tpu_torch.ops.kernels import gf_kernel, gf_swar
+    from seaweedfs_tpu_torch.ops.timing import l2_flusher, time_ms
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    flush = l2_flusher(dev)
+    present = [i for i in range(14) if i not in (0, 5, 11, 13)]
+    rec = gf256.reconstruction_matrix(10, 4, present)[0]
+    parity = gf256.parity_matrix(10, 4)
+    forms = hasattr(gf_swar, "launch_plan")
+    times = {}
+    for label, matrix, n in (("encode [10,1MiB]", parity, MIB),
+                             ("rebuild {0,5,11,13} [10,8MiB]", rec, 8 * MIB),
+                             ("encode [10,64MiB]", parity, 64 * MIB)):
+        coeff = gf_swar.coeff_from_reference(matrix)
+        x = torch.randint(0, 256, (1, 10, n), dtype=torch.uint8, device=dev,
+                          generator=gen)
+        out = torch.empty((1, 4, n), dtype=torch.uint8, device=dev)
+        want = gf_swar.gf_matmul_plain(coeff, x)
+        variants = [("", coeff, None)]
+        if forms:
+            runtime = dataclasses.replace(coeff, rs10x4=False)
+            variants += [(" run-time W=1", runtime, 1),
+                         (" run-time W chosen", runtime, None)]
+        for suffix, c, width in variants:
+            kw = {} if width is None else {"width": width}
+            gf_swar.launch(c, x, out, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise AssertionError(f"{root}: {label}{suffix} differs from "
+                                     "the plain version")
+            times[label + suffix] = time_ms(
+                lambda c=c, kw=kw: gf_swar.launch(c, x, out, **kw), reps, 3,
+                flush)
+        del x, out, want
+    words = torch.randint(0, 256, (8, 10, 8 * MIB), dtype=torch.uint8,
+                          device=dev, generator=gen).view(torch.int32)
+    coeff = gf_swar.coeff_from_reference(parity)
+    want = gf_swar.gf_matmul_plain(coeff, words.view(torch.uint8))
+    for label, fn in (("[8,10,2Mi] words, batch on grid.y",
+                       gf_kernel.u32_route),
+                      ("[8,10,2Mi] words, batch-fastest",
+                       gf_swar.gf_matmul_batch_fastest),
+                      ("[8,10,2Mi] words, fused volumes",
+                       gf_swar.gf_matmul_fusedv)):
+        if not torch.equal(fn(coeff, words).view(torch.uint8), want):
+            raise AssertionError(f"{root}: {label} differs from the plain "
+                                 "version")
+        times[label] = time_ms(lambda fn=fn: fn(coeff, words), reps, 3, flush)
+    return times
+
+
+def card_label() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", required=True,
+                    help="root of the other checkout")
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker is not None:
+        # this script's own directory must not shadow the checkout's modules
+        sys.path[:] = [p for p in sys.path
+                       if os.path.abspath(p or ".") != os.path.dirname(
+                           os.path.abspath(__file__))]
+        print(json.dumps(worker(args.worker, args.reps, args.seed)),
+              flush=True)
+        return 0
+
+    here = os.path.abspath(os.path.join(os.path.dirname(__file__), "..",
+                                        ".."))
+    card = card_label()
+    print(card, flush=True)
+    parent = os.path.abspath(args.parent)
+    runs = []
+    for name, root in (("parent", parent), ("change", here),
+                       ("change", here), ("parent", parent)):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--parent", parent,
+             "--reps", str(args.reps), "--seed", str(args.seed),
+             "--worker", root],
+            cwd=root, capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return proc.returncode
+        runs.append((name, json.loads(proc.stdout.strip().splitlines()[-1])))
+        print(f"run {len(runs)} ({name}, {root}): done", flush=True)
+    labels = list(dict.fromkeys(k for _, t in runs for k in t))
+    table = {}
+    print("ms by run (parent, change, change, parent), median of each tree:")
+    for label in labels:
+        by = {"parent": [], "change": []}
+        for name, t in runs:
+            if label in t:
+                by[name].append(t[label])
+        row = {name: statistics.median(v) for name, v in by.items() if v}
+        table[label] = {"runs": [t.get(label) for _, t in runs], **row}
+        cells = ", ".join("-" if t.get(label) is None else f"{t[label]:.4f}"
+                          for _, t in runs)
+        print(f"  {label}: {cells}" + "".join(
+            f"; {name} {ms:.4f}" for name, ms in row.items()))
+    print(json.dumps({"swar_ab": table, "card": card}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
