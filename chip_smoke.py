@@ -10,24 +10,26 @@ Run from the root of the repository, on a machine with a CUDA card and
 1. header: the card's name and power limit, CUDA and nvcc versions, and
    the build of every kernel from the sources in the checkout (one
    ``nvcc`` per source, all started together), with ptxas's registers and
-   spills (none allowed in gf_swar) and SASS checks: the doubling's
-   instruction forms, and the XOR LOP3s a word of gf_swar's compile-time
-   RS(10,4) form, no more than the matrix's set bits, which decides how
-   the bound counts XORs (for the parity, the lower of that count and
-   the pairs');
+   spills (none allowed in gf_swar and gf_swar_u8) and SASS checks: the
+   doubling's instruction forms, and the XOR LOP3s a word of the
+   compile-time RS(10,4) form of gf_swar and of gf_swar_u8, no more than
+   the matrix's set bits; gf_swar's decides how the bound counts XORs
+   (for the parity, the lower of that count and the pairs');
 2. every kernel against its plain PyTorch version on the card, byte for
    byte, at the shapes the main paths give it: gf_swar, and gf_swar in
    each coefficient form at each column width W on word counts with
    tails; gf_repack's u32
    words and gf_unpack; gf_swar_u8 on ragged widths, a strided row view
-   and a batch; gf_bitplane, gf_vpu, gf_fused_u8 (tiles of 8, 16 and
+   and a batch, and in each coefficient form at each W on word counts no
+   W divides, partial last words, strided rows, batches and rows one
+   byte past an aligned address (the byte path); gf_bitplane, gf_vpu, gf_fused_u8 (tiles of 8, 16 and
    32 KiB and a scalar tile), gf_swar's batch-fastest launch and
    gf_swar_fusedv on four RS shapes and four loss patterns;
 3. kernel timing with CUDA events (L2 flushed between launches) beside
    the plain version's time, the card's bound for the same work and,
    where one PyTorch call computes the same function, that call's time;
-   gf_swar at the form and W its wrapper chooses, then in each other form
-   and W;
+   gf_swar and gf_swar_u8 at the form and W their wrappers choose, then
+   in each other form and W;
 4. the vendored golden fixture (tests/golden/1.*): encode, ``.ecx`` and
    a 4-shard rebuild byte-identical to the golden shards;
 5. the codec path at full size: a ``.dat`` volume made from ``--seed``
@@ -49,7 +51,9 @@ Run from the root of the repository, on a machine with a CUDA card and
    lane-packed as [10, 8·64 MiB]; the vpu route on a host array. Every
    output is checked against the plain versions on the card, GB/s is
    printed per route, and launch counts read around the phase prove each
-   of the path's six kernels ran;
+   of the path's six kernels ran, and that gf_swar_u8 took the
+   compile-time form for every RS(10,4) parity launch and the run-time
+   form for every other matrix;
 8. the three sweeps of tools/exp_dev8.py, tools/exp_dev8b.py and
    tools/exp_batched.py at their full default sizes, through
    seaweedfs_tpu_torch/tools: every row byte-exact against the plain
@@ -153,6 +157,19 @@ def sass_doubling(nvcc: str, lib_path: str, symbol: str,
     body = sass_body(nvcc, lib_path, symbol)
     return {name: len(re.findall(pattern, body))
             for name, (_, pattern) in forms.items()}
+
+
+# LOP3 truth tables that are an XOR of two or three inputs, or its
+# complement
+XOR_LUTS = {0x96, 0x69, 0x3C, 0xC3, 0x5A, 0xA5, 0x66, 0x99}
+
+
+def sass_xor_lop3(nvcc: str, lib_path: str, symbol: str) -> int:
+    """Static count of the LOP3s of a kernel's SASS whose truth table is
+    an XOR (:data:`XOR_LUTS`)."""
+    luts = re.findall(r"LOP3\.LUT (?:P\w+, )?\w+, [^,;]+, [^,;]+, [^,;]+, "
+                      r"(0x[0-9a-f]+)", sass_body(nvcc, lib_path, symbol))
+    return sum(int(lut, 16) in XOR_LUTS for lut in luts)
 
 
 def sass_opcodes(nvcc: str, lib_path: str, symbol: str) -> dict[str, int]:
@@ -432,6 +449,8 @@ def run(args, torch, here: str) -> int:
         # the launches of gf_swar's three forms that took the compile-time
         # RS(10,4) parity instantiation
         "gf_swar_rs10x4": gf_swar.RS10X4_LAUNCHES,
+        # and gf_swar_u8's launches in that form
+        "gf_swar_u8_rs10x4": gf_swar_u8.RS10X4_LAUNCHES,
     }
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -481,15 +500,17 @@ def run(args, torch, here: str) -> int:
             f"kernels, registers {min(regs, default=0)}.."
             f"{max(regs, default=0)}, spill stores {spills} bytes, static "
             f"smem {max(smem, default=0)} bytes")
-        if lib == "gf_swar":
+        if lib in ("gf_swar", "gf_swar_u8"):
             spilling = re.findall(
                 r"Function properties for (\S+)\n\s+\d+ bytes stack frame, "
                 r"([1-9]\d*) bytes spill stores", info["ptxas"])
-            check(spills == 0, f"gf_swar spills {spills} bytes: {spilling}")
-    # gf_swar's symbols: <form (0 run-time, 1 RS(10,4) constants), O, W>
+            check(spills == 0, f"{lib} spills {spills} bytes: {spilling}")
+    # the SWAR kernels' symbols: <form (0 run-time, 1 RS(10,4) constants),
+    # O, W>
     for lib, symbol in (("gf_swar", "gf_swar_kernelILi0ELi4ELi1EE"),
                         ("gf_swar", "gf_swar_kernelILi0ELi4ELi2EE"),
-                        ("gf_swar_u8", "gf_swar_u8_kernelILi4E"),
+                        ("gf_swar_u8", "gf_swar_u8_kernelILi0ELi4ELi1EE"),
+                        ("gf_swar_u8", "gf_swar_u8_kernelILi0ELi4ELi2EE"),
                         ("gf_swar", "gf_swar_fusedv_kernelILi0ELi4ELi1EE"),
                         ("gf_swar",
                          "gf_swar_batch_fastest_kernelILi0ELi4ELi1EE")):
@@ -500,37 +521,58 @@ def run(args, torch, here: str) -> int:
               f"the built doubling of {symbol} is no longer "
               f"{ALU_PER_DOUBLING} ALU + {FMA_PER_DOUBLING} FMA-pipe "
               "instructions; recount the bound")
-    # the compile-time RS(10,4) form (W = 1): its doublings keep their
-    # forms, except that ptxas issues some x<<1 as IADD3 or LEA on the ALU
-    # pipe instead of IMAD.SHL, so 3 ALU + 2 FMA a doubling stays the
-    # least work; and its LOP3s that are no doubling's are its XORs: at
-    # most the matrix's set bits, one LOP3 each, and fewer where ptxas
-    # folds two XORs into one three-input LOP3
+    # the compile-time RS(10,4) form of both SWAR kernels, at each W: its
+    # doublings keep their forms, except that ptxas issues some x<<1 as
+    # IADD3 or LEA on the ALU pipe instead of IMAD.SHL, so 3 ALU + 2 FMA a
+    # doubling stays the least work; and its XORs (LOP3s of an XOR truth
+    # table) are at most the matrix's set bits, one LOP3 each, and fewer
+    # where ptxas folds two XORs into one three-input LOP3. gf_swar's at
+    # W = 1 is the count the bound takes. gf_swar_u8 holds the column's
+    # algebra twice (the whole-word path and the byte path), so its counts
+    # a word divide by the copies its doublings show.
     parity10 = gf256.parity_matrix(10, 4)
     set_bits = xor_ops(parity10, folded=False)
     fold_bits = xor_ops(parity10, folded=True)
-    symbol = "gf_swar_kernelILi1ELi4ELi1EE"
-    path = build.build_info["gf_swar"]["path"]
-    ops = sass_opcodes(nvcc, path, symbol)
-    forms = sass_doubling(nvcc, path, symbol)
-    say(f"SASS {symbol} doubling forms: " + ", ".join(
-        f"{name} x{n}" for name, n in forms.items()))
-    others = [n for name, n in forms.items() if name != "IMAD.SHL x<<1"]
-    check(min(others) > 0 and len(set(others)) == 1
-          and forms["IMAD.SHL x<<1"] <= others[0],
-          f"the built doubling of {symbol} is no longer at least "
-          f"{ALU_PER_DOUBLING} ALU + {FMA_PER_DOUBLING} FMA-pipe "
-          "instructions; recount the bound")
-    doubling_lop3 = sum(n for name, n in forms.items()
-                        if name.startswith("LOP3"))
-    xor_per_word = (ops.get("LOP3", 0) - doubling_lop3) / 4
-    say(f"SASS {symbol} opcodes (static): " + ", ".join(
-        f"{op} x{n}" for op, n in list(ops.items())[:12])
-        + f"; XOR LOP3s a u32 word {xor_per_word:.2f} (set bits "
-        f"{set_bits}, folded in pairs {fold_bits})")
-    check(xor_per_word <= set_bits,
-          f"{symbol} issues {xor_per_word:.2f} XOR LOP3s a word, more than "
-          f"the {set_bits} set bits of the parity")
+    parity_xtimes = sum(
+        int(c).bit_length() - 1
+        for c in np.bitwise_or.reduce(parity10, axis=0))
+    rs_xors = {}
+    for lib in ("gf_swar", "gf_swar_u8"):
+        path = build.build_info[lib]["path"]
+        for w in range(1, gf_swar.max_width(4, gf_swar.FORM_RS10X4) + 1):
+            symbol = f"{lib}_kernelILi1ELi4ELi{w}EE"
+            ops = sass_opcodes(nvcc, path, symbol)
+            forms = sass_doubling(nvcc, path, symbol)
+            say(f"SASS {symbol} doubling forms: " + ", ".join(
+                f"{name} x{n}" for name, n in forms.items()))
+            others = [n for name, n in forms.items()
+                      if name != "IMAD.SHL x<<1"]
+            check(min(others) > 0 and len(set(others)) == 1
+                  and forms["IMAD.SHL x<<1"] <= others[0],
+                  f"the built doubling of {symbol} is no longer at least "
+                  f"{ALU_PER_DOUBLING} ALU + {FMA_PER_DOUBLING} FMA-pipe "
+                  "instructions; recount the bound")
+            doubling_lop3 = sum(n for name, n in forms.items()
+                                if name.startswith("LOP3"))
+            # u32 words the thread's column algebra covers, all copies
+            copies = max(1, round(forms["SHF.R x>>7"]
+                                  / (parity_xtimes * 4 * w)))
+            words = 4 * w * copies
+            xors = sass_xor_lop3(nvcc, path, symbol) / words
+            rest = (ops.get("LOP3", 0) - doubling_lop3) / words
+            rs_xors[symbol] = xors
+            say(f"SASS {symbol} opcodes (static): " + ", ".join(
+                f"{op} x{n}" for op, n in list(ops.items())[:12])
+                + f"; {copies} cop{'y' if copies == 1 else 'ies'} of the "
+                f"algebra; XOR LOP3s a u32 word {xors:.2f} (LOP3s that are "
+                f"no doubling's: {rest:.2f}; set bits {set_bits}, folded "
+                f"in pairs {fold_bits})")
+            check(xors <= set_bits,
+                  f"{symbol} issues {xors:.2f} XOR LOP3s a word, more than "
+                  f"the {set_bits} set bits of the parity")
+    xor_per_word = rs_xors["gf_swar_kernelILi1ELi4ELi1EE"]
+    say("SASS XOR LOP3s a u32 word of the compile-time RS(10,4) form: "
+        + ", ".join(f"{sym} {n:.2f}" for sym, n in rs_xors.items()))
     # step d: the bound counts the least work. Where ptxas folds XORs, the
     # pair-folded count is it for every SWAR-family row; for the parity,
     # the built kernel's own count where that is lower still (every output
@@ -667,7 +709,8 @@ def run(args, torch, here: str) -> int:
             agree("gf_unpack", gf_repack.unpack(words, tile, n),
                   gf_repack.unpack_plain(words, tile, n),
                   f"{label} tile {tile}")
-    # gf_swar_u8: ragged widths, a strided row view, a batch
+    # gf_swar_u8 at its wrapper's plan: ragged widths, a strided row view,
+    # a batch, four RS shapes
     for k, m in rs_shapes:
         coeff = gf256.parity_matrix(k, m)
         for label, x in ((f"[{k},1]", rand(k, 1)),
@@ -679,6 +722,35 @@ def run(args, torch, here: str) -> int:
             agree("gf_swar_u8", gf_swar_u8.gf_matmul(coeff, x),
                   gf_swar_u8.gf_matmul_plain(coeff, x),
                   f"parity({k},{m}) {label}")
+    # and each coefficient form at each W, forced: column-word counts no W
+    # divides, widths with a partial last word, rows 0-9 of a [14, N]
+    # tensor (16-byte row stride: whole words; odd stride: the byte path),
+    # batches, and rows that start one byte past an aligned address
+
+    def u8_cases(k):
+        yield f"[{k},16x4095]", rand(k, 16 * 4095)
+        yield f"[{k},16x(64Ki+5)]", rand(k, MIB + 80)
+        yield f"[{k},8MiB+16]", rand(k, 8 * MIB + 16)
+        yield f"[{k},1]", rand(k, 1)
+        yield f"[{k},4095]", rand(k, 4095)
+        yield f"[{k},1MiB+3]", rand(k, MIB + 3)
+        yield f"rows 0-{k - 1} of [{k + 4},1MiB]", rand(k + 4, MIB)[:k]
+        yield (f"rows 0-{k - 1} of [{k + 4},1MiB+3]",
+               rand(k + 4, MIB + 3)[:k])
+        yield f"[3,{k},16x4097]", rand(3, k, 16 * 4097)
+        yield f"[2,{k},1MiB+5]", rand(2, k, MIB + 5)
+        yield (f"[{k},1MiB+16] one byte past aligned",
+               rand(k, MIB + 17)[:, 1:])
+
+    for label, coeff in form_cases:
+        o, k = coeff.shape
+        form = gf_swar.launch_plan(coeff, 1, 1, 1)[1]
+        for w in range(1, gf_swar.max_width(o, form) + 1):
+            for case, x in u8_cases(k):
+                agree("gf_swar_u8", gf_swar_u8.gf_matmul(coeff, x, width=w),
+                      gf_swar_u8.gf_matmul_plain(coeff, x),
+                      f"{label} W={w} {case}")
+    del x
     # gf_bitplane: four RS shapes, four loss patterns
     for k, m in rs_shapes:
         coeff = gf256.parity_matrix(k, m)
@@ -808,35 +880,63 @@ def run(args, torch, here: str) -> int:
               unfolded=swar_work(matrix, n, batch, folded=False), **extra)
 
     sms = gf_swar.sm_count(dev.index)
-    for label, matrix, n in shapes:
+
+    def swar_forms(name, label, matrix, n, plan, run, plain):
+        """Time SWAR kernel ``name`` on ``matrix`` over rows of ``n`` bytes
+        at the (W, form) ``plan(coeff)`` its wrapper chooses, where
+        ``run(coeff, None)`` launches it, then in each other form and W
+        (``run(coeff, w)``), so each step's gain shows alone. Returns the
+        chosen row."""
         coeff = gf_swar.coeff_from_reference(matrix)
         o, k = matrix.shape
-        x = rand(1, k, n)
-        out = torch.empty((1, o, n), dtype=torch.uint8, device=dev)
-        width, form = gf_swar.launch_plan(coeff, n // 16, 1, sms)
+        width, form = plan(coeff)
         form_name = "constants" if form == gf_swar.FORM_RS10X4 else "run-time"
-        swar_timed("gf_swar", f"{label} ({form_name}, W={width} chosen)",
-                   lambda: gf_swar.launch(coeff, x, out),
-                   lambda: gf_swar.gf_matmul_plain(coeff, x), matrix, n,
+        swar_timed(name, f"{label} ({form_name}, W={width} chosen)",
+                   lambda: run(coeff, None), plain, matrix, n,
                    width=width, form=form_name)
-        row = timings["gf_swar"][-1]
-        row["input_GBps"] = k * n / row["ms"] / 1e6
-        # each form and W on its own, so each step's gain shows alone
+        row = timings[name][-1]
         variants = [(coeff, form_name)]
         if coeff.rs10x4:
             variants.append((dataclasses.replace(coeff, rs10x4=False),
                              "run-time"))
         for c, f_name in variants:
-            for w in gf_swar.WIDTHS:
-                c_form = gf_swar.launch_plan(c, 1, 1, 1)[1]
-                if (w > gf_swar.max_width(o, c_form)
-                        or (c is coeff and w == width)):
+            c_form = gf_swar.launch_plan(c, 1, 1, 1)[1]
+            for w in range(1, gf_swar.max_width(o, c_form) + 1):
+                if c is coeff and w == width:
                     continue
-                swar_timed("gf_swar", f"{label} ({f_name}, W={w})",
-                           lambda c=c, w=w: gf_swar.launch(c, x, out,
-                                                           width=w),
-                           None, matrix, n, width=w, form=f_name)
+                swar_timed(name, f"{label} ({f_name}, W={w})",
+                           lambda c=c, w=w: run(c, w), None, matrix, n,
+                           width=w, form=f_name)
+        return row
+
+    for label, matrix, n in shapes:
+        o, k = matrix.shape
+        x = rand(1, k, n)
+        out = torch.empty((1, o, n), dtype=torch.uint8, device=dev)
+        row = swar_forms(
+            "gf_swar", label, matrix, n,
+            lambda c: gf_swar.launch_plan(c, n // 16, 1, sms),
+            lambda c, w: gf_swar.launch(c, x, out, width=w),
+            lambda: gf_swar.gf_matmul_plain(
+                gf_swar.coeff_from_reference(matrix), x))
+        row["input_GBps"] = k * n / row["ms"] / 1e6
         del x, out
+    # gf_swar_u8 on the device-resident slab first (its row in the kernels
+    # line), then at the codec's two shapes
+    for label, matrix, n in (
+            ("encode [10,64MiB]->[4,64MiB]", parity10, 64 * MIB),
+            ("rebuild {0,5,11,13} [10,64MiB]->[4,64MiB]", rec_matrix,
+             64 * MIB),
+            ("encode [10,1MiB]->[4,1MiB]", parity10, MIB),
+            ("rebuild [10,8MiB]->[4,8MiB]", rec_matrix, 8 * MIB)):
+        x = rand(10, n)
+        row = swar_forms(
+            "gf_swar_u8", label, matrix, n,
+            lambda c: gf_swar_u8.launch_plan(c, x, sms),
+            lambda c, w: gf_swar_u8.gf_matmul(c, x, width=w),
+            lambda: gf_swar_u8.gf_matmul_plain(matrix, x))
+        row["input_GBps"] = 10 * n / row["ms"] / 1e6
+        del x
 
     n = 64 * MIB
     tile = gf_repack.choose_tile(n)
@@ -864,9 +964,6 @@ def run(args, torch, here: str) -> int:
                           ("rebuild {0,5,11,13} [10,64MiB]->[4,64MiB]",
                            rec_matrix)):
         coeff = gf_swar.coeff_from_reference(matrix)
-        swar_timed("gf_swar_u8", label,
-                   lambda: gf_swar_u8.gf_matmul(coeff, x),
-                   lambda: gf_swar_u8.gf_matmul_plain(coeff, x), matrix, n)
         # the plain bit-plane version of [10, 64 MiB] would hold 80 float32
         # bit rows of 64 Mi columns: it runs on 8 MiB column chunks
         timed("gf_bitplane", label,
@@ -1025,6 +1122,7 @@ def run(args, torch, here: str) -> int:
                 f.close()
 
         gbps = size / enc_s / 1e9
+        rebuild_gbps = [size / r[1] / 1e9 for r in rebuilds]
         say(f"encode {size} bytes: {enc_s:.3f} s = {gbps:.3f} GB/s, "
             f"{enc_launches} launches ({n_rows} rows; {enc_rs10x4} in the "
             f"compile-time RS(10,4) form), {enc_staged} bytes staged; "
@@ -1084,14 +1182,34 @@ def run(args, torch, here: str) -> int:
 
     resident = []
     checked = 0
+    # gf_swar_u8's launches of this phase by coefficient form
+    u8_forms = {"constants": 0, "run-time": 0}
+
+    def u8_form_checked(matrix, fn):
+        """``fn()``, failing unless each gf_swar_u8 launch in it took the
+        compile-time form for the RS(10,4) parity and the run-time form
+        for any other matrix."""
+        launches = gf_swar_u8.LAUNCHES.value
+        rs = gf_swar_u8.RS10X4_LAUNCHES.value
+        out = fn()
+        launches = gf_swar_u8.LAUNCHES.value - launches
+        rs = gf_swar_u8.RS10X4_LAUNCHES.value - rs
+        parity = np.array_equal(matrix, parity10)
+        check(rs == (launches if parity else 0),
+              f"{rs} of {launches} gf_swar_u8 launches for "
+              f"{'the RS(10,4) parity' if parity else 'another matrix'} took "
+              "the compile-time form")
+        u8_forms["constants"] += rs
+        u8_forms["run-time"] += launches - rs
+        return out
 
     def route(label, matrix, data, want, method):
         """One route of gf_matmul_fused on a tensor on the card: checked
         byte for byte against ``want`` (the plain version on the card) and
         timed with CUDA events."""
         nonlocal checked
-        got, ms = event_time(lambda: gf_kernel.gf_matmul_fused(
-            matrix, data, method=method))
+        got, ms = u8_form_checked(matrix, lambda: event_time(
+            lambda: gf_kernel.gf_matmul_fused(matrix, data, method=method)))
         torch.cuda.synchronize()
         check(got.device == data.device and got.dtype == data.dtype,
               f"{label} {method}: output kind {got.device} {got.dtype} is "
@@ -1127,7 +1245,8 @@ def run(args, torch, here: str) -> int:
     want_p = plain_ref(parity10, slab)
     want_r = plain_ref(rec_matrix, slab)
     # the first method=None call has the autotuner measure live
-    first = gf_kernel.gf_matmul_fused(parity10, slab)
+    first = u8_form_checked(
+        parity10, lambda: gf_kernel.gf_matmul_fused(parity10, slab))
     check(torch.equal(first, want_p), "the autotuned slab differs from plain")
     del first
     dev8_choice = say_autotune(4, 10)
@@ -1150,7 +1269,8 @@ def run(args, torch, here: str) -> int:
         coeff = gf256.parity_matrix(k, m)
         x = rand(k, 32 * MIB)
         want = plain_ref(coeff, x)
-        say_autotune(m, k)  # measures live for this shape
+        # measures live for this shape
+        u8_form_checked(coeff, lambda: say_autotune(m, k))
         for method in methods:
             route(f"sweep RS({k},{m}) [{k},32MiB]", coeff, x, want, method)
         del x, want
@@ -1185,6 +1305,14 @@ def run(args, torch, here: str) -> int:
             f"{name}={n}" for name, n in
             path_launches["device_resident"].items()))
     check_path("device_resident")
+    u8_launches = path_launches["device_resident"]["gf_swar_u8"]
+    check(sum(u8_forms.values()) == u8_launches and all(u8_forms.values()),
+          f"phase 7's gf_swar_u8 launches by form {u8_forms} do not account "
+          f"for its {u8_launches} launches in both forms")
+    say(f"gf_swar_u8 in the device-resident path: {u8_launches} launches, "
+        f"{u8_forms['constants']} in the compile-time form (every RS(10,4) "
+        f"parity launch), {u8_forms['run-time']} in the run-time form (the "
+        "reconstructions and the other RS shapes)")
     say(json.dumps({"device_resident": resident,
                     "autotune_dev8_4x10": {
                         "method": dev8_choice.method,
@@ -1339,7 +1467,14 @@ def run(args, torch, here: str) -> int:
                 launches_encode=enc_launches,
                 launches_rebuild=[r[2] for r in rebuilds],
                 encode_GBps=gbps,
-                rebuild_GBps=[size / r[1] / 1e9 for r in rebuilds],
+                rebuild_GBps=rebuild_gbps,
+            )
+        if name == "gf_swar_u8":
+            entry.update(
+                launches_rs10x4_by_path={
+                    path: counts["gf_swar_u8_rs10x4"]
+                    for path, counts in path_launches.items()},
+                launches_device_resident_by_form=u8_forms,
             )
         kernels.append(entry)
     say(json.dumps({"kernels": kernels}))

@@ -18,12 +18,14 @@
 // tile-local words with PRMTs, does the SWAR work on the words, and turns
 // each output's U words back into four quarters before it stores them.
 // Since the arithmetic is byte-wise, the product needs no transposes;
-// gf_swar_u8.cu loads the bytes as they lie. Like the other SWAR kernels
-// this one is bound by integer ALU-pipe operations (6 a byte at RS(10,4)
-// against the card's balance of 5); the transposes add 2 PRMTs a word each
-// way, about 28 operations to some 490 a word. On an H100 it still runs
-// faster than gf_swar_u8 (PERF.md): a thread here holds 64 bytes of each
-// row, four independent 16-byte loads, where gf_swar_u8's holds 16.
+// gf_swar_u8.cu loads the bytes as they lie. With run-time coefficients
+// this kernel is bound by integer ALU-pipe operations (6 a byte at
+// RS(10,4) against the card's balance of 5); the transposes add 2 PRMTs a
+// word each way, about 28 operations to some 490 a word. It ran ahead of
+// gf_swar_u8's first design (one 16-byte word a thread, run-time
+// coefficients only) by holding 64 bytes of each row a thread; gf_swar_u8
+// now has gf_swar's compile-time RS(10,4) form and is the faster of the two
+// on the parity (PERF.md), so this kernel stays the dev8b sweep's variant.
 //
 // U is 16 bytes a quarter for O <= 4 (64 bytes of a row a thread), 8 for
 // O <= 8 and 4 above, so the accumulators stay at 64 registers; it needs

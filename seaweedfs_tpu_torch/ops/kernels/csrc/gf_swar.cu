@@ -9,6 +9,8 @@
 //   ((x & 0x7f7f7f7f) << 1) ^ (((x >> 7) & 0x01010101) * 0x1d).
 // For each input row the kernel doubles the word once per coefficient bit
 // and XORs it into every output accumulator whose coefficient has that bit.
+// The column algebra is gf_swar_column.cuh's, shared with gf_swar_u8.cu;
+// this file gives it whole uint4 words of packed rows.
 //
 // What bounds it on an H100 SXM. Per u32 of an RS(10,4) parity product it
 // does 60 doublings and 156 XORs against 56 bytes of traffic. A doubling
@@ -38,10 +40,10 @@
 //    shares each per-bit test among twice the words, where the launch
 //    still gives every SM enough threads and the O x 2 accumulators fit
 //    in registers (O <= 4); W = 4 measured slower than 2. The
-//    compile-time form has no tests to share and stays at W = 1. Word j
-//    of a thread is column block * kThreads * W + j * kThreads + thread,
-//    so each load and store instruction of a warp stays coalesced; words
-//    past n16 are masked.
+//    compile-time form has no tests to share and stays at W = 1 (W = 2
+//    measured slower, PERF.md). Word j of a thread is column
+//    block * kThreads * W + j * kThreads + thread, so each load and store
+//    instruction of a warp stays coalesced; words past n16 are masked.
 // - One row loaded at a time: issuing the loads of several rows ahead
 //    of their algebra measured no faster in either form (PERF.md), since
 //    the small launch waits on ALU issue, not on load round trips.
@@ -60,160 +62,38 @@
 // the SMs and the number of threads differ.
 
 #include <cstring>
-#include <utility>
 
-#include "gf_common.cuh"
+#include "gf_swar_column.cuh"
 
 namespace {
 
-// The coefficient forms (the launchers' `form` argument).
-constexpr int kRunTime = 0;  // the SwarCoeff kernel argument: any matrix
-constexpr int kRs10x4 = 1;   // the RS(10,4) parity as compile-time constants
+// Row d's W words of packed rows n16 words apart: x[j] = row[word j], or 0
+// for a word past n16.
+struct WordRows {
+  const uint4* src;  // row 0
+  long long col, n16;
 
-constexpr int kRsOut = 4;
-constexpr int kRsIn = 10;
-
-// C[i][d] of gf256.parity_matrix(10, 4), the parity rows of ec.encode.
-__host__ __device__ constexpr unsigned rs10x4_coef(int i, int d) {
-  constexpr unsigned char kRs10x4Parity[kRsOut][kRsIn] = {
-      {0x81, 0x96, 0xaf, 0xb8, 0xd2, 0xc4, 0xfe, 0xe8, 0x03, 0x02},
-      {0x96, 0x81, 0xb8, 0xaf, 0xc4, 0xd2, 0xe8, 0xfe, 0x02, 0x03},
-      {0xbf, 0xd6, 0x62, 0x0a, 0x06, 0x6f, 0xdf, 0xb7, 0x05, 0x04},
-      {0xd6, 0xbf, 0x0a, 0x62, 0x6f, 0x06, 0xb7, 0xdf, 0x04, 0x05},
-  };
-  return kRs10x4Parity[i][d];
-}
-
-// The bits input row d of the parity needs: the bit length of its column.
-__host__ __device__ constexpr int rs10x4_top(int d) {
-  unsigned c = 0;
-  for (int i = 0; i < kRsOut; ++i) c |= rs10x4_coef(i, d);
-  int top = 0;
-  for (; c; c >>= 1) ++top;
-  return top;
-}
-
-// The widest W of a form: in the run-time form 2 for up to 4 outputs,
-// whose 8 accumulator words stay in registers (at 7 outputs ptxas
-// spilled; W = 4 measured slower than 2); the compile-time form, with no
-// per-bit tests to share among words, has only W = 1.
-constexpr int max_width(int o, int form) {
-  return form == kRunTime && o <= 4 ? 2 : 1;
-}
-
-// Word j of the thread whose first word is column `col`.
-__device__ __forceinline__ long long word_col(long long col, int j) {
-  return col + static_cast<long long>(j) * kThreads;
-}
-
-// x[j] = row[word j], or 0 for a word past n16.
-template <int W>
-__device__ __forceinline__ void load_words(uint4 (&x)[W],
-                                           const uint4* __restrict__ row,
-                                           long long col, long long n16) {
+  template <int W>
+  __device__ __forceinline__ void operator()(int d, uint4 (&x)[W]) const {
+    const uint4* __restrict__ row = src + d * n16;
 #pragma unroll
-  for (int j = 0; j < W; ++j) {
-    const long long c = word_col(col, j);
-    x[j] = c < n16 ? __ldg(row + c) : make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-template <int W>
-__device__ __forceinline__ void double_words(uint4 (&x)[W]) {
-#pragma unroll
-  for (int j = 0; j < W; ++j) x[j] = xtime4(x[j]);
-}
-
-template <int W>
-__device__ __forceinline__ void xor_words(uint4 (&acc)[W],
-                                          const uint4 (&x)[W]) {
-#pragma unroll
-  for (int j = 0; j < W; ++j) xor_into(acc[j], x[j]);
-}
-
-// Run-time form: row x through its `top` bits, XORed where mask[b] says.
-template <int O, int W>
-__device__ __forceinline__ void fold_row(uint4 (&acc)[O][W], uint4 (&x)[W],
-                                         int top, const uint16_t (&mask)[8]) {
-  for (int b = 0; b < top; ++b) {
-    if (b) double_words(x);
-    const unsigned m = mask[b];
-#pragma unroll
-    for (int i = 0; i < O; ++i) {
-      if (m & (1u << i)) xor_words(acc[i], x);
+    for (int j = 0; j < W; ++j) {
+      const long long c = word_col(col, j);
+      x[j] = c < n16 ? __ldg(row + c) : make_uint4(0u, 0u, 0u, 0u);
     }
   }
-}
-
-// Compile-time form: every row, bit and output is a template argument, so
-// only the XORs of set bits exist.
-template <bool On, int W>
-__device__ __forceinline__ void xor_if(uint4 (&acc)[W], const uint4 (&x)[W]) {
-  if constexpr (On) xor_words(acc, x);
-}
-
-template <int D, int B, int O, int W, int... I>
-__device__ __forceinline__ void xor_bit(uint4 (&acc)[O][W],
-                                        const uint4 (&x)[W],
-                                        std::integer_sequence<int, I...>) {
-  (xor_if<((rs10x4_coef(I, D) >> B) & 1u) != 0, W>(acc[I], x), ...);
-}
-
-template <int D, int O, int W, int... B>
-__device__ __forceinline__ void fold_row_rs(uint4 (&acc)[O][W], uint4 (&x)[W],
-                                            std::integer_sequence<int, B...>) {
-  ((B ? double_words(x) : void(),
-    xor_bit<D, B, O, W>(acc, x, std::make_integer_sequence<int, O>{})),
-   ...);
-}
-
-// Row D of the parity: load it, then fold it through its bits.
-template <int D, int O, int W>
-__device__ __forceinline__ void rs_row(const uint4* __restrict__ src,
-                                       long long col, long long n16,
-                                       uint4 (&acc)[O][W]) {
-  uint4 x[W];
-  load_words<W>(x, src + D * n16, col, n16);
-  fold_row_rs<D, O, W>(acc, x,
-                       std::make_integer_sequence<int, rs10x4_top(D)>{});
-}
-
-template <int O, int W, int... D>
-__device__ __forceinline__ void rs_rows(const uint4* __restrict__ src,
-                                        long long col, long long n16,
-                                        uint4 (&acc)[O][W],
-                                        std::integer_sequence<int, D...>) {
-  (rs_row<D, O, W>(src, col, n16, acc), ...);
-}
+};
 
 // out[i] = XOR_d C[i, d] ∘GF in[d] for the W column words of one thread;
 // src and dst point at row 0, rows n16 words apart.
 template <int F, int O, int W>
-__device__ __forceinline__ void swar_column(const uint4* __restrict__ src,
-                                            uint4* __restrict__ dst,
-                                            long long col, int k,
-                                            long long n16,
-                                            const SwarCoeff& coeff) {
+__device__ __forceinline__ void swar_words(const uint4* __restrict__ src,
+                                           uint4* __restrict__ dst,
+                                           long long col, int k,
+                                           long long n16,
+                                           const SwarCoeff& coeff) {
   uint4 acc[O][W];
-#pragma unroll
-  for (int i = 0; i < O; ++i) {
-#pragma unroll
-    for (int j = 0; j < W; ++j) acc[i][j] = make_uint4(0u, 0u, 0u, 0u);
-  }
-
-  if constexpr (F == kRs10x4) {
-    rs_rows<O, W>(src, col, n16, acc,
-                  std::make_integer_sequence<int, kRsIn>{});
-  } else {
-    for (int d = 0; d < k; ++d) {
-      const int top = coeff.top[d];
-      if (top == 0) continue;
-      uint4 x[W];
-      load_words<W>(x, src + d * n16, col, n16);
-      fold_row<O, W>(acc, x, top, coeff.mask[d]);
-    }
-  }
-
+  swar_column<F, O, W>(WordRows{src, col, n16}, k, coeff, acc);
 #pragma unroll
   for (int i = 0; i < O; ++i) {
 #pragma unroll
@@ -224,11 +104,6 @@ __device__ __forceinline__ void swar_column(const uint4* __restrict__ src,
   }
 }
 
-// The first column of the thread in column block `block`.
-__device__ __forceinline__ long long first_col(long long block, int width) {
-  return block * kThreads * width + threadIdx.x;
-}
-
 // The batch on gridDim.y, columns on x.
 template <int F, int O, int W>
 __global__ void __launch_bounds__(kThreads)
@@ -237,9 +112,9 @@ __global__ void __launch_bounds__(kThreads)
                    const __grid_constant__ SwarCoeff coeff) {
   const long long col = first_col(blockIdx.x, W);
   if (col >= n16) return;
-  swar_column<F, O, W>(in + static_cast<long long>(blockIdx.y) * k * n16,
-                       out + static_cast<long long>(blockIdx.y) * O * n16,
-                       col, k, n16, coeff);
+  swar_words<F, O, W>(in + static_cast<long long>(blockIdx.y) * k * n16,
+                      out + static_cast<long long>(blockIdx.y) * O * n16,
+                      col, k, n16, coeff);
 }
 
 // The batch as the fastest block index: blocks b, b+1, ... of one column
@@ -254,8 +129,8 @@ __global__ void __launch_bounds__(kThreads)
   const long long b = blockIdx.x % batch;
   const long long col = first_col(blockIdx.x / batch, W);
   if (col >= n16) return;
-  swar_column<F, O, W>(in + b * k * n16, out + b * O * n16, col, k, n16,
-                       coeff);
+  swar_words<F, O, W>(in + b * k * n16, out + b * O * n16, col, k, n16,
+                      coeff);
 }
 
 // All volumes in one thread: a grid over columns only, each thread walking
@@ -270,42 +145,17 @@ __global__ void __launch_bounds__(kThreads)
   const long long col = first_col(blockIdx.x, W);
   if (col >= n16) return;
   for (int v = 0; v < volumes; ++v) {
-    swar_column<F, O, W>(in + static_cast<long long>(v) * k * n16,
-                         out + static_cast<long long>(v) * O * n16, col, k,
-                         n16, coeff);
+    swar_words<F, O, W>(in + static_cast<long long>(v) * k * n16,
+                        out + static_cast<long long>(v) * O * n16, col, k,
+                        n16, coeff);
   }
-}
-
-template <int V>
-using IntC = std::integral_constant<int, V>;
-
-// f(form, O, W) as integral constants for a checked (form, o, width).
-template <typename Fn>
-void dispatch(int form, int o, int width, Fn&& f) {
-  if (form == kRs10x4) {
-    f(IntC<kRs10x4>{}, IntC<kRsOut>{}, IntC<1>{});
-    return;
-  }
-  dispatch_out(o, [&](auto oc) {
-    constexpr int O = decltype(oc)::value;
-    if constexpr (max_width(O, kRunTime) >= 2) {
-      if (width == 2) return f(IntC<kRunTime>{}, oc, IntC<2>{});
-    }
-    f(IntC<kRunTime>{}, oc, IntC<1>{});
-  });
 }
 
 // Argument checks shared by the launchers; 0 when the call may go ahead.
 int check_args(const void* in, const void* out, int o, int k, long long n16,
                int width, int form, int device) {
   if (o < 1 || o > kMaxOut || k < 1 || k > kMaxIn || n16 < 0 ||
-      n16 > 0x7fffffffLL * kThreads) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (form == kRs10x4 ? (o != kRsOut || k != kRsIn) : form != kRunTime) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (width < 1 || width > max_width(o, form)) {
+      n16 > 0x7fffffffLL * kThreads || !valid_form(o, k, width, form)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if ((reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out)) &
@@ -313,11 +163,6 @@ int check_args(const void* in, const void* out, int o, int k, long long n16,
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
   return static_cast<int>(cudaSetDevice(device));
-}
-
-long long column_blocks(long long n16, int width) {
-  const long long per_block = static_cast<long long>(kThreads) * width;
-  return (n16 + per_block - 1) / per_block;
 }
 
 }  // namespace

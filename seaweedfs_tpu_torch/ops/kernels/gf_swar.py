@@ -116,15 +116,16 @@ def coeff_from_reference(coeff: np.ndarray) -> SwarCoeff:
 
 @functools.lru_cache(maxsize=1)
 def _rs10x4_parity() -> np.ndarray:
-    """The matrix of the kernel's compile-time form (csrc/gf_swar.cu:
-    rs10x4_coef)."""
+    """The matrix of the kernels' compile-time form
+    (csrc/gf_swar_column.cuh: rs10x4_coef)."""
     return gf256.parity_matrix(10, 4)
 
 
 def max_width(o: int, form: int = FORM_RUNTIME) -> int:
-    """The widest W the kernel has for ``o`` outputs in ``form``: 2 in the
-    run-time form for up to 4 outputs, whose 8 accumulator words stay in
-    registers, else 1; the compile-time form has W = 1 only."""
+    """The widest W the kernels have for ``o`` outputs in ``form``
+    (csrc/gf_swar_column.cuh: max_width): 2 in the run-time form for up
+    to 4 outputs, whose 8 accumulator words stay in registers, else 1;
+    the compile-time form has W = 1 only."""
     return 2 if form == FORM_RUNTIME and o <= 4 else 1
 
 
@@ -211,6 +212,14 @@ _lib_lock = threading.Lock()
 _lib = None  # guarded-by: _lib_lock
 
 
+def width_table(max_width_fn) -> list[int]:
+    """``max_width_fn(o, form)`` for every output count and form: what a
+    built library's ``*_max_width`` must give as :func:`max_width`
+    does."""
+    return [max_width_fn(o, f) for f in (FORM_RUNTIME, FORM_RS10X4)
+            for o in range(1, MAX_OUT + 1)]
+
+
 def library():
     """The built kernel library (``nvcc`` at first use), with its C
     signatures declared and its limits checked against this module's."""
@@ -236,13 +245,10 @@ def library():
                 getattr(lib, fn).restype = ctypes.c_int
             lib.gf_swar_max_width.argtypes = [ctypes.c_int, ctypes.c_int]
             lib.gf_swar_max_width.restype = ctypes.c_int
-            forms = [(o, f) for f in (FORM_RUNTIME, FORM_RS10X4)
-                     for o in range(1, MAX_OUT + 1)]
             expect = (MAX_IN * 8 * 2 + MAX_IN, MAX_OUT, MAX_IN,
-                      [max_width(o, f) for o, f in forms])
+                      width_table(max_width))
             got = (lib.gf_swar_coeff_bytes(), lib.gf_swar_max_out(),
-                   lib.gf_swar_max_in(),
-                   [lib.gf_swar_max_width(o, f) for o, f in forms])
+                   lib.gf_swar_max_in(), width_table(lib.gf_swar_max_width))
             if got != expect:
                 raise RuntimeError(
                     f"gf_swar library limits {got} != wrapper's {expect}"
@@ -343,10 +349,13 @@ class RowsKernel:
     stride, any width, and this module's coefficient struct:
     ``<name>_launch(in, out, o, k, n, *extra, batch, in_bs, in_rs, out_bs,
     out_rs, coeff, device, stream)`` (gf_swar_u8, gf_vpu, gf_fused_u8).
-    Built at first use; counts its launches in ``launches``."""
+    Built at first use; counts its launches in ``launches``. ``forms``:
+    the library instantiates this module's coefficient forms and widths,
+    and its ``<name>_max_width`` must agree with :func:`max_width`."""
 
-    def __init__(self, name: str, extra_argtypes=()):
+    def __init__(self, name: str, extra_argtypes=(), forms: bool = False):
         self.name = name
+        self.forms = forms
         self.launches = LaunchCounter()
         self._argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -375,6 +384,15 @@ class RowsKernel:
                         f"{self.name} takes {got} coefficient bytes, "
                         f"gf_swar packs {MAX_IN * 8 * 2 + MAX_IN}"
                     )
+                if self.forms:
+                    build.declare(lib, {f"{self.name}_max_width": (
+                        [ctypes.c_int, ctypes.c_int], ctypes.c_int)})
+                    widths = width_table(getattr(lib, f"{self.name}_max_width"))
+                    if widths != width_table(max_width):
+                        raise RuntimeError(
+                            f"{self.name} library widths {widths} != "
+                            f"wrapper's {width_table(max_width)}"
+                        )
                 self._lib = lib
             return self._lib
 

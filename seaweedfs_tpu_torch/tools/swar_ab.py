@@ -1,14 +1,16 @@
-"""Time gf_swar of two checkouts of this repository on one card, in turns.
+"""Time gf_swar or gf_swar_u8 of two checkouts of this repository on one
+card, in turns.
 
     python seaweedfs_tpu_torch/tools/swar_ab.py --parent DIR [--reps 20]
+        [--kernel gf_swar|gf_swar_u8]
 
 ``DIR`` is the root of another checkout of the repository (an earlier
 commit, unpacked with ``git archive``). The script runs its worker four
 times, each in a fresh process that imports the port from one root: the
 other checkout, this one, this one, the other. Each worker builds that
-checkout's gf_swar from its own sources and times it with that
+checkout's kernel from its own sources and times it with that
 checkout's ``ops/timing.time_ms`` (CUDA events, L2 flushed) at the
-shapes the port launches it with:
+shapes the port launches it with. gf_swar (the default):
 
 - ``[10, 1 MiB]`` RS(10,4) parity, one ``ec.encode`` row;
 - ``[10, 8 MiB]`` reconstruction of shards {0,5,11,13}, one rebuild window;
@@ -20,8 +22,21 @@ The worker calls only what every checkout since the first word forms has
 (``gf_swar.launch``, ``coeff_from_reference``, the two word forms,
 ``gf_kernel.u32_route``); in a checkout whose wrapper chooses a column
 width and a coefficient form (``gf_swar.launch_plan``) it also times the
-run-time form at W = 1 and at the chosen W, so each design step shows on
-its own. It prints the card's name and power limit, a table of every
+run-time form at W = 1 and at the chosen W, and the compile-time form at
+each W its kernel has, so each design step shows on its own.
+
+gf_swar_u8 (``--kernel gf_swar_u8``), the device-resident u8 route, through
+``gf_swar_u8.gf_matmul`` at the plan its wrapper chooses:
+
+- ``[10, 1 MiB]`` RS(10,4) parity;
+- ``[10, 8 MiB]`` reconstruction of shards {0,5,11,13};
+- ``[10, 64 MiB]`` parity and reconstruction, the device-resident slab;
+- ``[8, 10, 64 MiB]`` parity, the 8-volume batch.
+
+In a checkout whose wrapper takes a ``width`` it also times each
+coefficient form at each W, forced.
+
+Both modes print the card's name and power limit, a table of every
 shape's times by run, and one JSON line.
 """
 
@@ -37,9 +52,15 @@ import sys
 MIB = 1 << 20
 
 
-def worker(root: str, reps: int, seed: int) -> dict:
+def worker(root: str, reps: int, seed: int, kernel: str) -> dict:
     """Times of the checkout at ``root``, in ms by label."""
     sys.path.insert(0, root)
+    if kernel == "gf_swar_u8":
+        return _u8_times(reps, seed)
+    return _swar_times(root, reps, seed)
+
+
+def _swar_times(root: str, reps: int, seed: int) -> dict:
     import dataclasses
 
     import torch
@@ -71,6 +92,10 @@ def worker(root: str, reps: int, seed: int) -> dict:
             runtime = dataclasses.replace(coeff, rs10x4=False)
             variants += [(" run-time W=1", runtime, 1),
                          (" run-time W chosen", runtime, None)]
+            if coeff.rs10x4:
+                variants += [
+                    (f" constants W={w}", coeff, w) for w in range(
+                        1, gf_swar.max_width(4, gf_swar.FORM_RS10X4) + 1)]
         for suffix, c, width in variants:
             kw = {} if width is None else {"width": width}
             gf_swar.launch(c, x, out, **kw)
@@ -99,6 +124,56 @@ def worker(root: str, reps: int, seed: int) -> dict:
     return times
 
 
+def _u8_times(reps: int, seed: int) -> dict:
+    import dataclasses
+    import inspect
+
+    import torch
+
+    from seaweedfs_tpu_torch.ops import gf256
+    from seaweedfs_tpu_torch.ops.kernels import gf_swar, gf_swar_u8
+    from seaweedfs_tpu_torch.ops.timing import l2_flusher, time_ms
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    flush = l2_flusher(dev)
+    present = [i for i in range(14) if i not in (0, 5, 11, 13)]
+    rec = gf256.reconstruction_matrix(10, 4, present)[0]
+    parity = gf256.parity_matrix(10, 4)
+    forms = "width" in inspect.signature(gf_swar_u8.gf_matmul).parameters
+    times = {}
+    for label, matrix, shape in (
+            ("encode [10,1MiB]", parity, (10, MIB)),
+            ("rebuild {0,5,11,13} [10,8MiB]", rec, (10, 8 * MIB)),
+            ("encode [10,64MiB]", parity, (10, 64 * MIB)),
+            ("rebuild {0,5,11,13} [10,64MiB]", rec, (10, 64 * MIB)),
+            ("encode [8,10,64MiB]", parity, (8, 10, 64 * MIB))):
+        coeff = gf_swar.coeff_from_reference(matrix)
+        x = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                          generator=gen)
+        want = gf_swar.gf_matmul_plain(coeff, x)
+        variants = [("", coeff, {})]
+        if forms:
+            by_form = [("run-time", dataclasses.replace(coeff, rs10x4=False),
+                        gf_swar.FORM_RUNTIME)]
+            if coeff.rs10x4:
+                by_form.insert(0, ("constants", coeff, gf_swar.FORM_RS10X4))
+            variants += [(f" {name} W={w}", c, {"width": w})
+                         for name, c, form in by_form
+                         for w in range(1, gf_swar.max_width(4, form) + 1)]
+        for suffix, c, kw in variants:
+            if not torch.equal(gf_swar_u8.gf_matmul(c, x, **kw), want):
+                raise AssertionError(f"gf_swar_u8 {label}{suffix} differs "
+                                     "from the plain version")
+            times[label + suffix] = time_ms(
+                lambda c=c, kw=kw: gf_swar_u8.gf_matmul(c, x, **kw), reps, 3,
+                flush)
+        del x, want
+    return times
+
+
 def card_label() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -113,6 +188,8 @@ def main() -> int:
                     help="root of the other checkout")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernel", choices=("gf_swar", "gf_swar_u8"),
+                    default="gf_swar")
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker is not None:
@@ -120,8 +197,8 @@ def main() -> int:
         sys.path[:] = [p for p in sys.path
                        if os.path.abspath(p or ".") != os.path.dirname(
                            os.path.abspath(__file__))]
-        print(json.dumps(worker(args.worker, args.reps, args.seed)),
-              flush=True)
+        print(json.dumps(worker(args.worker, args.reps, args.seed,
+                                args.kernel)), flush=True)
         return 0
 
     here = os.path.abspath(os.path.join(os.path.dirname(__file__), "..",
@@ -135,7 +212,7 @@ def main() -> int:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--parent", parent,
              "--reps", str(args.reps), "--seed", str(args.seed),
-             "--worker", root],
+             "--kernel", args.kernel, "--worker", root],
             cwd=root, capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)
@@ -156,7 +233,8 @@ def main() -> int:
                           for _, t in runs)
         print(f"  {label}: {cells}" + "".join(
             f"; {name} {ms:.4f}" for name, ms in row.items()))
-    print(json.dumps({"swar_ab": table, "card": card}))
+    print(json.dumps({"swar_ab": table, "kernel": args.kernel,
+                      "card": card}))
     return 0
 
 

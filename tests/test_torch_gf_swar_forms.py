@@ -1,8 +1,9 @@
 """gf_swar's launch choices: the compile-time RS(10,4) parity form and
 the column words a thread takes (W).
 
-The kernel holds the RS(10,4) parity as constants (``rs10x4_coef`` in
-``csrc/gf_swar.cu``); the wrapper marks a coefficient whose matrix is that
+The kernels hold the RS(10,4) parity as constants (``rs10x4_coef`` in
+``csrc/gf_swar_column.cuh``, the column algebra gf_swar and gf_swar_u8
+share); the wrapper marks a coefficient whose matrix is that
 parity and sends it there, every other matrix through the run-time
 struct. The table must be the matrix both packages build, and the mark
 must fall on that matrix alone, or an encode would write wrong parity.
@@ -30,19 +31,20 @@ from seaweedfs_tpu_torch.ops import gf256  # noqa: E402
 from seaweedfs_tpu_torch.ops.kernels import gf_swar  # noqa: E402
 
 SOURCE = os.path.join(os.path.dirname(gf_swar.__file__), "csrc",
-                      "gf_swar.cu")
+                      "gf_swar_column.cuh")
 # the H100 SXM's streaming multiprocessors
 H100_SMS = 132
 MIB = 1 << 20
 
 
 def source_table() -> np.ndarray:
-    """The ``kRs10x4Parity[4][10]`` initialiser of the kernel source."""
+    """The ``kRs10x4Parity[4][10]`` initialiser of the kernels' shared
+    column header."""
     with open(SOURCE) as f:
         text = f.read()
     body = re.search(r"kRs10x4Parity\[kRsOut\]\[kRsIn\]\s*=\s*\{(.*?)\};",
                      text, re.S)
-    assert body, "no kRs10x4Parity table in gf_swar.cu"
+    assert body, "no kRs10x4Parity table in gf_swar_column.cuh"
     rows = re.findall(r"\{([^{}]*)\}", body.group(1))
     return np.array([[int(v, 0) for v in r.split(",") if v.strip()]
                      for r in rows], dtype=np.uint8)
