@@ -50,10 +50,10 @@ class Choice:
 # dev8: what measure() chose for every RS shape of BASELINE config 5 in
 # chip_smoke.py's phase 7 on an NVIDIA H100 80GB HBM3 at its 700.00 W
 # limit. RS(10,4) at [10, 16 MiB]: swar (gf_swar_u8, its compile-time
-# parity form) 0.0867 ms, repack chain 0.2716-0.2723 ms over its three
-# tiles, mxu (gf_bitplane) 0.7244 ms. A u8 buffer is read as 16-byte words
-# directly on this card, so the repack the TPU needs for its layout only
-# adds two passes over the bytes.
+# parity form) 0.0869 ms, mxu (gf_bitplane, lane pack) 0.2372 ms, repack
+# chain 0.2728-0.2732 ms over its three tiles. A u8 buffer is read as
+# 16-byte words directly on this card, so the repack the TPU needs for its
+# layout only adds two passes over the bytes.
 DEFAULTS = {
     "dev32": Choice("swar", 0),
     "dev8": Choice("swar", 0),

@@ -1,8 +1,8 @@
-"""Time gf_swar or gf_swar_u8 of two checkouts of this repository on one
-card, in turns.
+"""Time gf_swar, gf_swar_u8 or gf_bitplane of two checkouts of this
+repository on one card, in turns.
 
     python seaweedfs_tpu_torch/tools/swar_ab.py --parent DIR [--reps 20]
-        [--kernel gf_swar|gf_swar_u8]
+        [--kernel gf_swar|gf_swar_u8|gf_bitplane]
 
 ``DIR`` is the root of another checkout of the repository (an earlier
 commit, unpacked with ``git archive``). The script runs its worker four
@@ -36,7 +36,16 @@ gf_swar_u8 (``--kernel gf_swar_u8``), the device-resident u8 route, through
 In a checkout whose wrapper takes a ``width`` it also times each
 coefficient form at each W, forced.
 
-Both modes print the card's name and power limit, a table of every
+gf_bitplane (``--kernel gf_bitplane``), the ``mxu`` route, through
+``gf_bitplane.gf_matmul``, each output checked against gf_swar's plain
+version on the card:
+
+- ``[10, 64 MiB]`` RS(10,4) parity and reconstruction of {0,5,11,13};
+- ``[6, 32 MiB]`` RS(6,3) and ``[20, 32 MiB]`` RS(20,4) parity, the sweep;
+- ``[10, 1 MiB]`` parity;
+- ``[8, 10, 64 MiB]`` parity, the 8-volume batch (~8 GB of device memory).
+
+Every mode prints the card's name and power limit, a table of every
 shape's times by run, and one JSON line.
 """
 
@@ -57,6 +66,8 @@ def worker(root: str, reps: int, seed: int, kernel: str) -> dict:
     sys.path.insert(0, root)
     if kernel == "gf_swar_u8":
         return _u8_times(reps, seed)
+    if kernel == "gf_bitplane":
+        return _bitplane_times(reps, seed)
     return _swar_times(root, reps, seed)
 
 
@@ -174,6 +185,43 @@ def _u8_times(reps: int, seed: int) -> dict:
     return times
 
 
+def _bitplane_times(reps: int, seed: int) -> dict:
+    import torch
+
+    from seaweedfs_tpu_torch.ops import gf256
+    from seaweedfs_tpu_torch.ops.kernels import gf_bitplane, gf_swar
+    from seaweedfs_tpu_torch.ops.timing import l2_flusher, time_ms
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    flush = l2_flusher(dev)
+    present = [i for i in range(14) if i not in (0, 5, 11, 13)]
+    rec = gf256.reconstruction_matrix(10, 4, present)[0]
+    parity = gf256.parity_matrix(10, 4)
+    times = {}
+    for label, matrix, shape in (
+            ("encode [10,64MiB]", parity, (10, 64 * MIB)),
+            ("rebuild {0,5,11,13} [10,64MiB]", rec, (10, 64 * MIB)),
+            ("RS(6,3) [6,32MiB]", gf256.parity_matrix(6, 3), (6, 32 * MIB)),
+            ("RS(20,4) [20,32MiB]", gf256.parity_matrix(20, 4),
+             (20, 32 * MIB)),
+            ("encode [10,1MiB]", parity, (10, MIB)),
+            ("encode [8,10,64MiB]", parity, (8, 10, 64 * MIB))):
+        x = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                          generator=gen)
+        want = gf_swar.gf_matmul_plain(gf_swar.coeff_from_reference(matrix),
+                                       x)
+        if not torch.equal(gf_bitplane.gf_matmul(matrix, x), want):
+            raise AssertionError(f"gf_bitplane {label} differs from the "
+                                 "plain version")
+        times[label] = time_ms(lambda: gf_bitplane.gf_matmul(matrix, x),
+                               reps, 3, flush)
+        del x, want
+    return times
+
+
 def card_label() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -188,7 +236,8 @@ def main() -> int:
                     help="root of the other checkout")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--kernel", choices=("gf_swar", "gf_swar_u8"),
+    ap.add_argument("--kernel",
+                    choices=("gf_swar", "gf_swar_u8", "gf_bitplane"),
                     default="gf_swar")
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()

@@ -233,21 +233,26 @@ def test_cpu_tensors_never_launch():
 
 
 def test_bitplane_fragments():
-    """The kernel's A operand: expand_bitmatrix padded to [16·MT, 32·KS]
-    and cut into mma.m16n8k32 fragments, lane 4g+t, register r holding
-    B[16mt + g + 8(r&1), 32ks + 16(r>>1) + 4t + i]."""
+    """The kernel's A operand: expand_bitmatrix with its rows and columns
+    in the lane pack's order, bit j weighed by 2^(7-j) as an int8, cut into
+    mma.m16n8k32 fragments: lane 4g+t, register r holding A[16mt + g +
+    8(r&1), 32ks + 16(r>>1) + 4t + i]. At MT = 2 row g + 8h of m-tile mt is
+    bit 4(g>>2) + 2mt + h of output g&3; column kappa of slice ks is bit
+    (kappa&3) + 4(kappa>>4) of input 4ks + ((kappa&15)>>2)."""
     from seaweedfs_tpu.ops import bitmatrix as ref_bitmatrix
 
     coeff = ref_gf256.parity_matrix(6, 3)  # MT = 2, KS = 2
     frags = gf_bitplane.fragment_bitmatrix(coeff)
     assert frags.shape == (2, 2, 32, 4, 4) and frags.dtype == np.int8
-    full = np.zeros((32, 64), np.int8)
-    full[:24, :48] = ref_bitmatrix.expand_bitmatrix(coeff)
+    bits = ref_bitmatrix.expand_bitmatrix(coeff)
     for mt, ks, lane, r, i in np.ndindex(frags.shape):
         g, t = lane >> 2, lane & 3
-        row = 16 * mt + g + 8 * (r & 1)
-        col = 32 * ks + 16 * (r >> 1) + 4 * t + i
-        assert frags[mt, ks, lane, r, i] == full[row, col]
+        rho, kappa = g + 8 * (r & 1), 16 * (r >> 1) + 4 * t + i
+        out, bit = (rho & 7) & 3, 4 * ((rho & 7) >> 2) + 2 * mt + (rho >> 3)
+        d, j = 4 * ks + ((kappa & 15) >> 2), (kappa & 3) + 4 * (kappa >> 4)
+        want = bits[8 * out + bit, 8 * d + j] << (7 - j) if (
+            out < 3 and d < 6) else 0
+        assert frags[mt, ks, lane, r, i] == np.uint8(want).view(np.int8)
 
 
 @needs_card
