@@ -9,7 +9,8 @@ Run from the root of the repository, on a machine with a CUDA card and
 
 1. header: the card's name and power limit, CUDA and nvcc versions, and
    the build of every kernel from the sources in the checkout (one
-   ``nvcc`` per source, all started together), with ptxas's registers and
+   ``nvcc`` per source, all started together) and of the native host
+   codec (``g++``), with ptxas's registers and
    spills (none allowed in gf_swar and gf_swar_u8) and SASS checks: the
    doubling's instruction forms, and the XOR LOP3s a word of the
    compile-time RS(10,4) form of gf_swar and of gf_swar_u8, no more than
@@ -44,7 +45,11 @@ Run from the root of the repository, on a machine with a CUDA card and
    unpadded int8 product) beside the count it had before, which added
    the first design's unpack and pack;
 4. the vendored golden fixture (tests/golden/1.*): encode, ``.ecx`` and
-   a 4-shard rebuild byte-identical to the golden shards;
+   a 4-shard rebuild byte-identical to the golden shards, twice: with the
+   codec's floor at 0 (every dispatch on the kernel) and at its default
+   (the encode's 4 KiB chunks on the native host codec); each run's
+   kernel launches and host dispatches equal what the codec's routing
+   gives its widths (so do phases 5 and 9's);
 5. the codec path at full size: a ``.dat`` volume made from ``--seed``
    (1 GiB by default) through ``write_ec_files`` →
    ``write_sorted_file_from_idx`` → ``rebuild_ec_files`` of shards
@@ -78,9 +83,28 @@ Run from the root of the repository, on a machine with a CUDA card and
    ``--seed`` plus one volume of odd size (a second group), one parity
    launch per lane-packed chunk, all in the compile-time RS(10,4) form,
    every shard file hashing equal to ``write_ec_files`` of the same
-   volume; GB/s and the phase split.
+   volume; GB/s and the phase split;
+10. the EC read path and ``ec.decode``: a volume of version-3 needles
+    made from ``--seed`` (``--volume-mib``; sizes log-uniform from 1 KiB
+    to 4 MiB, names and mime types on a seeded share, 1 % overwritten and
+    1 % deleted), encoded; with shards {0, 5, 11, 13} and then {3} lost,
+    ``EcVolume.read_needle`` of a seeded sample of up to 4,096 live
+    needles and every other one with an interval on a lost shard (up to
+    4,096), each byte-exact against the generator: the intervals read
+    directly and reconstructed on the native host route and on the kernel
+    route (both must be taken, and gf_swar's launches must equal the
+    kernel-route intervals), needles/s, p50 and p99 latency; then 64
+    deletes through the ``.ecj``, ``rebuild_ec_files`` of {0, 5, 11, 13},
+    ``find_dat_file_size``, ``write_dat_file`` and
+    ``write_idx_file_from_ec_index``: the ``.dat`` must hash equal to the
+    original's live extent and the ``.idx`` equal the ``.ecx`` plus one
+    tombstone a delete; decode GB/s. Last, outside the path's count, the
+    crossover: one lost data shard rebuilt from ten for windows of 1 KiB
+    to 4 MiB on the native codec and on the kernel (wall time, H2D and
+    D2H included, median of ``--reps``), printed with the codec's floor.
 
-It prints one JSON line describing every kernel, then, last,
+It prints a ``read_decode`` JSON line, one JSON line describing every
+kernel, then, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository beside it, it exits non-zero and prints no result.
 """
@@ -90,6 +114,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import hashlib
+import itertools
 import json
 import os
 import re
@@ -476,6 +501,440 @@ def make_volume(base: str, size: int, seed: int) -> bytes:
     )
 
 
+def encode_widths(dat_size: int, volumes: int = 1, **blocks) -> list[int]:
+    """The shard width of each codec dispatch of ``_encode_lockstep``
+    over ``volumes`` volumes of ``dat_size`` bytes: one lane-packed
+    chunk of ``volumes`` x n columns for each chunk of the row plan.
+    ``blocks`` takes ``large_block_size``, ``small_block_size`` and
+    ``batch_bytes`` as the encoder does."""
+    from seaweedfs_tpu_torch.storage.erasure_coding import (
+        constants as C,
+        encoder,
+        layout,
+    )
+
+    large = blocks.get("large_block_size", C.LARGE_BLOCK_SIZE)
+    small = blocks.get("small_block_size", C.SMALL_BLOCK_SIZE)
+    batch, _ = encoder.choose_pipeline(dat_size, C.DATA_SHARDS,
+                                       blocks.get("batch_bytes"),
+                                       volumes=volumes)
+    return [volumes * min(batch, bs - co)
+            for _, bs in layout.encode_row_plan(dat_size, large, small)
+            for co in range(0, bs, batch)]
+
+
+def rebuild_widths(shard_size: int) -> list[int]:
+    """The shard width of each codec dispatch of ``rebuild_ec_files``:
+    one a window."""
+    from seaweedfs_tpu_torch.storage.erasure_coding import rebuild
+
+    window = rebuild.DEFAULT_WINDOW_BYTES
+    return [min(window, shard_size - off)
+            for off in range(0, shard_size, window)]
+
+
+def routes(widths: list[int], floor: int) -> tuple[int, int]:
+    """(kernel launches, native host dispatches) that a ``cuda`` codec of
+    this floor makes for dispatches of these shard widths."""
+    from seaweedfs_tpu_torch.ops.codec import choose_route
+
+    kernel = sum(choose_route("cuda", w, floor) == "cuda" for w in widths)
+    return kernel, len(widths) - kernel
+
+
+MIMES = (b"application/octet-stream", b"image/jpeg", b"image/png",
+         b"text/plain; charset=utf-8", b"video/mp4")
+
+
+def needle_payload(seed: int, i: int, n: int) -> bytes:
+    """The data of the ``i``-th record ``make_needle_volume`` wrote."""
+    return np.random.default_rng([seed, i]).bytes(n)
+
+
+def make_needle_volume(base: str, size: int, seed: int,
+                       min_bytes: int = 1024, max_bytes: int = 4 * MIB):
+    """Write ``<base>.dat``, a version-3 volume of at most ``size``
+    bytes, and its ``<base>.idx`` from ``seed``, as a volume server
+    would: a superblock, then needle records, each one indexed. Data
+    sizes are log-uniform in [min_bytes, max_bytes] (1 KiB, the
+    ``weed benchmark`` default object, to 4 MiB, past the 1 MiB small
+    block); half the needles carry a name and a third a mime type. Of
+    the records after the first, 1 % overwrite a live needle with new
+    data and 1 % delete one (a tombstone record, and an ``.idx`` entry
+    of size -1). Writing stops before the record that would pass
+    ``size``.
+
+    Returns ``(live, deleted)``: ``live`` maps each live needle id to
+    ``(i, data bytes, name, mime)``, its data being
+    ``needle_payload(seed, i, data bytes)``; ``deleted`` lists the ids
+    deleted."""
+    from seaweedfs_tpu_torch.storage import idx, needle, super_block
+    from seaweedfs_tpu_torch.storage import types as t
+
+    rng = np.random.default_rng(seed)
+    live: dict[int, tuple[int, int, bytes, bytes]] = {}
+    deleted: list[int] = []
+    used: set[int] = set()
+    log: list[tuple[int, int, int]] = []  # .idx entries: id, offset, size
+    with open(base + ".dat", "wb") as f:
+        off = f.write(super_block.SuperBlock(version=t.VERSION3).to_bytes())
+        for i in itertools.count():
+            r = rng.random()
+            if live and r < 0.01:  # delete a live needle
+                key = int(rng.choice(sorted(live)))
+                n = needle.Needle(id=key)
+                n.append_at_ns = 1_700_000_000_000_000_000 + i
+                rec = n.to_bytes(t.VERSION3)
+                if off + len(rec) > size:
+                    break
+                log.append((key, off, t.TOMBSTONE_FILE_SIZE))
+                del live[key]
+                deleted.append(key)
+                off += f.write(rec)
+                continue
+            if live and r < 0.02:  # overwrite a live needle
+                key = int(rng.choice(sorted(live)))
+            else:
+                key = int(rng.integers(1, 1 << 40))
+                while key in used:
+                    key = int(rng.integers(1, 1 << 40))
+            n_bytes = int(np.exp(rng.uniform(np.log(min_bytes),
+                                             np.log(max_bytes))))
+            n = needle.Needle(cookie=int(rng.integers(0, 1 << 32)), id=key,
+                              data=needle_payload(seed, i, n_bytes))
+            if rng.random() < 0.5:
+                n.set_name(f"obj-{i:07d}-{int(rng.integers(1 << 32)):08x}"
+                           ".bin".encode())
+            if rng.random() < 1 / 3:
+                n.set_mime(MIMES[int(rng.integers(len(MIMES)))])
+            n.append_at_ns = 1_700_000_000_000_000_000 + i
+            rec = n.to_bytes(t.VERSION3)
+            if off + len(rec) > size:
+                break
+            used.add(key)
+            log.append((key, off, n.size))
+            live[key] = (i, n_bytes, n.name, n.mime)
+            off += f.write(rec)
+    entries = np.zeros(len(log), dtype=idx.ENTRY_DTYPE)
+    if log:
+        entries["key"], entries["offset"], entries["size"] = zip(*log)
+    with open(base + ".idx", "wb") as f:
+        f.write(idx.pack_entries(entries))
+    return live, deleted
+
+
+def percentile_ms(seconds: list[float], q: float) -> float:
+    return float(np.percentile(np.asarray(seconds) * 1e3, q))
+
+
+def degraded_reads(ev, chosen, lost, live, seed, floor):
+    """Read ``chosen`` needles of the ``EcVolume`` ``ev`` (shards
+    ``lost`` missing) and check each against what the generator wrote.
+    Returns the intervals read directly and reconstructed on each route,
+    the gf_swar launches and host dispatches around the reads, and each
+    read's latency in seconds."""
+    from seaweedfs_tpu_torch.ops import codec as codec_mod
+    from seaweedfs_tpu_torch.ops.kernels import gf_swar
+    from seaweedfs_tpu_torch.storage.erasure_coding import layout
+
+    direct, widths, degraded = 0, [], set()
+    for key in chosen:
+        for iv in ev.locate_needle(key)[2]:
+            if layout.to_shard_id_and_offset(iv)[0] in lost:
+                widths.append(iv.size)
+                degraded.add(key)
+            else:
+                direct += 1
+    kernel, host = routes(widths, floor)
+    # seconds inside the reconstructions, and within them in the codec
+    # buffer's allocation and in the codec: wrappers on this volume's
+    # own methods, removed after the reads
+    spent = {"reconstruct": 0.0, "buffer": 0.0, "codec": 0.0}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return call
+
+    ev._reconstruct_interval = timed("reconstruct", ev._reconstruct_interval)
+    ev.rs.host_zeros = timed("buffer", ev.rs.host_zeros)
+    ev.rs.reconstruct = timed("codec", ev.rs.reconstruct)
+    launches0 = gf_swar.LAUNCHES.value
+    host0 = codec_mod.HOST_DISPATCHES.value
+    latency, rebuilt_latency, whole_latency = [], [], []
+    try:
+        for key in chosen:
+            t0 = time.perf_counter()
+            n = ev.read_needle(key)
+            latency.append(time.perf_counter() - t0)
+            (rebuilt_latency if key in degraded else whole_latency).append(
+                latency[-1])
+            i, n_bytes, name, mime = live[key]
+            check(n.data == needle_payload(seed, i, n_bytes),
+                  f"needle {key:x} (lost {lost}): data differs")
+            check(n.name == name and n.mime == mime,
+                  f"needle {key:x} (lost {lost}): name or mime differs")
+    finally:
+        del ev._reconstruct_interval, ev.rs.host_zeros, ev.rs.reconstruct
+    return {
+        "lost": list(lost), "needles": len(chosen),
+        "intervals_direct": direct, "intervals_host": host,
+        "intervals_kernel": kernel,
+        "gf_swar_launches": gf_swar.LAUNCHES.value - launches0,
+        "host_dispatches": codec_mod.HOST_DISPATCHES.value - host0,
+        "needles_per_s": len(chosen) / sum(latency),
+        "p50_ms": percentile_ms(latency, 50),
+        "p99_ms": percentile_ms(latency, 99),
+        # the reads that reconstructed an interval, and the others
+        "needles_reconstructed": len(rebuilt_latency),
+        "reconstructed_p50_ms": percentile_ms(rebuilt_latency, 50),
+        "reconstructed_p99_ms": percentile_ms(rebuilt_latency, 99),
+        "direct_p50_ms": percentile_ms(whole_latency, 50),
+        "direct_p99_ms": percentile_ms(whole_latency, 99),
+        "read_seconds": sum(latency),
+        # of which: reconstructions, and within them the survivor reads
+        # (what is left), the buffer and the codec
+        "reconstruct_seconds": spent["reconstruct"],
+        "survivor_read_seconds": (spent["reconstruct"] - spent["buffer"]
+                                  - spent["codec"]),
+        "buffer_seconds": spent["buffer"],
+        "codec_seconds": spent["codec"],
+    }
+
+
+def crossover(torch, dev, seed, agree, reps):
+    """Reconstruct lost data shard 0 from shards 1-10 for windows of n
+    bytes on the native host route and on the kernel route (wall time of
+    ``RSCodec.reconstruct``, the kernel's H2D and D2H included), the
+    median of ``reps`` calls each after a warm one, taken in turns. Each
+    window's two outputs must agree with each other and with the plain
+    version on the card. Returns the rows and the first n from which the
+    kernel route stays faster (None if it never is)."""
+    from seaweedfs_tpu_torch.ops import gf256
+    from seaweedfs_tpu_torch.ops.codec import RSCodec
+    from seaweedfs_tpu_torch.ops.kernels import gf_swar
+
+    host_rs = RSCodec(10, 4, device=dev, device_min_bytes=1 << 62)
+    card_rs = RSCodec(10, 4, device=dev, device_min_bytes=0)
+    present = list(range(1, 11))
+    r, missing = gf256.reconstruction_matrix(10, 4, present)
+    coeff = gf_swar.coeff_from_reference(r[[missing.index(0)]])
+    rng = np.random.default_rng(seed)
+    rows = []
+    for n in (1024, 4096, 16384, 65536, 131072, 262144, MIB, 4 * MIB):
+        buf = card_rs.host_zeros((10, n))
+        buf[:] = rng.integers(0, 256, (10, n), dtype=np.uint8)
+        shards = {sid: buf[j] for j, sid in enumerate(present)}
+        outs = {}
+        times = {"native": [], "kernel": []}
+        for rep in range(reps + 1):
+            for route, rs in (("native", host_rs), ("kernel", card_rs)):
+                t0 = time.perf_counter()
+                got = rs.reconstruct(shards, wanted=[0])[0]
+                if rep:
+                    times[route].append(time.perf_counter() - t0)
+                outs[route] = got
+        check(np.array_equal(outs["native"], outs["kernel"]),
+              f"crossover n={n}: native and kernel routes differ")
+        on_card = torch.from_numpy(buf).to(dev)
+        agree("gf_swar", torch.from_numpy(outs["kernel"]).to(dev)[None],
+              gf_swar.gf_matmul_plain(coeff, on_card),
+              f"reconstruct 1 of [10,{n}] (read path)")
+        rows.append({
+            "n": n,
+            "native_ms": statistics.median(times["native"]) * 1e3,
+            "kernel_ms": statistics.median(times["kernel"]) * 1e3,
+        })
+    faster = [row["kernel_ms"] < row["native_ms"] for row in rows]
+    cross = next((rows[i]["n"] for i in range(len(rows))
+                  if all(faster[i:])), None)
+    return rows, cross
+
+
+def phase_read_decode(args, torch, dev, agree, reset_counts, counters):
+    """Phase 10: the EC read path and ec.decode on a needle volume.
+    Returns the phase's row and the launch counts of its path."""
+    from seaweedfs_tpu_torch.ops.codec import RSCodec
+    from seaweedfs_tpu_torch.storage.ec_volume import EcVolume
+    from seaweedfs_tpu_torch.storage.erasure_coding import (
+        constants as C,
+        decoder,
+        encoder,
+        layout,
+        rebuild,
+    )
+
+    work = tempfile.mkdtemp(prefix="chip_smoke-read-", dir=args.workdir)
+    try:
+        base = os.path.join(work, "1")
+        t0 = time.perf_counter()
+        live, deleted = make_needle_volume(base, args.volume_mib * MIB,
+                                           args.seed)
+        dat_size = os.path.getsize(base + ".dat")
+        gen_s = time.perf_counter() - t0
+        rs = RSCodec(C.DATA_SHARDS, C.PARITY_SHARDS, device=dev)
+        floor = rs.device_min_bytes
+        t0 = time.perf_counter()
+        encoder.write_ec_files(base, rs=rs)
+        encoder.write_sorted_file_from_idx(base)
+        say(f"needle volume: {dat_size} bytes, {len(live)} live needles "
+            f"and {len(deleted)} deleted, from seed {args.seed} in "
+            f"{gen_s:.2f} s; encoded in {time.perf_counter() - t0:.2f} s")
+        keys = sorted(live)
+        rng = np.random.default_rng(args.seed)
+        sample = [keys[j] for j in sorted(rng.choice(
+            len(keys), min(4096, len(keys)), replace=False))]
+        in_sample = set(sample)
+
+        reset_counts()
+        reads = []
+        for lost in ((0, 5, 11, 13), (3,)):
+            for sid in lost:
+                os.rename(base + C.to_ext(sid), base + C.to_ext(sid) + ".x")
+            ev = EcVolume(base, 1, device=dev)
+            try:
+                check(ev.shard_ids == [i for i in range(C.TOTAL_SHARDS)
+                                       if i not in lost],
+                      f"EcVolume opened shards {ev.shard_ids}")
+                # the sample, and every live needle with an interval on a
+                # lost shard, up to 4,096 more
+                extra = [key for key in keys if key not in in_sample and any(
+                    layout.to_shard_id_and_offset(iv)[0] in lost
+                    for iv in ev.locate_needle(key)[2])][:4096]
+                row = degraded_reads(ev, sample + extra, lost, live,
+                                     args.seed, ev.rs.device_min_bytes)
+                for key in deleted[:8]:
+                    try:
+                        ev.read_needle(key)
+                    except KeyError:
+                        continue
+                    raise AssertionError(f"deleted needle {key:x} read")
+            finally:
+                ev.close()
+            for sid in lost:
+                os.rename(base + C.to_ext(sid) + ".x", base + C.to_ext(sid))
+            reads.append(row)
+            check(row["intervals_host"] > 0 and row["intervals_kernel"] > 0,
+                  f"reads with {lost} lost reconstructed {row} : both "
+                  "routes must be taken")
+            check(row["gf_swar_launches"] == row["intervals_kernel"],
+                  f"reads with {lost} lost: {row['gf_swar_launches']} "
+                  f"gf_swar launches for {row['intervals_kernel']} "
+                  "kernel-route intervals")
+            check(row["host_dispatches"] == row["intervals_host"],
+                  f"reads with {lost} lost: {row['host_dispatches']} host "
+                  f"dispatches for {row['intervals_host']} host-route "
+                  "intervals")
+            say(f"degraded reads, lost {list(lost)}: {row['needles']} "
+                f"needles byte-exact; intervals {row['intervals_direct']} "
+                f"direct, {row['intervals_host']} reconstructed on the host "
+                f"route, {row['intervals_kernel']} on the kernel route "
+                f"({row['gf_swar_launches']} gf_swar launches); "
+                f"{row['needles_per_s']:.1f} needles/s, p50 "
+                f"{row['p50_ms']:.4f} ms, p99 {row['p99_ms']:.4f} ms; the "
+                f"{row['needles_reconstructed']} needles that reconstructed "
+                f"p50 {row['reconstructed_p50_ms']:.4f} ms, p99 "
+                f"{row['reconstructed_p99_ms']:.4f} ms, the others p50 "
+                f"{row['direct_p50_ms']:.4f} ms, p99 "
+                f"{row['direct_p99_ms']:.4f} ms")
+            say(f"degraded reads, lost {list(lost)}, where the time goes: "
+                f"{row['read_seconds']:.4f} s reading, of which "
+                f"{row['reconstruct_seconds']:.4f} s reconstructing: "
+                f"survivor reads {row['survivor_read_seconds']:.4f} s, "
+                f"codec buffer {row['buffer_seconds']:.4f} s, codec "
+                f"{row['codec_seconds']:.4f} s")
+
+        # ec.decode: journal deletes, make the data shards whole, then
+        # shards -> .dat and .ecx + .ecj -> .idx
+        ev = EcVolume(base, 1, device=dev)
+        try:
+            doomed = [int(k) for k in rng.choice(keys, min(64, len(keys)),
+                                                   replace=False)]
+            for key in doomed:
+                ev.delete_needle(key)
+            try:
+                ev.read_needle(doomed[0])
+                raise AssertionError("a journalled delete still reads")
+            except KeyError:
+                pass
+        finally:
+            ev.close()
+        lost = (0, 5, 11, 13)
+        want_shards = {sid: sha256_file(base + C.to_ext(sid)) for sid in lost}
+        for sid in lost:
+            os.remove(base + C.to_ext(sid))
+        launches0 = counters["gf_swar"].value
+        t0 = time.perf_counter()
+        check(rebuild.rebuild_ec_files(base, rs=rs) == list(lost),
+              "decode rebuild ids")
+        rebuild_s = time.perf_counter() - t0
+        rebuild_launches = counters["gf_swar"].value - launches0
+        for sid in lost:
+            check(sha256_file(base + C.to_ext(sid)) == want_shards[sid],
+                  f"decode: rebuilt shard {sid} differs")
+        os.rename(base + ".dat", base + ".orig")
+        t0 = time.perf_counter()
+        extent = decoder.find_dat_file_size(base)
+        decoder.write_dat_file(base, extent)
+        decoder.write_idx_file_from_ec_index(base)
+        decode_s = time.perf_counter() - t0
+        with open(base + ".orig", "rb") as f:
+            h = hashlib.sha256()
+            left = extent
+            while left:
+                buf = f.read(min(left, 16 * MIB))
+                check(len(buf) > 0,
+                      "original .dat shorter than its live extent")
+                h.update(buf)
+                left -= len(buf)
+        check(os.path.getsize(base + ".dat") == extent
+              and sha256_file(base + ".dat") == h.hexdigest(),
+              "decoded .dat differs from the original's live extent")
+        with open(base + ".ecx", "rb") as f:
+            want_idx = f.read() + b"".join(
+                struct.pack(">QIi", key, 0, -1) for key in doomed)
+        with open(base + ".idx", "rb") as f:
+            check(f.read() == want_idx,
+                  ".idx differs from the .ecx and one tombstone a journalled "
+                  "delete")
+        path = {name: c.value for name, c in counters.items()}
+        decode = {
+            "dat_bytes": dat_size, "live_extent": extent,
+            "journalled_deletes": len(doomed),
+            "rebuild_seconds": rebuild_s,
+            "rebuild_launches": rebuild_launches,
+            "decode_seconds": decode_s,
+            "GBps": extent / (rebuild_s + decode_s) / 1e9,
+        }
+        say(f"ec.decode: rebuild of {list(lost)} {rebuild_s:.3f} s "
+            f"({rebuild_launches} launches), .dat + .idx {decode_s:.3f} s; "
+            f"{extent} bytes = {decode['GBps']:.3f} GB/s; .dat hashes equal "
+            "to the original's live extent, .idx = .ecx + "
+            f"{len(doomed)} tombstones")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # outside the path's count: the route crossover
+    rows, cross = crossover(torch, dev, args.seed, agree, args.reps)
+    for row in rows:
+        say(f"crossover n={row['n']}: native {row['native_ms']:.4f} ms, "
+            f"kernel (H2D + launch + D2H) {row['kernel_ms']:.4f} ms")
+    say("crossover: the kernel route is faster "
+        + (f"from n = {cross} bytes on" if cross else "at no n measured")
+        + f"; the codec ships a floor of {floor} bytes")
+    return {
+        "needle_volume": {"dat_bytes": dat_size, "live": len(live),
+                          "deleted": len(deleted), "seed": args.seed},
+        "reads": reads, "decode": decode, "crossover": rows,
+        "crossover_bytes": cross, "floor_bytes": floor,
+        "host_dispatches_in_path": path["codec_host"],
+    }, path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -548,11 +1007,14 @@ PATH_KERNELS = {
                "gf_vpu", "gf_fused_u8", "gf_swar_fusedv",
                "gf_swar_batch_fastest"),
     "batch_encode": ("gf_swar",),
+    "read_decode": ("gf_swar",),
 }
 
 
 def run(args, torch, here: str) -> int:
     from seaweedfs_tpu_torch.ops import autotune, gf256
+    from seaweedfs_tpu_torch import native
+    from seaweedfs_tpu_torch.ops import codec as codec_mod
     from seaweedfs_tpu_torch.ops.codec import RSCodec
     from seaweedfs_tpu_torch.ops.kernels import (
         build,
@@ -588,6 +1050,8 @@ def run(args, torch, here: str) -> int:
         "gf_swar_rs10x4": gf_swar.RS10X4_LAUNCHES,
         # and gf_swar_u8's launches in that form
         "gf_swar_u8_rs10x4": gf_swar_u8.RS10X4_LAUNCHES,
+        # the codec's dispatches that took the native host route
+        "codec_host": codec_mod.HOST_DISPATCHES,
     }
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -624,6 +1088,13 @@ def run(args, torch, here: str) -> int:
         mod.library()
     say(f"build {', '.join(libs)}: {time.perf_counter() - t0:.3f} s wall, "
         "one nvcc each, in parallel")
+    # the host codec of the codec's native route and the needle CRC
+    t0 = time.perf_counter()
+    native_lib = native.compile_library()
+    native.library()
+    say(f"build native host codec (g++ {' '.join(native.CXX_FLAGS)}): "
+        f"{time.perf_counter() - t0:.3f} s -> "
+        f"{os.path.relpath(native_lib, here)}")
     for lib in libs:
         info = build.build_info[lib]
         regs = [int(m) for m in re.findall(r"Used (\d+) registers",
@@ -1223,28 +1694,53 @@ def run(args, torch, here: str) -> int:
         rs = RSCodec(C.DATA_SHARDS, C.PARITY_SHARDS, device=dev)
 
         # -- 4. golden fixture ----------------------------------------------
+        # twice: with the floor at 0 every dispatch takes the kernel; at
+        # the codec's own floor the encode's narrow chunks take the
+        # native host codec, and the rebuild's window takes whichever
+        # route its width gives. Both must give the golden bytes.
         golden = os.path.join(here, "tests", "golden", "1")
         gbase = os.path.join(work, "golden")
-        shutil.copy(golden + ".dat", gbase + ".dat")
-        shutil.copy(golden + ".idx", gbase + ".idx")
-        encoder.write_ec_files(gbase, rs=rs, **GOLDEN_BLOCKS)
-        encoder.write_sorted_file_from_idx(gbase)
 
         def same(ext):
             with open(gbase + ext, "rb") as a, open(golden + ext, "rb") as b:
                 return a.read() == b.read()
 
-        for i in range(C.TOTAL_SHARDS):
-            check(same(C.to_ext(i)), f"golden shard {C.to_ext(i)} differs")
-        check(same(".ecx"), "golden .ecx differs")
-        for sid in (0, 5, 11, 13):
-            os.remove(gbase + C.to_ext(sid))
-        check(rebuild.rebuild_ec_files(gbase, rs=rs) == [0, 5, 11, 13],
-              "golden rebuild ids")
-        for i in range(C.TOTAL_SHARDS):
-            check(same(C.to_ext(i)), f"golden rebuilt {C.to_ext(i)} differs")
-        say("golden fixture: 14 shards, .ecx and rebuild of {0,5,11,13} "
-            "byte-identical")
+        golden_size = os.path.getsize(golden + ".dat")
+        golden_shard = layout.shard_file_size(
+            golden_size, GOLDEN_BLOCKS["large_block_size"],
+            GOLDEN_BLOCKS["small_block_size"])
+        golden_widths = (
+            encode_widths(golden_size, **GOLDEN_BLOCKS)
+            + rebuild_widths(golden_shard)
+        )
+        for floor in (0, rs.device_min_bytes):
+            grs = RSCodec(C.DATA_SHARDS, C.PARITY_SHARDS, device=dev,
+                          device_min_bytes=floor)
+            shutil.copy(golden + ".dat", gbase + ".dat")
+            shutil.copy(golden + ".idx", gbase + ".idx")
+            reset_counts()
+            encoder.write_ec_files(gbase, rs=grs, **GOLDEN_BLOCKS)
+            encoder.write_sorted_file_from_idx(gbase)
+            for i in range(C.TOTAL_SHARDS):
+                check(same(C.to_ext(i)),
+                      f"golden shard {C.to_ext(i)} differs (floor {floor})")
+            check(same(".ecx"), "golden .ecx differs")
+            for sid in (0, 5, 11, 13):
+                os.remove(gbase + C.to_ext(sid))
+            check(rebuild.rebuild_ec_files(gbase, rs=grs) == [0, 5, 11, 13],
+                  "golden rebuild ids")
+            for i in range(C.TOTAL_SHARDS):
+                check(same(C.to_ext(i)), f"golden rebuilt {C.to_ext(i)} "
+                                         f"differs (floor {floor})")
+            want = routes(golden_widths, floor)
+            got = (gf_swar.LAUNCHES.value, codec_mod.HOST_DISPATCHES.value)
+            check(got == want, f"golden encode + rebuild at floor {floor}: "
+                               f"{got} (kernel, host) dispatches, the "
+                               f"routing gives {want}")
+            say(f"golden fixture at floor {floor} bytes: 14 shards, .ecx "
+                "and rebuild of {0,5,11,13} byte-identical; "
+                f"{got[0]} gf_swar launches, {got[1]} native host "
+                "dispatches")
 
         # -- 5. the main path at full size ----------------------------------
         base = os.path.join(work, "1")
@@ -1254,6 +1750,11 @@ def run(args, torch, here: str) -> int:
         say(f"volume: {size} bytes from seed {args.seed} in "
             f"{time.perf_counter() - t0:.2f} s")
         n_rows = len(layout.encode_row_plan(size))
+        # (kernel, host) dispatches the codec's routing gives the encode
+        # and each rebuild
+        enc_want = routes(encode_widths(size), rs.device_min_bytes)
+        rebuild_want = routes(rebuild_widths(layout.shard_file_size(size)),
+                              rs.device_min_bytes)
 
         staged0 = rs.staged_bytes
         reset_counts()
@@ -1264,8 +1765,12 @@ def run(args, torch, here: str) -> int:
         enc_s = time.perf_counter() - t0
         enc_launches = gf_swar.LAUNCHES.value
         enc_rs10x4 = gf_swar.RS10X4_LAUNCHES.value
+        enc_host = codec_mod.HOST_DISPATCHES.value
         enc_staged = rs.staged_bytes - staged0
         summary = pt.summary()
+        check((enc_launches, enc_host) == enc_want,
+              f"encode made {(enc_launches, enc_host)} (kernel, host) "
+              f"dispatches; the routing gives {enc_want}")
 
         hashes = {
             i: sha256_file(base + C.to_ext(i)) for i in range(C.TOTAL_SHARDS)
@@ -1275,6 +1780,7 @@ def run(args, torch, here: str) -> int:
             for sid in lost:
                 os.remove(base + C.to_ext(sid))
             before = gf_swar.LAUNCHES.value
+            before_host = codec_mod.HOST_DISPATCHES.value
             before_rs = gf_swar.RS10X4_LAUNCHES.value
             staged0 = rs.staged_bytes
             t0 = time.perf_counter()
@@ -1282,6 +1788,11 @@ def run(args, torch, here: str) -> int:
             rebuilds.append((lost, time.perf_counter() - t0,
                              gf_swar.LAUNCHES.value - before,
                              rs.staged_bytes - staged0))
+            got_routes = (rebuilds[-1][2],
+                          codec_mod.HOST_DISPATCHES.value - before_host)
+            check(got_routes == rebuild_want,
+                  f"rebuild {lost} made {got_routes} (kernel, host) "
+                  f"dispatches; the routing gives {rebuild_want}")
             check(gf_swar.RS10X4_LAUNCHES.value == before_rs,
                   f"rebuild {lost} launched the compile-time parity form; "
                   "its matrices take the run-time form")
@@ -1560,14 +2071,13 @@ def run(args, torch, here: str) -> int:
             make_volume(b, size, args.seed + 1 + i)
         say(f"batch volumes: {len(sizes)} of {sizes} bytes from seed "
             f"{args.seed + 1}.. in {time.perf_counter() - t0:.2f} s")
-        # one parity launch per lane-packed chunk of each size group
-        want_launches = 0
-        for size in set(sizes):
-            nvol = sizes.count(size)
-            batch, _ = encoder.choose_pipeline(size, C.DATA_SHARDS, None,
-                                               volumes=nvol)
-            want_launches += sum(-(-bs // batch)
-                                 for _, bs in layout.encode_row_plan(size))
+        # one parity dispatch per lane-packed chunk of each size group, a
+        # kernel launch where the chunk is at least the codec's floor
+        floor = RSCodec(C.DATA_SHARDS, C.PARITY_SHARDS,
+                        device=dev).device_min_bytes
+        want_launches, want_host = map(sum, zip(*(
+            routes(encode_widths(size, volumes=sizes.count(size)), floor)
+            for size in set(sizes))))
         per_volume = sum(
             sum(-(-bs // encoder.choose_pipeline(size)[0])
                 for _, bs in layout.encode_row_plan(size))
@@ -1583,9 +2093,11 @@ def run(args, torch, here: str) -> int:
                                          for name, c in counters.items()}
         check_path("batch_encode")
         launches = path_launches["batch_encode"]["gf_swar"]
-        check(launches == want_launches,
-              f"batch encode launched {launches} parity kernels for "
-              f"{want_launches} lane-packed chunks")
+        host = path_launches["batch_encode"]["codec_host"]
+        check((launches, host) == (want_launches, want_host),
+              f"batch encode made {launches} kernel launches and {host} "
+              f"host dispatches; its lane-packed chunks route to "
+              f"{want_launches} and {want_host}")
         check(path_launches["batch_encode"]["gf_swar_rs10x4"] == launches,
               f"batch encode launched "
               f"{path_launches['batch_encode']['gf_swar_rs10x4']} of "
@@ -1644,6 +2156,12 @@ def run(args, torch, here: str) -> int:
         say(json.dumps({"batch_encode": batch_row}))
     finally:
         shutil.rmtree(batch_dir, ignore_errors=True)
+
+    # -- 10. the EC read path and ec.decode ---------------------------------
+    read_row, path_launches["read_decode"] = phase_read_decode(
+        args, torch, dev, agree, reset_counts, counters)
+    check_path("read_decode")
+    say(json.dumps({"read_decode": read_row, "card": smi}))
 
     kernels = []
     for name, (_, source, replaces, *also) in KERNELS.items():

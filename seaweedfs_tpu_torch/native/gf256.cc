@@ -1,0 +1,210 @@
+// GF(2^8)/0x11d Reed-Solomon codec core — native host implementation.
+//
+// The port's copy of native/gf256.cc, byte for byte below this header.
+// It plays the role of the reference's klauspost/reedsolomon AVX2
+// assembly (SURVEY §2.9): the CPU baseline the CUDA kernels are measured
+// against, and the host route of the port's codec for dispatches under
+// its size floor (needle-sized EC reads), where a round trip to the card
+// costs more than the work.
+//
+// The hot loop is the classic pshufb nibble-table formulation: multiply
+// by constant c via two 16-entry lookup tables (low/high nibble),
+// 32 lanes per AVX2 shuffle, XOR-accumulated across input shards.
+// Scalar fallback uses the full 64K mul table. CRC32C uses the SSE4.2
+// hardware instruction when present.
+
+#include <cstdint>
+#include <cstring>
+
+#if defined(__x86_64__) || defined(_M_X64)
+#include <immintrin.h>
+#define SWTPU_X86 1
+#endif
+
+namespace {
+
+uint8_t MUL[256][256];      // full multiplication table
+uint8_t LOW[256][16];       // LOW[c][b]  = c * b        (b in 0..15)
+uint8_t HIGH[256][16];      // HIGH[c][b] = c * (b << 4)
+bool initialized = false;
+
+void init_tables() {
+    if (initialized) return;
+    // exp/log over 0x11d with generator 2
+    uint8_t exp_t[512];
+    int log_t[256];
+    int x = 1;
+    for (int i = 0; i < 255; i++) {
+        exp_t[i] = (uint8_t)x;
+        log_t[x] = i;
+        x <<= 1;
+        if (x & 0x100) x ^= 0x11d;
+    }
+    for (int i = 255; i < 512; i++) exp_t[i] = exp_t[i - 255];
+    log_t[0] = -1;
+    for (int a = 0; a < 256; a++) {
+        for (int b = 0; b < 256; b++) {
+            MUL[a][b] = (a && b)
+                ? exp_t[log_t[a] + log_t[b]]
+                : 0;
+        }
+    }
+    for (int c = 0; c < 256; c++) {
+        for (int b = 0; b < 16; b++) {
+            LOW[c][b] = MUL[c][b];
+            HIGH[c][b] = MUL[c][b << 4];
+        }
+    }
+    initialized = true;
+}
+
+#ifdef SWTPU_X86
+__attribute__((target("avx2")))
+void mul_add_row_avx2(uint8_t c, const uint8_t* src, uint8_t* dst,
+                      int64_t n) {
+    const __m256i lo_tbl = _mm256_broadcastsi128_si256(
+        _mm_loadu_si128((const __m128i*)LOW[c]));
+    const __m256i hi_tbl = _mm256_broadcastsi128_si256(
+        _mm_loadu_si128((const __m128i*)HIGH[c]));
+    const __m256i mask = _mm256_set1_epi8(0x0f);
+    int64_t i = 0;
+    for (; i + 32 <= n; i += 32) {
+        __m256i v = _mm256_loadu_si256((const __m256i*)(src + i));
+        __m256i lo = _mm256_and_si256(v, mask);
+        __m256i hi = _mm256_and_si256(_mm256_srli_epi64(v, 4), mask);
+        __m256i prod = _mm256_xor_si256(
+            _mm256_shuffle_epi8(lo_tbl, lo),
+            _mm256_shuffle_epi8(hi_tbl, hi));
+        __m256i acc = _mm256_loadu_si256((const __m256i*)(dst + i));
+        _mm256_storeu_si256((__m256i*)(dst + i),
+                            _mm256_xor_si256(acc, prod));
+    }
+    const uint8_t* mul_c = MUL[c];
+    for (; i < n; i++) dst[i] ^= mul_c[src[i]];
+}
+#endif
+
+void mul_add_row_scalar(uint8_t c, const uint8_t* src, uint8_t* dst,
+                        int64_t n) {
+    const uint8_t* mul_c = MUL[c];
+    for (int64_t i = 0; i < n; i++) dst[i] ^= mul_c[src[i]];
+}
+
+void xor_row(const uint8_t* src, uint8_t* dst, int64_t n) {
+    int64_t i = 0;
+    for (; i + 8 <= n; i += 8) {
+        uint64_t a, b;
+        memcpy(&a, dst + i, 8);
+        memcpy(&b, src + i, 8);
+        a ^= b;
+        memcpy(dst + i, &a, 8);
+    }
+    for (; i < n; i++) dst[i] ^= src[i];
+}
+
+bool has_avx2() {
+#ifdef SWTPU_X86
+    return __builtin_cpu_supports("avx2");
+#else
+    return false;
+#endif
+}
+
+}  // namespace
+
+extern "C" {
+
+// out[o, n] = coeff[o, k] ∘GF data[k, n]; all row-major, out zeroed here.
+// Column-blocked so each (src block, dst block) stays cache-resident
+// while all o×k coefficient passes run over it — without this the
+// accumulation is DRAM-bound (o·k full-row passes), the same reason
+// klauspost's codec processes in small per-goroutine blocks.
+void gf_matmul(const uint8_t* coeff, int o, int k,
+               const uint8_t* data, const uint8_t* out_, int64_t n) {
+    init_tables();
+    uint8_t* out = (uint8_t*)out_;
+    memset(out, 0, (size_t)o * n);
+    const bool avx2 = has_avx2();
+    const int64_t kBlock = 64 * 1024;
+    for (int64_t b = 0; b < n; b += kBlock) {
+        const int64_t bn = (b + kBlock <= n) ? kBlock : (n - b);
+        for (int i = 0; i < o; i++) {
+            uint8_t* dst = out + (int64_t)i * n + b;
+            for (int d = 0; d < k; d++) {
+                uint8_t c = coeff[i * k + d];
+                const uint8_t* src = data + (int64_t)d * n + b;
+                if (c == 0) continue;
+                if (c == 1) { xor_row(src, dst, bn); continue; }
+#ifdef SWTPU_X86
+                if (avx2) { mul_add_row_avx2(c, src, dst, bn); continue; }
+#endif
+                mul_add_row_scalar(c, src, dst, bn);
+            }
+        }
+    }
+}
+
+// CRC32-Castagnoli, hardware-accelerated when SSE4.2 is present.
+#ifdef SWTPU_X86
+__attribute__((target("sse4.2")))
+static uint32_t crc32c_hw(uint32_t crc, const uint8_t* buf, int64_t n) {
+    uint64_t c = ~crc;
+    int64_t i = 0;
+    for (; i + 8 <= n; i += 8) {
+        uint64_t v;
+        memcpy(&v, buf + i, 8);
+        c = _mm_crc32_u64(c, v);
+    }
+    for (; i < n; i++) c = _mm_crc32_u8((uint32_t)c, buf[i]);
+    return ~(uint32_t)c;
+}
+#endif
+
+static uint32_t crc32c_table[8][256];
+static bool crc_init_done = false;
+
+static void crc_init() {
+    if (crc_init_done) return;
+    for (uint32_t i = 0; i < 256; i++) {
+        uint32_t c = i;
+        for (int j = 0; j < 8; j++)
+            c = (c >> 1) ^ (0x82f63b78u & (~(c & 1) + 1));
+        crc32c_table[0][i] = c;
+    }
+    for (uint32_t i = 0; i < 256; i++) {
+        uint32_t c = crc32c_table[0][i];
+        for (int s = 1; s < 8; s++) {
+            c = (c >> 8) ^ crc32c_table[0][c & 0xff];
+            crc32c_table[s][i] = c;
+        }
+    }
+    crc_init_done = true;
+}
+
+uint32_t crc32c(uint32_t crc, const uint8_t* buf, int64_t n) {
+#ifdef SWTPU_X86
+    if (__builtin_cpu_supports("sse4.2")) return crc32c_hw(crc, buf, n);
+#endif
+    crc_init();
+    uint32_t c = ~crc;
+    int64_t i = 0;
+    for (; i + 8 <= n; i += 8) {
+        c ^= (uint32_t)buf[i] | ((uint32_t)buf[i+1] << 8) |
+             ((uint32_t)buf[i+2] << 16) | ((uint32_t)buf[i+3] << 24);
+        uint32_t hi = (uint32_t)buf[i+4] | ((uint32_t)buf[i+5] << 8) |
+             ((uint32_t)buf[i+6] << 16) | ((uint32_t)buf[i+7] << 24);
+        c = crc32c_table[7][c & 0xff] ^ crc32c_table[6][(c >> 8) & 0xff] ^
+            crc32c_table[5][(c >> 16) & 0xff] ^
+            crc32c_table[4][c >> 24] ^
+            crc32c_table[3][hi & 0xff] ^
+            crc32c_table[2][(hi >> 8) & 0xff] ^
+            crc32c_table[1][(hi >> 16) & 0xff] ^
+            crc32c_table[0][hi >> 24];
+        i += 0;
+    }
+    for (; i < n; i++)
+        c = (c >> 8) ^ crc32c_table[0][(c ^ buf[i]) & 0xff];
+    return ~c;
+}
+
+}  // extern "C"

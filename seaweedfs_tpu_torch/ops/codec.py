@@ -5,32 +5,83 @@ Counterpart of ``seaweedfs_tpu/ops/codec.py`` with the same methods and
 the same ``PendingResult`` contract. The backend follows the codec's
 device, which the caller chooses:
 
-* ``cuda`` — every dispatch runs the Hopper kernel
-  (``ops/kernels/gf_swar.py``). Host slabs go H2D from pinned memory on
-  the codec's own stream, the result comes back D2H into pinned memory,
-  and ``PendingResult.result()`` waits on an event recorded after that
-  copy — so ``encode_async`` may run on one thread and ``result()`` on
-  another, as the encoder pipeline does.
-* ``cpu`` — the kernel's plain PyTorch version, for tests on a machine
-  without a card. Only an explicit ``device="cpu"`` selects it.
+* ``cuda`` — a dispatch whose shards are at least the codec's floor
+  (``device_min_bytes``, default :data:`DEVICE_MIN_BYTES`) runs the
+  Hopper kernel (``ops/kernels/gf_swar.py``). Host slabs go H2D from
+  pinned memory on the codec's own stream, the result comes back D2H
+  into pinned memory, and ``PendingResult.result()`` waits on an event
+  recorded after that copy — so ``encode_async`` may run on one thread
+  and ``result()`` on another, as the encoder pipeline does. A narrower
+  dispatch (a needle-sized EC read) stays on the host, where the round
+  trip to the card would cost more than the work: the native codec
+  (``native/gf256.cc``), on the calling thread for ``encode`` and
+  ``reconstruct`` and on a small host pool for ``encode_async``. This is
+  the size branch of the
+  reference's ``_choose_backend`` (``seaweedfs_tpu/ops/codec.py:58-78``);
+  :func:`choose_route` makes the choice.
+* ``cpu`` — the kernel's plain PyTorch version at every size, for tests
+  on a machine without a card. Only an explicit ``device="cpu"`` selects
+  it.
 
-The reference's 64 KiB host floor and its link-aware routing
-(``seaweedfs_tpu/ops/codec.py:28-78``) come with the port of
-``ops/link.py``; until then a ``cuda`` codec sends needle-sized
-dispatches to the kernel as well.
+The reference's link-aware routing of dispatches above the floor
+(``ops/link.py``'s EWMA) is not ported yet: above the floor a ``cuda``
+codec always takes the kernel.
 """
 
 from __future__ import annotations
 
 import functools
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import native, resolve_device
 from . import gf256
 from .kernels import gf_swar
+from .kernels.build import LaunchCounter
+
+# Below this many bytes a shard, a ``cuda`` codec's dispatch stays on the
+# host: the crossover where the kernel's round trip (H2D, launch, D2H)
+# overtakes the native codec for a one-output reconstruction from ten
+# survivors, a power of two. chip_smoke.py phase 10 measures it and
+# prints it beside this value: on an NVIDIA H100 80GB HBM3 at 700 W the
+# native codec was faster up to 64 KiB a shard, the two about even at
+# 128 KiB, and the kernel faster from 256 KiB on (PERF.md §5). The
+# reference keeps 64 KiB, the TPU's.
+DEVICE_MIN_BYTES = 256 * 1024
+
+# Dispatches that took the native host route, beside gf_swar.LAUNCHES.
+HOST_DISPATCHES = LaunchCounter()
+
+# Host dispatches compute synchronously; encode_async runs them here so
+# the encoder pipeline overlaps them with disk I/O the way it overlaps a
+# kernel's. Threads start at the first host dispatch.
+_host_pool = ThreadPoolExecutor(max_workers=2)
+
+
+def choose_route(backend: str, shard_bytes: int,
+                 device_min_bytes: int) -> str:
+    """Where one dispatch of ``shard_bytes`` a shard runs on a codec of
+    ``backend``: ``"cpu"`` (the plain version, at every size), ``"native"``
+    (the host codec, under the floor) or ``"cuda"`` (the kernel)."""
+    if backend == "cpu":
+        return "cpu"
+    if shard_bytes < device_min_bytes:
+        return "native"
+    return "cuda"
+
+
+def _native_matmul(coeff: np.ndarray, data: np.ndarray) -> np.ndarray:
+    """coeff[o, k] ∘GF data[..., k, n] on the native host codec."""
+    if data.ndim == 2:
+        return native.gf_matmul(coeff, data)
+    *lead, k, n = data.shape
+    slabs = data.reshape(-1, k, n)
+    return np.stack(
+        [native.gf_matmul(coeff, d) for d in slabs]
+    ).reshape(*lead, coeff.shape[0], n)
 
 
 class PendingResult:
@@ -109,11 +160,15 @@ class RSCodec:
     Shards are byte arrays of equal length N. Shard ids 0..k-1 are data,
     k..k+m-1 parity — the ``.ec00–.ec13`` numbering. ``device`` is
     ``None`` (the card; raises without one), ``"cuda[:i]"`` or
-    ``"cpu"``. Limits: m <= 16 parity and k <= 64 data shards (the
-    kernel's)."""
+    ``"cpu"``. ``device_min_bytes`` is the floor under which a ``cuda``
+    codec's dispatch takes the native host route (0: every dispatch
+    takes the kernel); it is the counterpart of the reference's
+    ``SEAWEEDFS_TPU_CODEC`` override, for pinning a route. Limits: m <=
+    16 parity and k <= 64 data shards (the kernel's)."""
 
     def __init__(self, data_shards: int = 10, parity_shards: int = 4,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 device_min_bytes: int = DEVICE_MIN_BYTES):
         if data_shards <= 0 or parity_shards <= 0:
             raise ValueError("shard counts must be positive")
         if data_shards + parity_shards > 256:
@@ -123,6 +178,9 @@ class RSCodec:
         self.data_shards = data_shards
         self.parity_shards = parity_shards
         self.total_shards = data_shards + parity_shards
+        if device_min_bytes < 0:
+            raise ValueError("device_min_bytes must be >= 0")
+        self.device_min_bytes = device_min_bytes
         self._parity = gf_swar.coeff_from_reference(
             gf256.parity_matrix(data_shards, parity_shards)
         )
@@ -206,19 +264,31 @@ class RSCodec:
             _materialise, done, host_out, host_in, lead, n
         ))
 
-    def _dispatch_async(self, coeff: gf_swar.SwarCoeff,
-                        data: np.ndarray) -> PendingResult:
+    def _dispatch_async(self, coeff: gf_swar.SwarCoeff, data: np.ndarray,
+                        inline: bool = False) -> PendingResult:
+        """Start ``coeff ∘GF data`` on the route :func:`choose_route`
+        gives. The native route runs on the host pool, or on the
+        calling thread when ``inline`` (a caller about to wait for the
+        result, as the reference's synchronous ``_dispatch`` does)."""
         if data.dtype != np.uint8 or data.ndim < 2:
             raise ValueError(
                 f"data must be uint8 [..., k, N], got {data.dtype} "
                 f"{data.shape}"
             )
-        if self.backend == "cpu":
+        *lead, _, n = data.shape
+        route = choose_route(self.backend, n, self.device_min_bytes)
+        if route == "cpu":
             out = gf_swar.gf_matmul_plain(
                 coeff, torch.from_numpy(np.ascontiguousarray(data))
             ).numpy()
             return PendingResult("cpu", lambda: out)
-        *lead, _, n = data.shape
+        if route == "native":
+            HOST_DISPATCHES.add()
+            if inline:
+                out = _native_matmul(coeff.matrix, data)
+                return PendingResult("native", lambda: out)
+            job = _host_pool.submit(_native_matmul, coeff.matrix, data)
+            return PendingResult("native", job.result)
         batch = int(np.prod(lead)) if lead else 1
         host_in = self._stage(data, batch, _ceil_quantum(n))
         return self._launch(coeff, host_in, tuple(lead), n)
@@ -236,7 +306,9 @@ class RSCodec:
 
     def encode(self, data: np.ndarray) -> np.ndarray:
         """data[..., k, N] uint8 → parity[..., m, N] uint8."""
-        return self.encode_async(data).result()
+        return self._dispatch_async(
+            self._parity, self._check_data(data), inline=True
+        ).result()
 
     def encode_async(self, data: np.ndarray) -> PendingResult:
         """Launch the parity computation without waiting; ``.result()``
@@ -286,7 +358,9 @@ class RSCodec:
         n = rows[0].shape[-1]
         if any(r.shape != (n,) for r in rows):
             raise ValueError("present shards must be equal-length 1-D rows")
-        rebuilt = self._dispatch_async(coeff, _stacked(rows)).result()
+        rebuilt = self._dispatch_async(
+            coeff, _stacked(rows), inline=True
+        ).result()
         return {sid: rebuilt[i] for i, sid in enumerate(missing)}
 
     def reconstruct_data(

@@ -3,7 +3,8 @@
 Layout, encoder and rebuild mirror ``seaweedfs_tpu.storage.
 erasure_coding`` on disk byte for byte; the GF math runs through
 ``ops.codec.RSCodec``; ``write_ec_files_batch`` encodes many volumes at
-once on one card. The decoder (``ec.decode``) comes in a later slice.
+once on one card; the decoder turns the data shards back into a
+``.dat`` and the ``.ecx``/``.ecj`` into an ``.idx`` (``ec.decode``).
 """
 
 from .constants import (  # noqa: F401
@@ -27,3 +28,10 @@ from .encoder import (  # noqa: F401
     write_sorted_file_from_idx,
 )
 from .rebuild import rebuild_ec_files  # noqa: F401
+from .decoder import (  # noqa: F401
+    find_dat_file_size,
+    iterate_ecj_file,
+    read_ec_volume_version,
+    write_dat_file,
+    write_idx_file_from_ec_index,
+)

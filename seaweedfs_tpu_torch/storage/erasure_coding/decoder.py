@@ -1,0 +1,125 @@
+"""Shards → volume: .ec00-.ec09 re-interleaved into .dat, .ecx/.ecj → .idx.
+
+The port's copy of ``seaweedfs_tpu/storage/erasure_coding/decoder.py``
+(SeaweedFS weed/storage/erasure_coding/ec_decoder.go:17-70,153-195): the
+``ec.decode`` flow once ``rebuild_ec_files`` has made the data shards
+whole. Host-only; touches no device.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+
+import numpy as np
+
+from .. import idx as idx_mod, needle as needle_mod, super_block, types as t
+from . import constants as C
+
+
+def write_dat_file(
+    base_file_name: str | os.PathLike,
+    dat_size: int,
+    large_block_size: int = C.LARGE_BLOCK_SIZE,
+    small_block_size: int = C.SMALL_BLOCK_SIZE,
+    k: int = C.DATA_SHARDS,
+    io_chunk: int = 64 * 1024 * 1024,
+) -> str:
+    """Reassemble `<base>.dat` from the data shards (ec_decoder.go:153-195)."""
+    base = os.fspath(base_file_name)
+    ins = [open(base + C.to_ext(i), "rb") for i in range(k)]
+    try:
+        with open(base + ".dat", "wb") as dat:
+            remaining = dat_size
+
+            def copy_from(shard, n):
+                left = n
+                while left > 0:
+                    buf = shard.read(min(io_chunk, left))
+                    if not buf:
+                        raise IOError(
+                            f"short shard read reassembling {base}.dat"
+                        )
+                    dat.write(buf)
+                    left -= len(buf)
+
+            while remaining >= k * large_block_size:
+                for i in range(k):
+                    copy_from(ins[i], large_block_size)
+                    remaining -= large_block_size
+            while remaining > 0:
+                for i in range(k):
+                    n = min(remaining, small_block_size)
+                    if n <= 0:
+                        break
+                    copy_from(ins[i], n)
+                    remaining -= n
+    finally:
+        for f in ins:
+            f.close()
+    return base + ".dat"
+
+
+def iterate_ecj_file(base_file_name: str | os.PathLike):
+    """Yield tombstoned needle ids from `<base>.ecj` (u64 BE each)."""
+    base = os.fspath(base_file_name)
+    path = base + ".ecj"
+    if not os.path.exists(path):
+        return
+    with open(path, "rb") as f:
+        while True:
+            buf = f.read(t.NEEDLE_ID_SIZE)
+            if len(buf) < t.NEEDLE_ID_SIZE:
+                return
+            yield struct.unpack(">Q", buf)[0]
+
+
+def write_idx_file_from_ec_index(base_file_name: str | os.PathLike) -> str:
+    """`.ecx` + `.ecj` tombstones → `.idx` (ec_decoder.go:17-43)."""
+    base = os.fspath(base_file_name)
+    with open(base + ".ecx", "rb") as f:
+        ecx = f.read()
+    with open(base + ".idx", "wb") as f:
+        f.write(ecx)
+        for key in iterate_ecj_file(base):
+            f.write(
+                struct.pack(
+                    ">QIi", key, 0, t.TOMBSTONE_FILE_SIZE
+                )
+            )
+    return base + ".idx"
+
+
+def read_ec_volume_version(base_file_name: str | os.PathLike) -> int:
+    """Volume version from the superblock at the head of .ec00."""
+    base = os.fspath(base_file_name)
+    with open(base + C.to_ext(0), "rb") as f:
+        sb = super_block.SuperBlock.from_bytes(
+            f.read(super_block.SUPER_BLOCK_SIZE)
+        )
+    return sb.version
+
+
+def find_dat_file_size(
+    data_base_file_name: str | os.PathLike,
+    index_base_file_name: str | os.PathLike | None = None,
+) -> int:
+    """Max (offset + actual size) over live `.ecx` entries
+    (ec_decoder.go:45-70)."""
+    data_base = os.fspath(data_base_file_name)
+    index_base = os.fspath(index_base_file_name or data_base)
+    version = read_ec_volume_version(data_base)
+    with open(index_base + ".ecx", "rb") as f:
+        entries = idx_mod.parse_entries(f.read())
+    live = entries[~np.isin(entries["size"], [t.TOMBSTONE_FILE_SIZE])]
+    live = live[live["size"] >= 0]
+    if len(live) == 0:
+        return 0
+    stops = live["offset"] + np.array(
+        [
+            needle_mod.get_actual_size(int(s), version)
+            for s in live["size"]
+        ],
+        dtype=np.int64,
+    )
+    return int(stops.max())

@@ -1,0 +1,305 @@
+"""Needle: one stored blob record in a volume's append-only .dat file.
+
+The port's copy of ``seaweedfs_tpu/storage/needle.py``. Wire format
+(byte-compatible with SeaweedFS,
+weed/storage/needle/needle_read_write.go:33-128):
+
+  header:  cookie u32 | id u64 | size i32        (16 bytes, big-endian)
+  v1 body: data[size] | crc u32 | padding
+  v2 body: dataSize u32 | data | flags u8
+           [nameSize u8 | name] [mimeSize u8 | mime]
+           [lastModified: low 5 bytes of u64] [ttl 2B] [pairsSize u16 | pairs]
+           | crc u32 | padding
+  v3 body: v2 body fields | crc u32 | appendAtNs u64 | padding
+
+`size` counts the v2/v3 body fields before the checksum. Padding aligns the
+whole record to 8 bytes and — reference quirk — is always in 1..8, never 0
+(needle_read_write.go:306-312: `8 - (x % 8)` with no zero case).
+
+Padding bytes are NOT zeros: the Go writer appends slices of its reused
+24-byte header scratch buffer, so padding leaks deterministic header bytes
+(verified against the Go-written fixture volume 1.dat):
+  v3: header[12:12+pad] — the big-endian `size` field
+  v1: header[4:4+pad]   — the big-endian needle id
+  v2: header[4:4+pad]   — needle id, except bytes 4..8 are the low half of
+      the lastModified u64 when that field was written (header[0:8] clobber)
+We reproduce this exactly so .dat files are byte-identical to the
+reference's, which makes the EC shard files byte-identical too.
+
+Checksum is CRC32-Castagnoli with the masked-value transform
+`rotl(c,17) + 0xa282ead8` (needle/crc.go:23-25). The CRC itself is the
+port's native host codec's (``native.crc32c``, SSE4.2); the per-byte
+table ``_crc32c_soft`` stays as its plain version, for the tests.
+"""
+
+from __future__ import annotations
+
+import struct
+from dataclasses import dataclass, field
+
+from .. import native
+from . import types as t
+
+FLAG_IS_COMPRESSED = 0x01
+FLAG_HAS_NAME = 0x02
+FLAG_HAS_MIME = 0x04
+FLAG_HAS_LAST_MODIFIED = 0x08
+FLAG_HAS_TTL = 0x10
+FLAG_HAS_PAIRS = 0x20
+FLAG_IS_CHUNK_MANIFEST = 0x80
+
+LAST_MODIFIED_BYTES = 5
+TTL_BYTES = 2
+
+_HDR = struct.Struct(">IQi")  # cookie, id, size
+
+
+def _make_crc32c_table() -> tuple:
+    poly = 0x82F63B78  # Castagnoli, reflected
+    table = []
+    for i in range(256):
+        crc = i
+        for _ in range(8):
+            crc = (crc >> 1) ^ poly if crc & 1 else crc >> 1
+        table.append(crc)
+    return tuple(table)
+
+
+_CRC32C_TABLE = _make_crc32c_table()
+
+
+def _crc32c_soft(data: bytes, value: int = 0) -> int:
+    """Pure-Python Castagnoli fallback (table-driven, reflected).
+
+    Matches google_crc32c.extend semantics: the plain version that
+    ``crc32c`` is held against.
+    """
+    crc = value ^ 0xFFFFFFFF
+    tbl = _CRC32C_TABLE
+    for b in data:
+        crc = tbl[(crc ^ b) & 0xFF] ^ (crc >> 8)
+    return crc ^ 0xFFFFFFFF
+
+
+def crc32c(data: bytes, value: int = 0) -> int:
+    """CRC32-Castagnoli of ``data`` continued from ``value``, on the
+    native host codec; raises when it cannot be built."""
+    return native.crc32c(data, value)
+
+
+def masked_crc(raw: int) -> int:
+    """The reference's CRC.Value(): rotl17 + magic (needle/crc.go:23)."""
+    c = raw & 0xFFFFFFFF
+    return (((c >> 15) | (c << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def padding_length(size: int, version: int) -> int:
+    if version == t.VERSION3:
+        used = (
+            t.NEEDLE_HEADER_SIZE
+            + size
+            + t.NEEDLE_CHECKSUM_SIZE
+            + t.TIMESTAMP_SIZE
+        )
+    else:
+        used = t.NEEDLE_HEADER_SIZE + size + t.NEEDLE_CHECKSUM_SIZE
+    return t.NEEDLE_PADDING_SIZE - (used % t.NEEDLE_PADDING_SIZE)
+
+
+def needle_body_length(size: int, version: int) -> int:
+    extra = t.TIMESTAMP_SIZE if version == t.VERSION3 else 0
+    return size + t.NEEDLE_CHECKSUM_SIZE + extra + padding_length(size, version)
+
+
+def get_actual_size(size: int, version: int) -> int:
+    return t.NEEDLE_HEADER_SIZE + needle_body_length(size, version)
+
+
+@dataclass
+class Needle:
+    cookie: int = 0
+    id: int = 0
+    data: bytes = b""
+    name: bytes = b""
+    mime: bytes = b""
+    pairs: bytes = b""  # serialized json of extended attributes
+    flags: int = 0
+    last_modified: int = 0  # unix seconds (low 5 bytes stored)
+    ttl: t.TTL = field(default_factory=t.TTL)
+    checksum: int = 0  # raw crc32c of data
+    append_at_ns: int = 0  # v3 only
+    # populated on read:
+    size: int = 0  # the stored `size` field
+
+    # -- flags -----------------------------------------------------------
+
+    def has(self, flag: int) -> bool:
+        return bool(self.flags & flag)
+
+    def set_name(self, name: bytes) -> None:
+        self.name = name[:255]
+        self.flags |= FLAG_HAS_NAME
+
+    def set_mime(self, mime: bytes) -> None:
+        self.mime = mime[:255]
+        self.flags |= FLAG_HAS_MIME
+
+    def set_last_modified(self, ts: int) -> None:
+        self.last_modified = ts
+        self.flags |= FLAG_HAS_LAST_MODIFIED
+
+    def set_ttl(self, ttl: t.TTL) -> None:
+        self.ttl = ttl
+        if ttl.count:
+            self.flags |= FLAG_HAS_TTL
+
+    def set_pairs(self, pairs: bytes) -> None:
+        self.pairs = pairs
+        self.flags |= FLAG_HAS_PAIRS
+
+    @property
+    def etag(self) -> str:
+        return struct.pack(">I", self.checksum & 0xFFFFFFFF).hex()
+
+    # -- serialization ---------------------------------------------------
+
+    def _body_size_v2(self) -> int:
+        if len(self.data) == 0:
+            return 0
+        size = 4 + len(self.data) + 1
+        if self.has(FLAG_HAS_NAME):
+            size += 1 + min(len(self.name), 255)
+        if self.has(FLAG_HAS_MIME):
+            size += 1 + len(self.mime)
+        if self.has(FLAG_HAS_LAST_MODIFIED):
+            size += LAST_MODIFIED_BYTES
+        if self.has(FLAG_HAS_TTL):
+            size += TTL_BYTES
+        if self.has(FLAG_HAS_PAIRS):
+            size += 2 + len(self.pairs)
+        return size
+
+    def _padding_bytes(self, version: int) -> bytes:
+        pad = padding_length(self.size, version)
+        if version == t.VERSION3:
+            scratch = struct.pack(">i", self.size) + bytes(8)
+        else:  # v1/v2: header[4:12] = needle id, maybe clobbered
+            scratch = bytearray(struct.pack(">Q", self.id))
+            if version == t.VERSION2 and self.has(FLAG_HAS_LAST_MODIFIED):
+                scratch[0:4] = struct.pack(">Q", self.last_modified)[4:8]
+            scratch = bytes(scratch)
+        return scratch[:pad]
+
+    def to_bytes(self, version: int = t.CURRENT_VERSION) -> bytes:
+        """Full on-disk record, including checksum and padding."""
+        self.checksum = crc32c(self.data)
+        out = bytearray()
+        if version == t.VERSION1:
+            self.size = len(self.data)
+            out += _HDR.pack(self.cookie, self.id, self.size)
+            out += self.data
+            out += struct.pack(">I", masked_crc(self.checksum))
+            out += self._padding_bytes(version)
+            return bytes(out)
+        if version not in (t.VERSION2, t.VERSION3):
+            raise ValueError(f"unsupported needle version {version}")
+        self.size = self._body_size_v2()
+        out += _HDR.pack(self.cookie, self.id, self.size)
+        if len(self.data) > 0:
+            out += struct.pack(">I", len(self.data))
+            out += self.data
+            out += bytes([self.flags & 0xFF])
+            if self.has(FLAG_HAS_NAME):
+                name = self.name[:255]
+                out += bytes([len(name)]) + name
+            if self.has(FLAG_HAS_MIME):
+                out += bytes([len(self.mime)]) + self.mime
+            if self.has(FLAG_HAS_LAST_MODIFIED):
+                out += struct.pack(">Q", self.last_modified)[
+                    8 - LAST_MODIFIED_BYTES :
+                ]
+            if self.has(FLAG_HAS_TTL):
+                out += self.ttl.to_bytes()
+            if self.has(FLAG_HAS_PAIRS):
+                out += struct.pack(">H", len(self.pairs)) + self.pairs
+        out += struct.pack(">I", masked_crc(self.checksum))
+        if version == t.VERSION3:
+            out += struct.pack(">Q", self.append_at_ns)
+        out += self._padding_bytes(version)
+        return bytes(out)
+
+    # -- deserialization -------------------------------------------------
+
+    @classmethod
+    def parse_header(cls, b: bytes) -> "Needle":
+        cookie, nid, size = _HDR.unpack(b[: t.NEEDLE_HEADER_SIZE])
+        return cls(cookie=cookie, id=nid, size=size)
+
+    def parse_body(self, body: bytes, version: int) -> None:
+        """body = the needle_body_length(size, version) bytes after the
+        header. Verifies the stored checksum against the data bytes."""
+        size = self.size
+        if version == t.VERSION1:
+            self.data = body[:size]
+            stored = struct.unpack(">I", body[size : size + 4])[0]
+        elif version in (t.VERSION2, t.VERSION3):
+            if size > 0:
+                self._parse_body_v2(body[:size])
+            stored = struct.unpack(">I", body[size : size + 4])[0]
+            if version == t.VERSION3:
+                self.append_at_ns = struct.unpack(
+                    ">Q", body[size + 4 : size + 12]
+                )[0]
+        else:
+            raise ValueError(f"unsupported needle version {version}")
+        self.checksum = crc32c(self.data)
+        if stored != masked_crc(self.checksum):
+            raise ChecksumError(
+                f"needle {self.id:x}: stored crc {stored:#x} != "
+                f"computed {masked_crc(self.checksum):#x}"
+            )
+
+    def _parse_body_v2(self, b: bytes) -> None:
+        (data_size,) = struct.unpack(">I", b[:4])
+        idx = 4
+        self.data = b[idx : idx + data_size]
+        idx += data_size
+        self.flags = b[idx]
+        idx += 1
+        if self.has(FLAG_HAS_NAME):
+            n = b[idx]
+            self.name = b[idx + 1 : idx + 1 + n]
+            idx += 1 + n
+        if self.has(FLAG_HAS_MIME):
+            n = b[idx]
+            self.mime = b[idx + 1 : idx + 1 + n]
+            idx += 1 + n
+        if self.has(FLAG_HAS_LAST_MODIFIED):
+            raw = bytes(3) + b[idx : idx + LAST_MODIFIED_BYTES]
+            self.last_modified = struct.unpack(">Q", raw)[0]
+            idx += LAST_MODIFIED_BYTES
+        if self.has(FLAG_HAS_TTL):
+            self.ttl = t.TTL.from_bytes(b[idx : idx + TTL_BYTES])
+            idx += TTL_BYTES
+        if self.has(FLAG_HAS_PAIRS):
+            (n,) = struct.unpack(">H", b[idx : idx + 2])
+            self.pairs = b[idx + 2 : idx + 2 + n]
+            idx += 2 + n
+
+    @classmethod
+    def from_record(cls, record: bytes, version: int = t.CURRENT_VERSION):
+        """Parse a complete on-disk record (header + body)."""
+        n = cls.parse_header(record)
+        body_len = needle_body_length(n.size, version)
+        n.parse_body(
+            record[t.NEEDLE_HEADER_SIZE : t.NEEDLE_HEADER_SIZE + body_len],
+            version,
+        )
+        return n
+
+    def disk_size(self, version: int = t.CURRENT_VERSION) -> int:
+        return get_actual_size(self.size, version)
+
+
+class ChecksumError(Exception):
+    pass

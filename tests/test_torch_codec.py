@@ -15,6 +15,7 @@ torch.set_num_threads(2)
 from seaweedfs_tpu.ops.codec import RSCodec as RefCodec  # noqa: E402
 import seaweedfs_tpu_torch  # noqa: E402
 from seaweedfs_tpu_torch.ops import codec as codec_mod  # noqa: E402
+from seaweedfs_tpu_torch.ops import gf256  # noqa: E402
 from seaweedfs_tpu_torch.ops.codec import RSCodec  # noqa: E402
 from seaweedfs_tpu_torch.ops.kernels import gf_swar  # noqa: E402
 
@@ -149,7 +150,8 @@ def test_no_card_raises_instead_of_running_on_cpu():
 @pytest.mark.skipif("not torch.cuda.is_available()",
                     reason="needs a CUDA device")
 def test_cuda_codec_matches_reference():
-    port, ref = RSCodec(10, 4), RefCodec(10, 4)
+    # floor 0: every dispatch, needle-sized ones too, takes the kernel
+    port, ref = RSCodec(10, 4, device_min_bytes=0), RefCodec(10, 4)
     assert port.backend == "cuda"
     for n in (1, 1000, 1 << 20):
         data = RNG.integers(0, 256, (10, n), dtype=np.uint8)
@@ -163,3 +165,80 @@ def test_cuda_codec_matches_reference():
     got = port.reconstruct(present)
     for sid in (0, 5, 11, 13):
         np.testing.assert_array_equal(got[sid], shards[sid])
+
+
+WIDTHS = {  # name -> width, given the floor
+    "0": lambda floor: 0, "1": lambda floor: 1, "4095": lambda floor: 4095,
+    "64KiB": lambda floor: 1 << 16, "floor-1": lambda floor: floor - 1,
+    "floor": lambda floor: floor, "floor+1": lambda floor: floor + 1,
+    "4MiB": lambda floor: 1 << 22,
+}
+
+
+@pytest.mark.parametrize("name", list(WIDTHS))
+def test_routing_sends_narrow_dispatches_to_the_host(name):
+    floor = codec_mod.DEVICE_MIN_BYTES
+    width = WIDTHS[name](floor)
+    want = "native" if width < floor else "cuda"
+    assert codec_mod.choose_route("cuda", width, floor) == want
+    # a floor of 0 sends everything to the kernel
+    assert codec_mod.choose_route("cuda", width, 0) == "cuda"
+    # the cpu codec stays the plain version at every size
+    assert codec_mod.choose_route("cpu", width, floor) == "cpu"
+    assert codec_mod.choose_route("cpu", width, 0) == "cpu"
+
+
+def test_floor_keyword():
+    assert RSCodec(device="cpu").device_min_bytes == (
+        codec_mod.DEVICE_MIN_BYTES)
+    assert RSCodec(device="cpu", device_min_bytes=0).device_min_bytes == 0
+    with pytest.raises(ValueError):
+        RSCodec(device="cpu", device_min_bytes=-1)
+
+
+@pytest.fixture
+def host_route(monkeypatch):
+    """Every dispatch on the native host route, as a ``cuda`` codec's
+    under its floor."""
+    monkeypatch.setattr(codec_mod, "choose_route",
+                        lambda backend, n, floor: "native")
+
+
+def test_host_route_matches_reference(host_route):
+    port, ref = RSCodec(10, 4, device="cpu"), RefCodec(10, 4)
+    data = RNG.integers(0, 256, (10, 3001), dtype=np.uint8)
+    before = codec_mod.HOST_DISPATCHES.value
+    launches = gf_swar.LAUNCHES.value
+    want = np.asarray(ref.encode(data))
+    np.testing.assert_array_equal(port.encode(data), want)
+    pending = port.encode_async(data)
+    assert pending.backend == "native"
+    np.testing.assert_array_equal(pending.result(), want)
+    batch = RNG.integers(0, 256, (3, 10, 500), dtype=np.uint8)
+    np.testing.assert_array_equal(port.encode_async(batch).result(),
+                                  np.asarray(ref.encode(batch)))
+    deep = batch.reshape(3, 1, 10, 500)  # more leading dims
+    np.testing.assert_array_equal(port.encode_async(deep).result(),
+                                  np.asarray(ref.encode(batch))[:, None])
+    shards = np.concatenate([data, want])
+    present = {i: shards[i] for i in range(14) if i not in (0, 5, 11, 13)}
+    got = port.reconstruct(present)
+    for sid in (0, 5, 11, 13):
+        np.testing.assert_array_equal(got[sid], shards[sid])
+    one = port.reconstruct(present, wanted=[5])
+    np.testing.assert_array_equal(one[5], ref.reconstruct(
+        present, wanted=[5])[5])
+    assert codec_mod.HOST_DISPATCHES.value - before == 6
+    assert gf_swar.LAUNCHES.value == launches
+
+
+def test_host_route_overlaps_on_the_pool(host_route):
+    """encode_async returns before the host work is read, and each
+    handle's result is its own."""
+    port = RSCodec(10, 4, device="cpu")
+    slabs = [RNG.integers(0, 256, (10, 20_000), dtype=np.uint8)
+             for _ in range(6)]
+    handles = [port.encode_async(s) for s in slabs]
+    for s, h in zip(slabs, handles):
+        np.testing.assert_array_equal(
+            h.result(), gf256.gf_matmul_cpu(gf256.parity_matrix(10, 4), s))

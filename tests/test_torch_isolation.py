@@ -62,6 +62,13 @@ def test_port_files_exist():
         assert os.path.join("seaweedfs_tpu_torch", "tools",
                             sweep + ".py") in names
     assert os.path.join("seaweedfs_tpu_torch", "ops", "timing.py") in names
+    for module in (("native", "__init__.py"),
+                   ("storage", "needle.py"),
+                   ("storage", "super_block.py"),
+                   ("storage", "backend.py"),
+                   ("storage", "ec_volume.py"),
+                   ("storage", "erasure_coding", "decoder.py")):
+        assert os.path.join("seaweedfs_tpu_torch", *module) in names
     assert len(files) > 10
 
 
