@@ -101,10 +101,37 @@ Run from the root of the repository, on a machine with a CUDA card and
     tombstone a delete; decode GB/s. Last, outside the path's count, the
     crossover: one lost data shard rebuilt from ten for windows of 1 KiB
     to 4 MiB on the native codec and on the kernel (wall time, H2D and
-    D2H included, median of ``--reps``), printed with the codec's floor.
+    D2H included, median of ``--reps``), printed with the codec's floor;
+11. routing and observability, on the default link-aware codec: a fresh
+    link state's probe (H2D and D2H GB/s, round trip; none may be 0 or
+    past 100 GB/s), printed beside the card; phase 5's volume encoded
+    twice, each encode's route split read from
+    ``seaweedfs_codec_route_total`` and held to gf_swar's launches and
+    the native host dispatches (together the encode's dispatches; at
+    least one above-floor dispatch on the card), its GB/s, device share
+    and EWMAs, its shards hashing equal to phase 5's; the first encode
+    under a root span with a PhaseTimer whose ``finish()`` must record one
+    span a phase and one ``seaweedfs_phase_seconds`` observation a phase
+    (its waterfall printed), every codec dispatch a span under the root;
+    the device ledger's row ``0`` (dispatches and H2D bytes equal to the
+    device-routed ones) and staging lane (one chunk a dispatch);
+    ``choose_pipeline(30 GB)`` before and after the EWMAs are warm; an
+    encode under torch.profiler with the profiler's annotation on (one
+    ``codec.encode(cuda,4x10)`` range a device-routed dispatch); and the
+    ``codec.dispatch`` fault armed once, which must fail
+    ``write_ec_files`` with ``FaultInjected`` and count once, before an
+    encode that must be byte-exact again; then shards {0, 5, 11, 13}
+    rebuilt on the same codec, its route split held to the launches and
+    host dispatches, the shards hashing equal to phase 5's. Recording's
+    cost a dispatch is measured last, on scratch copies of the records.
 
-It prints a ``read_decode`` JSON line, one JSON line describing every
-kernel, then, last,
+Phases 4, 5 (with 6), 9 and 10 pin their codecs to
+``link_aware=False`` (the size floor alone decides their routes), so
+their expected launches and host dispatches follow from the widths;
+phase 11 runs the link-aware default.
+
+It prints ``read_decode`` and ``routing`` JSON lines, one JSON line
+describing every kernel, then, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository beside it, it exits non-zero and prints no result.
 """
@@ -112,6 +139,7 @@ repository beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
 import itertools
@@ -719,7 +747,8 @@ def crossover(torch, dev, seed, agree, reps):
     from seaweedfs_tpu_torch.ops.kernels import gf_swar
 
     host_rs = RSCodec(10, 4, device=dev, device_min_bytes=1 << 62)
-    card_rs = RSCodec(10, 4, device=dev, device_min_bytes=0)
+    card_rs = RSCodec(10, 4, device=dev, device_min_bytes=0,
+                      link_aware=False)
     present = list(range(1, 11))
     r, missing = gf256.reconstruction_matrix(10, 4, present)
     coeff = gf_swar.coeff_from_reference(r[[missing.index(0)]])
@@ -776,7 +805,10 @@ def phase_read_decode(args, torch, dev, agree, reset_counts, counters):
                                            args.seed)
         dat_size = os.path.getsize(base + ".dat")
         gen_s = time.perf_counter() - t0
-        rs = RSCodec(C.DATA_SHARDS, C.PARITY_SHARDS, device=dev)
+        # pinned to the size floor, as phases 4, 5 and 9: the expected
+        # routes below follow from the widths alone
+        rs = RSCodec(C.DATA_SHARDS, C.PARITY_SHARDS, device=dev,
+                     link_aware=False)
         floor = rs.device_min_bytes
         t0 = time.perf_counter()
         encoder.write_ec_files(base, rs=rs)
@@ -795,7 +827,7 @@ def phase_read_decode(args, torch, dev, agree, reset_counts, counters):
         for lost in ((0, 5, 11, 13), (3,)):
             for sid in lost:
                 os.rename(base + C.to_ext(sid), base + C.to_ext(sid) + ".x")
-            ev = EcVolume(base, 1, device=dev)
+            ev = EcVolume(base, 1, rs=rs)
             try:
                 check(ev.shard_ids == [i for i in range(C.TOTAL_SHARDS)
                                        if i not in lost],
@@ -850,7 +882,7 @@ def phase_read_decode(args, torch, dev, agree, reset_counts, counters):
 
         # ec.decode: journal deletes, make the data shards whole, then
         # shards -> .dat and .ecx + .ecj -> .idx
-        ev = EcVolume(base, 1, device=dev)
+        ev = EcVolume(base, 1, rs=rs)
         try:
             doomed = [int(k) for k in rng.choice(keys, min(64, len(keys)),
                                                    replace=False)]
@@ -935,6 +967,342 @@ def phase_read_decode(args, torch, dev, agree, reset_counts, counters):
     }, path
 
 
+def route_delta(link, before) -> dict[str, int]:
+    """``seaweedfs_codec_route_total`` since ``before`` (its
+    ``values()``), as ``{"path/reason": count}``."""
+    return {f"{path}/{reason}": int(v - before.get((path, reason), 0.0))
+            for (path, reason), v in sorted(link.ROUTE_TOTAL.values().items())
+            if v != before.get((path, reason), 0.0)}
+
+
+@contextlib.contextmanager
+def scratch_recording():
+    """Fresh copies of everything recording one codec dispatch writes:
+    the profiler's and the ledger's families, the route counter, the
+    EWMA gauge, the span histogram, the link state, the ledger and the
+    span ring. The originals come back on exit."""
+    from seaweedfs_tpu_torch.ops import link, profiler
+    from seaweedfs_tpu_torch.stats import metrics
+    from seaweedfs_tpu_torch.telemetry import devices
+    from seaweedfs_tpu_torch.tracing import recorder
+
+    def fresh(family):
+        new = type(family)(family.name, family.help, family.label_names)
+        if isinstance(family, metrics.Histogram):
+            new.buckets = list(family.buckets)
+        return new
+
+    families = [(profiler, "DISPATCH_SECONDS"), (profiler, "DISPATCH_BYTES"),
+                (link, "ROUTE_TOTAL"), (link, "LINK_GBPS"),
+                (devices, "DEVICE_BUSY_SECONDS"),
+                (devices, "DEVICE_DISPATCH_TOTAL"),
+                (devices, "DEVICE_TRANSFER_BYTES"),
+                (recorder, "SPAN_SECONDS")]
+    swaps = [(mod, name, fresh(getattr(mod, name)))
+             for mod, name in families]
+    swaps += [(link, "STATE", link.LinkState()),
+              (devices, "LEDGER", devices.DeviceLedger()),
+              (recorder, "RECORDER", recorder.SpanRecorder())]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, new in swaps:
+            setattr(mod, name, new)
+        yield
+    finally:
+        for mod, name, old in saved:
+            setattr(mod, name, old)
+
+
+def recording_cost(calls: int, in_bytes: int) -> float:
+    """Microseconds one kernel dispatch inside a traced encode pays to
+    record itself (the profiler's families, the ledger, a span under a
+    root span, the route counter, the EWMA), on scratch copies of all
+    of them: the process's own records are left as they were."""
+    from seaweedfs_tpu_torch import tracing
+    from seaweedfs_tpu_torch.ops import codec as codec_mod
+    from seaweedfs_tpu_torch.storage.erasure_coding import constants as C
+
+    with scratch_recording():
+        with tracing.start_span("chip_smoke", "recording cost") as root:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                codec_mod._record("cuda", "link", C.PARITY_SHARDS,
+                                  C.DATA_SHARDS, in_bytes, 1e-3, root)
+            return (time.perf_counter() - t0) / calls * 1e6
+
+
+def phase_routing(args, torch, dev, smi, volume_hashes, reset_counts,
+                  counters):
+    """Phase 11: routing and observability at full size, on the default
+    link-aware codec. Returns the phase's row and the launch counts of
+    its path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from seaweedfs_tpu_torch import fault, tracing
+    from seaweedfs_tpu_torch.ops import codec as codec_mod
+    from seaweedfs_tpu_torch.ops import link, profiler
+    from seaweedfs_tpu_torch.ops.codec import RSCodec
+    from seaweedfs_tpu_torch.ops.kernels import gf_swar
+    from seaweedfs_tpu_torch.storage.erasure_coding import (
+        constants as C,
+        encoder,
+        rebuild,
+    )
+    from seaweedfs_tpu_torch.telemetry import devices, phases
+
+    size = args.volume_mib * MIB
+    widths = encode_widths(size)
+    floor = codec_mod.DEVICE_MIN_BYTES
+    above = sum(w >= floor for w in widths)
+    check(len(set(widths)) == 1, f"encode widths {sorted(set(widths))}: "
+                                 "phase 11 wants one width")
+    in_bytes = C.DATA_SHARDS * widths[0]
+
+    # -- the probe, on a fresh link state --------------------------------
+    link.STATE = link.LinkState()
+    thirty_gb = 30 * 10**9
+    pipe_cold = encoder.choose_pipeline(thirty_gb)
+    probe = link.probe(dev)
+    for key in ("h2d_gbps", "d2h_gbps", "rtt_s"):
+        check(probe[key] > 0, f"link probe {key} = {probe[key]}")
+    for key in ("h2d_gbps", "d2h_gbps"):
+        check(probe[key] <= 100, f"link probe {key} = {probe[key]}: past "
+                                 "any PCIe link of this card")
+    say(f"link probe ({smi}): H2D {probe['h2d_gbps']:.3f} GB/s, D2H "
+        f"{probe['d2h_gbps']:.3f} GB/s at {int(probe['probe_bytes'])} "
+        f"bytes, rtt {probe['rtt_s'] * 1e6:.1f} us; seeded device estimate "
+        f"{link.estimates()['device']:.3f} GB/s")
+
+    rs = RSCodec(C.DATA_SHARDS, C.PARITY_SHARDS, device=dev)
+    check(rs.link_aware, "the default codec is not link-aware")
+    work = tempfile.mkdtemp(prefix="chip_smoke-route-", dir=args.workdir)
+    try:
+        base = os.path.join(work, "1")
+        make_volume(base, size, args.seed)
+
+        def encode_checked(label, pt=None):
+            """One encode of the volume: its route split, checked against
+            the launches and host dispatches, and its shards' hashes."""
+            before = link.ROUTE_TOTAL.values()
+            launches0 = gf_swar.LAUNCHES.value
+            host0 = codec_mod.HOST_DISPATCHES.value
+            t0 = time.perf_counter()
+            encoder.write_ec_files(base, rs=rs, phases=pt)
+            secs = time.perf_counter() - t0
+            routes_ = route_delta(link, before)
+            device = sum(v for k, v in routes_.items()
+                         if k.startswith("device/"))
+            host = sum(v for k, v in routes_.items()
+                       if k.startswith("host/"))
+            launches = gf_swar.LAUNCHES.value - launches0
+            host_dispatches = codec_mod.HOST_DISPATCHES.value - host0
+            check("device/error" not in routes_
+                  and "host/error" not in routes_,
+                  f"{label}: failed dispatches {routes_}")
+            check(launches == device,
+                  f"{label}: {launches} gf_swar launches, {device} "
+                  "device-routed dispatches")
+            check(host_dispatches == host,
+                  f"{label}: {host_dispatches} native dispatches, {host} "
+                  "host-routed")
+            check(launches + host_dispatches == len(widths),
+                  f"{label}: {launches} + {host_dispatches} dispatches, "
+                  f"the encode has {len(widths)}")
+            device_above = device - routes_.get("device/size", 0)
+            check(above == 0 or device_above > 0,
+                  f"{label}: no above-floor dispatch reached the kernel")
+            for i in range(C.TOTAL_SHARDS):
+                check(sha256_file(base + C.to_ext(i)) == volume_hashes[i],
+                      f"{label}: shard {i} differs from phase 5's")
+            row = {
+                "seconds": secs, "GBps": size / secs / 1e9,
+                "routes": routes_, "launches": launches,
+                "host_dispatches": host_dispatches,
+                "device_share_above_floor": (device_above / above
+                                             if above else None),
+                "estimates": link.estimates(),
+            }
+            say(f"{label}: {secs:.3f} s = {row['GBps']:.3f} GB/s; routes "
+                f"{json.dumps(routes_)}; {launches} gf_swar launches, "
+                f"{host_dispatches} native; device share of the {above} "
+                f"above-floor dispatches {device_above}/{above}; EWMAs "
+                f"{json.dumps(row['estimates'])}; shards hash equal to "
+                "phase 5's")
+            return row
+
+        # -- two encodes, the first under a root span with a PhaseTimer --
+        reset_counts()
+        ledger0 = devices.LEDGER.baseline()
+        hist0 = phases.PHASE_SECONDS.snapshot()
+        with tracing.start_span("chip_smoke", "ec.encode") as root:
+            pt = phases.PhaseTimer("ec.encode")
+            encodes = [encode_checked("routed encode 1", pt)]
+            summary = pt.finish()
+        encodes.append(encode_checked("routed encode 2"))
+
+        # -- the phase spans, the histogram and the codec spans ----------
+        spans = tracing.RECORDER.spans(trace_id=root.trace_id)
+        phase_spans = [sp for sp in spans if sp.component == "phase"]
+        codec_spans = [sp for sp in spans if sp.component == "codec"]
+        check(sorted(sp.op for sp in phase_spans)
+              == sorted(f"ec.encode.{p}" for p in summary["phases"]),
+              f"phase spans {[sp.op for sp in phase_spans]} for phases "
+              f"{sorted(summary['phases'])}")
+        check(all(sp.parent_id == root.span_id
+                  for sp in phase_spans + codec_spans),
+              "a phase or codec span is not under the encode's root span")
+        check(len(codec_spans) == len(widths)
+              and sum(sp.op == "encode(cuda,4x10)" for sp in codec_spans)
+              == encodes[0]["launches"],
+              f"{len(codec_spans)} codec spans under the root span for "
+              f"{len(widths)} dispatches, {encodes[0]['launches']} on the "
+              "card")
+        hist1 = phases.PHASE_SECONDS.snapshot()
+        for p in summary["phases"]:
+            key = ("ec.encode", p)
+            got = hist1[key][1] - hist0.get(key, ([], 0, 0.0))[1]
+            check(got == 1, f"seaweedfs_phase_seconds{key}: {got} "
+                            "observations from one finish()")
+        say(f"phases under a root span: {len(phase_spans)} phase spans and "
+            f"{len(codec_spans)} codec spans under it, one "
+            "seaweedfs_phase_seconds observation a phase")
+        say(phases.summarize_line(summary))
+        for line in phases.render_waterfall(summary).splitlines():
+            say(line)
+
+        # -- the device ledger --------------------------------------------
+        ledger = devices.LEDGER.snapshot(ledger0)
+        device_routed = sum(e["launches"] for e in encodes)
+        rows = {r["device"]: r for r in ledger["devices"]}
+        card_row = rows.get("0", {"dispatches": 0, "h2d_bytes": 0,
+                                  "busy_s": 0.0})
+        check(card_row["dispatches"] == device_routed,
+              f"ledger row 0: {card_row['dispatches']} dispatches, "
+              f"{device_routed} device-routed")
+        check(card_row["h2d_bytes"] == device_routed * in_bytes,
+              f"ledger row 0: {card_row['h2d_bytes']} H2D bytes, "
+              f"{device_routed * in_bytes} device-routed input bytes")
+        lanes = {r["lane"]: r for r in ledger["lanes"]}
+        check(list(lanes) == ["0"]
+              and lanes["0"]["chunks"] == len(encodes) * len(widths),
+              f"staging lanes {ledger['lanes']}: one lane, "
+              f"{len(encodes) * len(widths)} chunks wanted")
+        say(f"device ledger over the two encodes: row 0 "
+            f"{card_row['dispatches']} dispatches, busy "
+            f"{card_row['busy_s']:.6f} s, {card_row['h2d_bytes']} H2D "
+            f"bytes; staging lanes {json.dumps(ledger['lanes'])}")
+
+        # -- the pipeline's sizing, cold and warm -------------------------
+        pipe_warm = encoder.choose_pipeline(thirty_gb)
+        say(f"choose_pipeline(30 GB): cold {pipe_cold}, warm {pipe_warm} "
+            "(batch bytes, depth); a reading, not a run")
+
+        # -- named ranges in a torch.profiler trace -----------------------
+        profiler.annotate(True)
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                encodes.append(encode_checked("profiled encode"))
+                torch.cuda.synchronize()
+        finally:
+            profiler.annotate(False)
+        # each range is a host event, and the trace mirrors it as a
+        # device-side user annotation over the work it launched
+        label = "codec.encode(cuda,4x10)"
+        ranges = sum(e.name == label and e.device_type == DeviceType.CPU
+                     for e in prof.events())
+        mirrored = sum(e.name == label and e.device_type == DeviceType.CUDA
+                       for e in prof.events())
+        check(ranges == encodes[-1]["launches"],
+              f"{ranges} {label} ranges in the profile, "
+              f"{encodes[-1]['launches']} device-routed dispatches")
+        say(f"torch.profiler: {ranges} {label} ranges, one a device-routed "
+            f"dispatch ({mirrored} device-side annotations)")
+
+        # -- the fault seam -----------------------------------------------
+        fault.REGISTRY.inject("codec.dispatch", count=1)
+        try:
+            encoder.write_ec_files(base, rs=rs)
+            injected = None
+        except fault.FaultInjected as e:
+            injected = e
+        finally:
+            fault.REGISTRY.clear()
+        check(injected is not None and injected.point == "codec.dispatch",
+              "codec.dispatch armed once: write_ec_files did not raise "
+              "FaultInjected")
+        fired = fault.FAULT_INJECTED.values().get(
+            ("codec.dispatch", "error"))
+        check(fired == 1, "seaweedfs_fault_injected_total"
+                          f"{{codec.dispatch,error}} reads {fired}, not 1")
+        encodes.append(encode_checked("encode after the fault"))
+        say("fault seam: codec.dispatch armed once raised FaultInjected "
+            "out of write_ec_files, counted once; the next encode is "
+            "byte-exact")
+
+        # -- a rebuild on the link-aware codec ----------------------------
+        lost = (0, 5, 11, 13)
+        rebuild_dispatches = len(rebuild_widths(
+            os.path.getsize(base + C.to_ext(1))))
+        for sid in lost:
+            os.remove(base + C.to_ext(sid))
+        before = link.ROUTE_TOTAL.values()
+        launches0 = gf_swar.LAUNCHES.value
+        host0 = codec_mod.HOST_DISPATCHES.value
+        t0 = time.perf_counter()
+        got_ids = rebuild.rebuild_ec_files(base, rs=rs)
+        rebuild_s = time.perf_counter() - t0
+        rebuild_routes = route_delta(link, before)
+        device = sum(v for k, v in rebuild_routes.items()
+                     if k.startswith("device/"))
+        host = sum(v for k, v in rebuild_routes.items()
+                   if k.startswith("host/"))
+        launches = gf_swar.LAUNCHES.value - launches0
+        host_dispatches = codec_mod.HOST_DISPATCHES.value - host0
+        check(got_ids == list(lost), f"routed rebuild ids {got_ids}")
+        check((launches, host_dispatches) == (device, host)
+              and device + host == rebuild_dispatches,
+              f"routed rebuild: {launches} gf_swar launches and "
+              f"{host_dispatches} native for routes {rebuild_routes}; the "
+              f"rebuild has {rebuild_dispatches} dispatches")
+        for sid in lost:
+            check(sha256_file(base + C.to_ext(sid)) == volume_hashes[sid],
+                  f"routed rebuild: shard {sid} differs from phase 5's")
+        rebuilt = {"lost": list(lost), "seconds": rebuild_s,
+                   "routes": rebuild_routes, "launches": launches,
+                   "host_dispatches": host_dispatches,
+                   "estimates": link.estimates()}
+        say(f"routed rebuild of {list(lost)}: {rebuild_s:.3f} s; routes "
+            f"{json.dumps(rebuild_routes)}; {launches} gf_swar launches, "
+            f"{host_dispatches} native; EWMAs "
+            f"{json.dumps(rebuilt['estimates'])}; shards hash equal to "
+            "phase 5's")
+        path = {name: c.value for name, c in counters.items()}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # -- what recording a dispatch costs on this host ---------------------
+    calls = 2000
+    routes_before, state_before = link.ROUTE_TOTAL.values(), link.STATE
+    record_us = recording_cost(calls, in_bytes)
+    check(link.ROUTE_TOTAL.values() == routes_before
+          and link.STATE is state_before,
+          "measuring the recording cost changed the process's records")
+    say(f"recording one dispatch (profiler, ledger, span, route counter, "
+        f"EWMA): {record_us:.2f} us on the host clock, mean of {calls}, "
+        "on scratch copies of the records")
+    return {
+        "record_us": record_us,
+        "probe": probe, "card": smi, "floor_bytes": floor,
+        "dispatches_an_encode": len(widths), "above_floor": above,
+        "encodes": encodes, "rebuild": rebuilt, "phases": summary,
+        "ledger": {"device_0": card_row, "lanes": ledger["lanes"]},
+        "pipeline_30GB": {"cold": pipe_cold, "warm": pipe_warm},
+        "profiler_ranges": ranges, "faults_injected": fired,
+    }, path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1008,6 +1376,7 @@ PATH_KERNELS = {
                "gf_swar_batch_fastest"),
     "batch_encode": ("gf_swar",),
     "read_decode": ("gf_swar",),
+    "routing": ("gf_swar",),
 }
 
 
@@ -1691,7 +2060,12 @@ def run(args, torch, here: str) -> int:
     try:
         say(f"workdir {work}: {shutil.disk_usage(work).free / 2**30:.1f} "
             "GiB free")
-        rs = RSCodec(C.DATA_SHARDS, C.PARITY_SHARDS, device=dev)
+        # phases 4, 5, 9 and 10 pin their codecs to the size floor
+        # (link_aware=False): their expected launches and host dispatches
+        # follow from the widths alone; phase 11 drives the link-aware
+        # default
+        rs = RSCodec(C.DATA_SHARDS, C.PARITY_SHARDS, device=dev,
+                     link_aware=False)
 
         # -- 4. golden fixture ----------------------------------------------
         # twice: with the floor at 0 every dispatch takes the kernel; at
@@ -1715,7 +2089,7 @@ def run(args, torch, here: str) -> int:
         )
         for floor in (0, rs.device_min_bytes):
             grs = RSCodec(C.DATA_SHARDS, C.PARITY_SHARDS, device=dev,
-                          device_min_bytes=floor)
+                          device_min_bytes=floor, link_aware=False)
             shutil.copy(golden + ".dat", gbase + ".dat")
             shutil.copy(golden + ".idx", gbase + ".idx")
             reset_counts()
@@ -1775,6 +2149,7 @@ def run(args, torch, here: str) -> int:
         hashes = {
             i: sha256_file(base + C.to_ext(i)) for i in range(C.TOTAL_SHARDS)
         }
+        volume_hashes = dict(hashes)  # phase 11 encodes the volume again
         rebuilds = []
         for lost in ((0, 5, 11, 13), (3,)):
             for sid in lost:
@@ -2073,8 +2448,9 @@ def run(args, torch, here: str) -> int:
             f"{args.seed + 1}.. in {time.perf_counter() - t0:.2f} s")
         # one parity dispatch per lane-packed chunk of each size group, a
         # kernel launch where the chunk is at least the codec's floor
-        floor = RSCodec(C.DATA_SHARDS, C.PARITY_SHARDS,
-                        device=dev).device_min_bytes
+        rs = RSCodec(C.DATA_SHARDS, C.PARITY_SHARDS, device=dev,
+                     link_aware=False)
+        floor = rs.device_min_bytes
         want_launches, want_host = map(sum, zip(*(
             routes(encode_widths(size, volumes=sizes.count(size)), floor)
             for size in set(sizes))))
@@ -2085,7 +2461,7 @@ def run(args, torch, here: str) -> int:
         reset_counts()
         pt = PhaseTimer("ec.encode.batch")
         t0 = time.perf_counter()
-        out = encoder.write_ec_files_batch(bases, phases=pt, device=dev)
+        out = encoder.write_ec_files_batch(bases, phases=pt, rs=rs)
         batch_s = time.perf_counter() - t0
         summary = pt.summary()
         torch.cuda.synchronize()
@@ -2108,7 +2484,6 @@ def run(args, torch, here: str) -> int:
         # each volume alone through write_ec_files, from a hard link
         single_dir = os.path.join(batch_dir, "single")
         os.mkdir(single_dir)
-        rs = RSCodec(C.DATA_SHARDS, C.PARITY_SHARDS, device=dev)
         single_s = 0.0
         for b in bases:
             s_base = os.path.join(single_dir, os.path.basename(b))
@@ -2122,7 +2497,7 @@ def run(args, torch, here: str) -> int:
                       "from write_ec_files")
         # the batch once more, after the one-by-one pass, for the spread
         t0 = time.perf_counter()
-        encoder.write_ec_files_batch(bases, device=dev)
+        encoder.write_ec_files_batch(bases, rs=rs)
         batch2_s = time.perf_counter() - t0
         total_bytes = sum(sizes)
         phases = summary["phases"]
@@ -2162,6 +2537,12 @@ def run(args, torch, here: str) -> int:
         args, torch, dev, agree, reset_counts, counters)
     check_path("read_decode")
     say(json.dumps({"read_decode": read_row, "card": smi}))
+
+    # -- 11. routing and observability --------------------------------------
+    routing_row, path_launches["routing"] = phase_routing(
+        args, torch, dev, smi, volume_hashes, reset_counts, counters)
+    check_path("routing")
+    say(json.dumps({"routing": routing_row}))
 
     kernels = []
     for name, (_, source, replaces, *also) in KERNELS.items():

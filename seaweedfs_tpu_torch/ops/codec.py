@@ -1,44 +1,50 @@
 """Reed-Solomon codec over GF(2^8)/0x11d: the seam every higher layer
-(EC encoder, rebuild) calls.
+(EC encoder, rebuild, EC reads) calls.
 
 Counterpart of ``seaweedfs_tpu/ops/codec.py`` with the same methods and
-the same ``PendingResult`` contract. The backend follows the codec's
-device, which the caller chooses:
+the same ``PendingResult`` contract. Each dispatch takes one of three
+routes, chosen as the reference's ``_choose_backend`` chooses
+(``seaweedfs_tpu/ops/codec.py:58-78``; :func:`choose_backend`):
 
-* ``cuda`` — a dispatch whose shards are at least the codec's floor
-  (``device_min_bytes``, default :data:`DEVICE_MIN_BYTES`) runs the
-  Hopper kernel (``ops/kernels/gf_swar.py``). Host slabs go H2D from
-  pinned memory on the codec's own stream, the result comes back D2H
-  into pinned memory, and ``PendingResult.result()`` waits on an event
-  recorded after that copy — so ``encode_async`` may run on one thread
-  and ``result()`` on another, as the encoder pipeline does. A narrower
-  dispatch (a needle-sized EC read) stays on the host, where the round
-  trip to the card would cost more than the work: the native codec
-  (``native/gf256.cc``), on the calling thread for ``encode`` and
-  ``reconstruct`` and on a small host pool for ``encode_async``. This is
-  the size branch of the
-  reference's ``_choose_backend`` (``seaweedfs_tpu/ops/codec.py:58-78``);
-  :func:`choose_route` makes the choice.
+* ``cuda`` — the Hopper kernel (``ops/kernels/gf_swar.py``). Host slabs
+  go H2D from pinned memory on the codec's own stream, the result comes
+  back D2H into pinned memory, and ``PendingResult.result()`` waits on
+  an event recorded after that copy — so ``encode_async`` may run on one
+  thread and ``result()`` on another, as the encoder pipeline does.
+* ``native`` — the host codec (``native/gf256.cc``), on the calling
+  thread for ``encode`` and ``reconstruct`` and on a small host pool for
+  ``encode_async``. A ``cuda`` codec's dispatch takes it when its shards
+  are narrower than the floor (``device_min_bytes``, default
+  :data:`DEVICE_MIN_BYTES`; reason ``"size"``), or when the link-aware
+  router (``ops/link.py``) projects the host faster for this size from
+  the measured throughput of both paths (reason ``"link"``).
 * ``cpu`` — the kernel's plain PyTorch version at every size, for tests
-  on a machine without a card. Only an explicit ``device="cpu"`` selects
-  it.
+  on a machine without a card (reason ``"platform"``). Only an explicit
+  ``device="cpu"`` selects it; link routing never runs for it.
 
-The reference's link-aware routing of dispatches above the floor
-(``ops/link.py``'s EWMA) is not ported yet: above the floor a ``cuda``
-codec always takes the kernel.
+Above the floor, a ``cuda`` codec asks ``link.choose`` (reasons
+``"link"`` and ``"probe"``; the first call probes the card) unless it was
+made with ``link_aware=False``, which sends every such dispatch to the
+kernel (reason ``"static"``). Every dispatch runs the ``codec.dispatch``
+fault point first, then its work inside the profiler's annotation; a
+dispatch that raises counts ``seaweedfs_codec_route_total{path,"error"}``,
+one that succeeds is recorded once (``ops/profiler.py``, the route
+counter, and, unless its reason is ``"size"`` or ``"platform"``, the
+route's throughput estimate).
 """
 
 from __future__ import annotations
 
 import functools
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from .. import native, resolve_device
-from . import gf256
+from .. import fault, native, resolve_device, tracing
+from . import gf256, link, profiler
 from .kernels import gf_swar
 from .kernels.build import LaunchCounter
 
@@ -61,16 +67,57 @@ HOST_DISPATCHES = LaunchCounter()
 _host_pool = ThreadPoolExecutor(max_workers=2)
 
 
+# Reasons whose dispatches feed no throughput estimate: under the floor
+# a dispatch is dominated by fixed per-call overhead and would crater the
+# host estimate that steers multi-MiB slab routing, and the plain version
+# is not a path a ``cuda`` codec can take.
+_UNROUTABLE = ("size", "platform")
+
+
 def choose_route(backend: str, shard_bytes: int,
                  device_min_bytes: int) -> str:
-    """Where one dispatch of ``shard_bytes`` a shard runs on a codec of
-    ``backend``: ``"cpu"`` (the plain version, at every size), ``"native"``
-    (the host codec, under the floor) or ``"cuda"`` (the kernel)."""
+    """The size step of the routing: where one dispatch of
+    ``shard_bytes`` a shard runs on a codec of ``backend`` before the
+    link is asked: ``"cpu"`` (the plain version, at every size),
+    ``"native"`` (the host codec, under the floor) or ``"cuda"``."""
     if backend == "cpu":
         return "cpu"
     if shard_bytes < device_min_bytes:
         return "native"
     return "cuda"
+
+
+def choose_backend(backend: str, shard_bytes: int, in_bytes: int,
+                   device_min_bytes: int, link_aware: bool = True,
+                   device=None) -> tuple[str, str]:
+    """(route, reason) for one dispatch of ``in_bytes`` input,
+    ``shard_bytes`` a shard, on a codec of ``backend`` and ``device``:
+    the size floor first (:func:`choose_route`), then, for a ``cuda``
+    codec above it, ``link.choose`` unless ``link_aware`` is off."""
+    route = choose_route(backend, shard_bytes, device_min_bytes)
+    if route == "cpu":
+        return "cpu", "platform"
+    if route == "native":
+        return "native", "size"
+    if not link_aware:
+        return "cuda", "static"
+    use_device, reason = link.choose(in_bytes, device)
+    return ("cuda" if use_device else "native"), reason
+
+
+def _path(route: str) -> str:
+    return "device" if route == "cuda" else "host"
+
+
+def _record(route: str, reason: str, o: int, k: int, n_bytes: int,
+            seconds: float, parent) -> None:
+    """One successful dispatch: the profiler (histogram, device ledger,
+    span under ``parent``), the route counter, and the route's
+    throughput estimate."""
+    profiler.record(route, o, k, n_bytes, seconds, parent=parent)
+    link.ROUTE_TOTAL.inc(_path(route), reason)
+    if reason not in _UNROUTABLE:
+        link.observe(_path(route), n_bytes, seconds)
 
 
 def _native_matmul(coeff: np.ndarray, data: np.ndarray) -> np.ndarray:
@@ -84,14 +131,33 @@ def _native_matmul(coeff: np.ndarray, data: np.ndarray) -> np.ndarray:
     ).reshape(*lead, coeff.shape[0], n)
 
 
+def _native_recorded(matrix: np.ndarray, data: np.ndarray,
+                     record) -> np.ndarray:
+    """A pooled native dispatch: its in-worker compute time is what is
+    recorded, whenever the caller collects the result."""
+    t0 = time.perf_counter()
+    out = _native_matmul(matrix, data)
+    record(time.perf_counter() - t0)
+    return out
+
+
 class PendingResult:
     """Handle for an in-flight codec dispatch; ``result()`` materialises
     the host array (for ``cuda``: waits for the D2H copy), memoised, on
-    whichever thread calls it."""
+    whichever thread calls it.
 
-    def __init__(self, backend: str, getter):
+    A kernel dispatch is recorded here, once: ``launch_seconds`` (its
+    staging, H2D and launch on the dispatching thread) plus the wait
+    inside the first ``result()`` — NOT the time the handle sat in a
+    queue behind disk writes, which would bias routing against the card.
+    A failed ``result()`` records nothing."""
+
+    def __init__(self, backend: str, getter, record=None,
+                 launch_seconds: float = 0.0):
         self._backend = backend
         self._getter = getter
+        self._record = record
+        self._launch_seconds = launch_seconds
         self._out: np.ndarray | None = None
 
     @property
@@ -100,8 +166,15 @@ class PendingResult:
 
     def result(self) -> np.ndarray:
         if self._out is None:
-            self._out = self._getter()
-            self._getter = None  # drop the staging buffers it holds
+            t0 = time.perf_counter()
+            out = self._getter()
+            if self._record is not None:
+                self._record(
+                    self._launch_seconds + time.perf_counter() - t0
+                )
+            self._out = out
+            # drop the staging buffers the getter holds
+            self._getter = self._record = None
         return self._out
 
 
@@ -163,12 +236,16 @@ class RSCodec:
     ``"cpu"``. ``device_min_bytes`` is the floor under which a ``cuda``
     codec's dispatch takes the native host route (0: every dispatch
     takes the kernel); it is the counterpart of the reference's
-    ``SEAWEEDFS_TPU_CODEC`` override, for pinning a route. Limits: m <=
-    16 parity and k <= 64 data shards (the kernel's)."""
+    ``SEAWEEDFS_TPU_CODEC`` override, for pinning a route.
+    ``link_aware=False`` is the reference's ``SEAWEEDFS_TPU_LINK_AWARE=0``:
+    above the floor every dispatch takes the kernel, reason
+    ``"static"``, instead of the route ``ops/link.py`` projects faster.
+    Limits: m <= 16 parity and k <= 64 data shards (the kernel's)."""
 
     def __init__(self, data_shards: int = 10, parity_shards: int = 4,
                  device: str | torch.device | None = None,
-                 device_min_bytes: int = DEVICE_MIN_BYTES):
+                 device_min_bytes: int = DEVICE_MIN_BYTES,
+                 link_aware: bool = True):
         if data_shards <= 0 or parity_shards <= 0:
             raise ValueError("shard counts must be positive")
         if data_shards + parity_shards > 256:
@@ -181,6 +258,7 @@ class RSCodec:
         if device_min_bytes < 0:
             raise ValueError("device_min_bytes must be >= 0")
         self.device_min_bytes = device_min_bytes
+        self.link_aware = link_aware
         self._parity = gf_swar.coeff_from_reference(
             gf256.parity_matrix(data_shards, parity_shards)
         )
@@ -238,10 +316,10 @@ class RSCodec:
         return staged
 
     def _launch(self, coeff: gf_swar.SwarCoeff, host_in: torch.Tensor,
-                lead: tuple[int, ...], n: int) -> PendingResult:
+                lead: tuple[int, ...], n: int):
         """H2D of the pinned ``host_in`` [B, k, W], kernel, D2H into a
-        fresh pinned output, all on the codec's stream; the handle
-        waits on the event recorded after the D2H."""
+        fresh pinned output, all on the codec's stream; returns the
+        getter that waits on the event recorded after the D2H."""
         o = coeff.shape[0]
         batch, k, width = host_in.shape
         with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
@@ -259,39 +337,68 @@ class RSCodec:
             host_out.copy_(dev_out, non_blocking=True)
             done = torch.cuda.Event()
             done.record(self._stream)
-        # the handle holds the H2D source until result() has returned
-        return PendingResult("cuda", functools.partial(
+        # the getter holds the H2D source until it has returned
+        return functools.partial(
             _materialise, done, host_out, host_in, lead, n
-        ))
+        )
 
     def _dispatch_async(self, coeff: gf_swar.SwarCoeff, data: np.ndarray,
                         inline: bool = False) -> PendingResult:
-        """Start ``coeff ∘GF data`` on the route :func:`choose_route`
-        gives. The native route runs on the host pool, or on the
+        """Start ``coeff ∘GF data`` on the route :func:`choose_backend`
+        gives, in the reference's order: the ``codec.dispatch`` fault
+        point before any work, the work inside the profiler's
+        annotation, an ``"error"`` route count if it raises. The native
+        route runs on the host pool and records in the worker, or on the
         calling thread when ``inline`` (a caller about to wait for the
-        result, as the reference's synchronous ``_dispatch`` does)."""
+        result, as the reference's synchronous ``_dispatch`` does); the
+        kernel route records at ``result()``; the others at once. The
+        launching thread's tracing span parents every record."""
         if data.dtype != np.uint8 or data.ndim < 2:
             raise ValueError(
                 f"data must be uint8 [..., k, N], got {data.dtype} "
                 f"{data.shape}"
             )
         *lead, _, n = data.shape
-        route = choose_route(self.backend, n, self.device_min_bytes)
-        if route == "cpu":
-            out = gf_swar.gf_matmul_plain(
-                coeff, torch.from_numpy(np.ascontiguousarray(data))
-            ).numpy()
-            return PendingResult("cpu", lambda: out)
-        if route == "native":
-            HOST_DISPATCHES.add()
-            if inline:
-                out = _native_matmul(coeff.matrix, data)
-                return PendingResult("native", lambda: out)
-            job = _host_pool.submit(_native_matmul, coeff.matrix, data)
-            return PendingResult("native", job.result)
-        batch = int(np.prod(lead)) if lead else 1
-        host_in = self._stage(data, batch, _ceil_quantum(n))
-        return self._launch(coeff, host_in, tuple(lead), n)
+        route, reason = choose_backend(
+            self.backend, n, data.size, self.device_min_bytes,
+            self.link_aware, self.device,
+        )
+        # chaos seam: lets a test fail one codec dispatch and watch the
+        # EC pipeline surface it cleanly
+        fault.point("codec.dispatch", backend=route, n_bytes=data.size)
+        # the launching request's span, captured here: both the host
+        # pool worker and a later result() on the writer thread lack it
+        parent = tracing.current()
+        o, k = coeff.shape
+        record = functools.partial(_record, route, reason, o, k, data.size,
+                                   parent=parent)
+        t0 = time.perf_counter()
+        try:
+            with profiler.annotation(f"codec.encode({route},{o}x{k})"):
+                if route == "cpu":
+                    out = gf_swar.gf_matmul_plain(
+                        coeff, torch.from_numpy(np.ascontiguousarray(data))
+                    ).numpy()
+                elif route == "native":
+                    HOST_DISPATCHES.add()
+                    if not inline:
+                        job = _host_pool.submit(
+                            _native_recorded, coeff.matrix, data, record
+                        )
+                        return PendingResult("native", job.result)
+                    out = _native_matmul(coeff.matrix, data)
+                else:
+                    batch = int(np.prod(lead)) if lead else 1
+                    host_in = self._stage(data, batch, _ceil_quantum(n))
+                    getter = self._launch(coeff, host_in, tuple(lead), n)
+                    # launch-only time here: result() adds its wait
+                    return PendingResult("cuda", getter, record,
+                                         time.perf_counter() - t0)
+        except BaseException:
+            link.ROUTE_TOTAL.inc(_path(route), "error")
+            raise
+        record(time.perf_counter() - t0)
+        return PendingResult(route, lambda: out)
 
     # -- encode ----------------------------------------------------------
 

@@ -22,8 +22,13 @@ may still read it.
 volumes of one ``.dat`` size share a chunk plan, and each chunk of all of
 them goes to the codec as one lane-packed [k, V·n] slab.
 
-Left for later slices: the mesh branch of ``write_ec_files_batch``
-(multi-GPU) and the link-EWMA sizing of ``choose_pipeline``.
+``batch_bytes`` and the pipeline depth size themselves from the
+``ops/link.py`` routing EWMAs (:func:`choose_pipeline`) unless the
+caller pins them, and every volume reader records its busy time as a
+host staging lane of the device ledger (``telemetry/devices.py``).
+
+Left for a later slice: the mesh branch of ``write_ec_files_batch``
+(multi-GPU).
 """
 
 from __future__ import annotations
@@ -39,11 +44,14 @@ import numpy as np
 import torch
 
 from ...ops import codec as codec_mod
+from ...ops import link as link_mod
+from ...telemetry.devices import LEDGER as _DEVICE_LEDGER
 from .. import idx as idx_mod
 from . import constants as C
 from .layout import encode_row_plan
 
-# Per-shard slab bytes per codec call. 8 MiB × 10 shards = 80 MiB input.
+# Per-shard slab bytes per codec call when the link EWMAs have no
+# opinion yet. 8 MiB × 10 shards = 80 MiB input.
 DEFAULT_BATCH_BYTES = 8 * 1024 * 1024
 
 # Max slabs in flight (read-but-unwritten); bounds host memory.
@@ -55,7 +63,13 @@ PIPELINE_DEPTH = 3
 WRITE_BUFFER_BYTES = 8 << 20
 _MAX_WRITE_BUFFER_TOTAL = 128 << 20
 
+# Adaptive sizing bounds (choose_pipeline): one codec dispatch should
+# take ~_TARGET_CHUNK_SECONDS at the link's measured throughput — long
+# enough to amortise dispatch, short enough that the 3 stages interleave
+# at a fine grain.
+_TARGET_CHUNK_SECONDS = 0.05
 _MIN_BATCH_BYTES = 1 << 20
+_MAX_BATCH_BYTES = 64 << 20
 # Total ring memory cap: depth is shrunk before slabs are.
 _MAX_RING_BYTES = 512 << 20
 
@@ -81,23 +95,37 @@ def choose_pipeline(
     volumes of ``dat_size`` bytes encoded in lockstep.
 
     A caller-pinned ``batch_bytes`` is honoured verbatim with the
-    default depth. Otherwise the reference's cold-link choice: the
-    default slab, halved while half of it still covers a shard's share
-    of the volume (never below 1 MiB), and the depth shrunk before ring
-    memory (volumes × k × batch × (depth + 1)) would pass
-    ``_MAX_RING_BYTES``. ``devices`` is the reference's per-device divisor
-    of its link-EWMA target; the cold-link choice has no target, so it
-    changes nothing here, as in the reference without link estimates."""
+    default depth. Otherwise the slab is sized from the ``ops/link.py``
+    EWMAs (``link.estimates()``, which never probes) so one [k, batch]
+    dispatch takes about ``_TARGET_CHUNK_SECONDS`` on the faster path —
+    clamped to [1 MiB, 64 MiB] powers of two — or is the default slab
+    while no estimate exists; then halved while half of it still covers
+    a shard's share of the volume. Depth deepens by one when the device
+    estimate runs more than 4× the host's (reads are then the
+    bottleneck and deserve more prefetch), and shrinks, not below 2,
+    before ring memory (volumes × k × batch × (depth + 1)) would pass
+    ``_MAX_RING_BYTES``. ``devices`` scales the dispatch target for a
+    slab split over that many cards."""
     if batch_bytes is not None:
         return batch_bytes, PIPELINE_DEPTH
     if volumes < 1 or devices < 1:
         raise ValueError(f"volumes {volumes} and devices {devices} must be "
                          "positive")
+    est = link_mod.estimates()
+    rates = [v for v in (est["device"], est["host"]) if v]
     batch = DEFAULT_BATCH_BYTES
+    if rates:
+        target = (
+            max(rates) * 1e9 * _TARGET_CHUNK_SECONDS * devices / max(1, k)
+        )
+        batch = 1 << (max(1, int(target)).bit_length() - 1)
+        batch = min(_MAX_BATCH_BYTES, max(_MIN_BATCH_BYTES, batch))
     per_shard = -(-dat_size // max(1, k))
     while batch > _MIN_BATCH_BYTES and batch // 2 >= per_shard:
         batch //= 2
     depth = PIPELINE_DEPTH
+    if est["device"] and est["host"] and est["device"] > 4 * est["host"]:
+        depth += 1
     while depth > 2 and (depth + 1) * k * batch * volumes > _MAX_RING_BYTES:
         depth -= 1
     return batch, depth
@@ -298,9 +326,10 @@ def write_ec_files(
     """Generate all shard files for ``<base>.dat``; returns their paths.
 
     ``rs`` is the codec (default: RS(10,4) on ``device``; ``device=None``
-    means the card and raises without one). ``batch_bytes`` None → the
-    default slab (:func:`choose_pipeline`). ``phases`` (PhaseTimer or
-    None) accumulates read / stage / h2d / codec / write / flush."""
+    means the card and raises without one). ``batch_bytes`` None →
+    sized from the link EWMAs (:func:`choose_pipeline`). ``phases``
+    (PhaseTimer or None) accumulates read / stage / h2d / codec / write /
+    flush."""
     base = os.fspath(base_file_name)
     rs = rs or codec_mod.RSCodec(C.DATA_SHARDS, C.PARITY_SHARDS, device)
     return _encode_lockstep(
@@ -319,6 +348,7 @@ def write_ec_files_batch(
     parity_shards: int = C.PARITY_SHARDS,
     phases=None,
     device: str | torch.device | None = None,
+    rs: codec_mod.RSCodec | None = None,
 ) -> dict[str, list[str]]:
     """Encode many volumes at once on one card; returns {base: [shard
     paths]}, the files byte-identical to per-volume :func:`write_ec_files`.
@@ -330,15 +360,21 @@ def write_ec_files_batch(
     the codec encodes the slab in one launch (GF(2^8) arithmetic is
     column-wise, so side-by-side volumes give each volume's own parity).
     Each volume has its own reader and writer worker, so the volumes'
-    disk reads and shard writes overlap. ``device`` is as for
-    :func:`write_ec_files`. A ``mesh`` (the reference's multi-chip
-    branch) raises: multi-GPU encode is not ported yet."""
+    disk reads and shard writes overlap. ``device`` and ``rs`` are as
+    for :func:`write_ec_files` (``rs``, when given, must be
+    RS(data_shards, parity_shards)). A ``mesh`` (the reference's
+    multi-chip branch) raises: multi-GPU encode is not ported yet."""
     if mesh is not None:
         raise NotImplementedError(
             "write_ec_files_batch runs on one card; the mesh branch comes "
             "with the multi-GPU compute plane (ROADMAP queue 1 item 10)"
         )
-    rs = codec_mod.RSCodec(data_shards, parity_shards, device)
+    rs = rs or codec_mod.RSCodec(data_shards, parity_shards, device)
+    if (rs.data_shards, rs.parity_shards) != (data_shards, parity_shards):
+        raise ValueError(
+            f"codec is RS({rs.data_shards},{rs.parity_shards}), not "
+            f"RS({data_shards},{parity_shards})"
+        )
     # identical .dat size ⇒ identical row plan ⇒ lockstep chunks
     groups: dict[int, list[str]] = {}
     for b in base_file_names:
@@ -388,11 +424,17 @@ def _encode_lockstep(rs, group: list[str], dat_size: int,
         in_flight[ci] = slab
         pristine = ring.take_pristine(slab)
         out = slab[:, : nvol * n]
-        list(readers.map(lambda vi: _read_row_chunk(
-            dats[vi], start, bs, co, n, k,
-            out=out[:, vi * n:(vi + 1) * n], pt=phases,
-            assume_zero=pristine,
-        ), range(nvol)))
+
+        def fill_band(vi: int) -> None:
+            t0 = time.perf_counter()
+            _read_row_chunk(
+                dats[vi], start, bs, co, n, k,
+                out=out[:, vi * n:(vi + 1) * n], pt=phases,
+                assume_zero=pristine,
+            )
+            _DEVICE_LEDGER.record_lane(vi, time.perf_counter() - t0, k * n)
+
+        list(readers.map(fill_band, range(nvol)))
         return out
 
     def write_volume(ci, data, parity, vi):

@@ -1,1 +1,3 @@
-"""Telemetry of the port: phase timing of the EC pipeline."""
+"""Telemetry of the port: phase timing of the EC pipeline with its spans
+and ``seaweedfs_phase_seconds`` histogram (``phases.py``), and the
+per-device dispatch ledger (``devices.py``)."""

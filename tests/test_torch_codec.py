@@ -5,6 +5,8 @@ reference codec runs whichever backend it routes to on this machine.
 Without a card, a codec that was not told ``device="cpu"`` must raise.
 """
 
+import threading
+
 import numpy as np
 import pytest
 
@@ -14,6 +16,8 @@ torch.set_num_threads(2)
 
 from seaweedfs_tpu.ops.codec import RSCodec as RefCodec  # noqa: E402
 import seaweedfs_tpu_torch  # noqa: E402
+from seaweedfs_tpu_torch import fault, tracing  # noqa: E402
+from seaweedfs_tpu_torch.ops import link, profiler  # noqa: E402
 from seaweedfs_tpu_torch.ops import codec as codec_mod  # noqa: E402
 from seaweedfs_tpu_torch.ops import gf256  # noqa: E402
 from seaweedfs_tpu_torch.ops.codec import RSCodec  # noqa: E402
@@ -150,8 +154,10 @@ def test_no_card_raises_instead_of_running_on_cpu():
 @pytest.mark.skipif("not torch.cuda.is_available()",
                     reason="needs a CUDA device")
 def test_cuda_codec_matches_reference():
-    # floor 0: every dispatch, needle-sized ones too, takes the kernel
-    port, ref = RSCodec(10, 4, device_min_bytes=0), RefCodec(10, 4)
+    # floor 0 and no link routing: every dispatch, needle-sized ones
+    # too, takes the kernel
+    port, ref = (RSCodec(10, 4, device_min_bytes=0, link_aware=False),
+                 RefCodec(10, 4))
     assert port.backend == "cuda"
     for n in (1, 1000, 1 << 20):
         data = RNG.integers(0, 256, (10, n), dtype=np.uint8)
@@ -242,3 +248,188 @@ def test_host_route_overlaps_on_the_pool(host_route):
     for s, h in zip(slabs, handles):
         np.testing.assert_array_equal(
             h.result(), gf256.gf_matmul_cpu(gf256.parity_matrix(10, 4), s))
+
+
+# -- routing reasons and recording (the reference's _choose_backend and
+# _record order) ---------------------------------------------------------
+
+PROBE = {"h2d_gbps": 24.0, "d2h_gbps": 21.5, "rtt_s": 4e-5,
+         "probe_bytes": float(1 << 20)}
+
+
+@pytest.fixture
+def link_state(monkeypatch):
+    """A fresh, probed link state with the card far ahead of the host."""
+    st = link.LinkState()
+    st.probe_result = dict(PROBE)
+    st._gbps = {"device": 40.0, "host": 2.0}
+    monkeypatch.setattr(link, "STATE", st)
+    return st
+
+
+def routes_delta(before):
+    now = link.ROUTE_TOTAL.values()
+    return {key: v - before.get(key, 0.0) for key, v in now.items()
+            if v != before.get(key, 0.0)}
+
+
+def test_choose_backend_reasons(link_state):
+    floor = codec_mod.DEVICE_MIN_BYTES
+    mib = 1 << 20
+    cb = codec_mod.choose_backend
+    assert cb("cuda", floor - 1, 10 * floor, floor) == ("native", "size")
+    assert cb("cuda", mib, 10 * mib, floor) == ("cuda", "link")
+    assert cb("cuda", mib, 10 * mib, floor, link_aware=False) == (
+        "cuda", "static")
+    assert cb("cpu", mib, 10 * mib, floor) == ("cpu", "platform")
+    assert cb("cpu", 1, 10, floor, link_aware=False) == ("cpu", "platform")
+    # the link degrades: the host wins, and every 32nd dispatch re-probes
+    link_state._gbps = {"device": 0.001, "host": 2.0}
+    got = [cb("cuda", mib, 10 * mib, floor) for _ in range(64)]
+    assert got.count(("cuda", "probe")) == 2
+    assert got.count(("native", "link")) == 62
+    # never observed: the card by default
+    link_state._gbps = {}
+    assert cb("cuda", mib, 10 * mib, floor) == ("cuda", "default")
+    # the floor stays first whatever the link says
+    assert cb("cuda", 1024, 10 * mib, floor) == ("native", "size")
+
+
+def test_link_aware_keyword():
+    assert RSCodec(device="cpu").link_aware is True
+    assert RSCodec(device="cpu", link_aware=False).link_aware is False
+
+
+@pytest.fixture
+def above_floor(monkeypatch, link_state):
+    """A cpu codec routed as a ``cuda`` codec above its floor, with the
+    host ahead, so link routing sends it to the native codec."""
+    monkeypatch.setattr(codec_mod, "choose_route",
+                        lambda backend, n, floor: "cuda")
+    link_state._gbps = {"device": 0.001, "host": 2.0}
+    return link_state
+
+
+def test_link_routed_host_dispatch_records_and_feeds_the_ewma(above_floor):
+    port, ref = RSCodec(10, 4, device="cpu"), RefCodec(10, 4)
+    data = RNG.integers(0, 256, (10, 3000), dtype=np.uint8)
+    before = link.ROUTE_TOTAL.values()
+    host_dispatches = codec_mod.HOST_DISPATCHES.value
+    with tracing.start_span("ec", "encode") as root:
+        got = port.encode(data)
+    np.testing.assert_array_equal(got, np.asarray(ref.encode(data)))
+    assert routes_delta(before) == {("host", "link"): 1.0}
+    assert codec_mod.HOST_DISPATCHES.value == host_dispatches + 1
+    assert above_floor.estimate("host") != 2.0  # the EWMA moved
+    spans = tracing.RECORDER.spans(trace_id=root.trace_id)
+    assert [s.op for s in spans] == ["encode(native,4x10)", "encode"]
+    assert spans[0].parent_id == root.span_id
+
+
+def test_failing_dispatch_counts_an_error_and_feeds_nothing(above_floor,
+                                                            monkeypatch):
+    def broken(matrix, data):
+        raise RuntimeError("native codec failed")
+
+    monkeypatch.setattr(codec_mod, "_native_matmul", broken)
+    port = RSCodec(10, 4, device="cpu")
+    before = link.ROUTE_TOTAL.values()
+    bytes_before = profiler.DISPATCH_BYTES.values()
+    with pytest.raises(RuntimeError, match="native codec failed"):
+        port.encode(np.zeros((10, 3000), np.uint8))
+    assert routes_delta(before) == {("host", "error"): 1.0}
+    assert above_floor._gbps == {"device": 0.001, "host": 2.0}
+    assert profiler.DISPATCH_BYTES.values() == bytes_before
+
+
+def test_floor_dispatch_is_not_routable(host_route, link_state):
+    """Under the floor ("size") a dispatch is recorded but feeds no
+    estimate; so is the plain version ("platform")."""
+    port = RSCodec(10, 4, device="cpu")
+    before = link.ROUTE_TOTAL.values()
+    gbps = dict(link_state._gbps)
+    bytes_before = profiler.DISPATCH_BYTES.values().get(
+        ("native", "4x10"), 0.0)
+    port.encode(np.ones((10, 1000), np.uint8))
+    assert routes_delta(before) == {("host", "size"): 1.0}
+    assert profiler.DISPATCH_BYTES.values()[("native", "4x10")] - \
+        bytes_before == 10_000
+    assert link_state._gbps == gbps
+
+
+def test_cpu_codec_records_platform_and_feeds_nothing(link_state):
+    port = RSCodec(10, 4, device="cpu")
+    before = link.ROUTE_TOTAL.values()
+    gbps = dict(link_state._gbps)
+    port.encode(np.ones((10, 1000), np.uint8))
+    assert port.encode_async(np.ones((10, 64), np.uint8)).result().shape \
+        == (4, 64)
+    assert routes_delta(before) == {("host", "platform"): 2.0}
+    assert link_state._gbps == gbps
+
+
+def test_async_native_dispatch_records_in_the_worker(above_floor,
+                                                     monkeypatch):
+    calls = []
+    real = codec_mod._record
+
+    def spy(*args, **kw):
+        calls.append(threading.current_thread())
+        real(*args, **kw)
+
+    monkeypatch.setattr(codec_mod, "_record", spy)
+    port = RSCodec(10, 4, device="cpu")
+    data = RNG.integers(0, 256, (10, 5000), dtype=np.uint8)
+    with tracing.start_span("ec", "encode") as root:
+        pending = port.encode_async(data)
+    np.testing.assert_array_equal(
+        pending.result(),
+        gf256.gf_matmul_cpu(gf256.parity_matrix(10, 4), data))
+    assert pending.backend == "native"
+    assert len(calls) == 1 and calls[0] is not threading.current_thread()
+    # the worker's record hangs under the span that launched it
+    spans = tracing.RECORDER.spans(trace_id=root.trace_id)
+    assert sorted(s.op for s in spans) == ["encode", "encode(native,4x10)"]
+    assert all(s.parent_id == root.span_id for s in spans
+               if s.component == "codec")
+    pending.result()
+    assert len(calls) == 1  # memoised: recorded once
+
+
+def test_fault_point_runs_before_any_work(monkeypatch):
+    monkeypatch.setattr(fault, "REGISTRY", fault.FaultRegistry())
+    fault.REGISTRY.inject("codec.dispatch", count=1, peer="cpu")
+    port = RSCodec(10, 4, device="cpu")
+    before = link.ROUTE_TOTAL.values()
+    with pytest.raises(fault.FaultInjected):
+        port.encode(np.ones((10, 64), np.uint8))
+    assert routes_delta(before) == {}  # no work ran, nothing recorded
+    port.encode(np.ones((10, 64), np.uint8))  # count=1: fired once
+
+
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA device")
+def test_cuda_codec_probe_failure_raises(monkeypatch):
+    def broken(*args, **kw):
+        raise RuntimeError("probe failed")
+
+    monkeypatch.setattr(link, "STATE", link.LinkState())
+    monkeypatch.setattr(link, "_measure_link", broken)
+    port = RSCodec(10, 4)
+    before = link.ROUTE_TOTAL.values()
+    with pytest.raises(RuntimeError, match="probe failed"):
+        port.encode(np.ones((10, 1 << 20), np.uint8))
+    assert ("host", "noprobe") not in routes_delta(before)
+
+
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA device")
+def test_cuda_codec_routes_through_the_link(link_state):
+    port = RSCodec(10, 4)
+    data = RNG.integers(0, 256, (10, 1 << 20), dtype=np.uint8)
+    before = link.ROUTE_TOTAL.values()
+    launches = gf_swar.LAUNCHES.value
+    np.testing.assert_array_equal(
+        port.encode(data), np.asarray(RefCodec(10, 4).encode(data)))
+    assert routes_delta(before) == {("device", "link"): 1.0}
+    assert gf_swar.LAUNCHES.value == launches + 1

@@ -17,6 +17,8 @@ from seaweedfs_tpu.storage.erasure_coding import (  # noqa: E402
     encoder as ref_encoder,
     rebuild as ref_rebuild,
 )
+from seaweedfs_tpu.telemetry import devices as ref_devices  # noqa: E402
+from seaweedfs_tpu.telemetry import phases as ref_phases  # noqa: E402
 from seaweedfs_tpu_torch.ops.codec import RSCodec  # noqa: E402
 from seaweedfs_tpu_torch.storage.erasure_coding import (  # noqa: E402
     constants as C,
@@ -24,6 +26,7 @@ from seaweedfs_tpu_torch.storage.erasure_coding import (  # noqa: E402
     layout,
     rebuild,
 )
+from seaweedfs_tpu_torch.telemetry import devices  # noqa: E402
 from seaweedfs_tpu_torch.telemetry.phases import PhaseTimer  # noqa: E402
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "1")
@@ -208,3 +211,70 @@ def test_entry_points_raise_without_a_card(tmp_path):
     with pytest.raises(RuntimeError):
         rebuild.rebuild_ec_files(base)
     assert not os.path.exists(base + C.to_ext(0))
+
+
+def test_staging_lane_and_phases_match_reference(tmp_path):
+    """One volume through each package's ``write_ec_files``: the port's
+    staging-lane row (lane 0) has the reference's chunk and byte counts,
+    and the phase summaries the same phases, counts, bytes and notes."""
+    size = 123_457
+    bases = {}
+    for side in ("port", "ref"):
+        bases[side] = str(tmp_path / side / "7")
+        os.makedirs(os.path.dirname(bases[side]))
+        with open(bases[side] + ".dat", "wb") as f:
+            f.write(payload(size))
+    blocks = dict(large_block_size=LARGE, small_block_size=SMALL,
+                  batch_bytes=4096)
+    base, ref_base = devices.LEDGER.baseline(), ref_devices.LEDGER.baseline()
+    pt, ref_pt = PhaseTimer("ec.encode"), ref_phases.PhaseTimer("ec.encode")
+    encoder.write_ec_files(bases["port"], phases=pt, device="cpu", **blocks)
+    ref_encoder.write_ec_files(bases["ref"], phases=ref_pt, **blocks)
+    lanes = devices.LEDGER.snapshot(base)["lanes"]
+    ref_lanes = ref_devices.LEDGER.snapshot(ref_base)["lanes"]
+
+    def counts(rows):
+        return [(r["lane"], r["chunks"], r["bytes"]) for r in rows]
+
+    assert counts(lanes) == counts(ref_lanes)
+    chunks = sum(-(-bs // 4096) for _, bs in
+                 layout.encode_row_plan(size, LARGE, SMALL))
+    assert counts(lanes) == [("0", chunks, 10 * sum(
+        min(4096, bs - co) for _, bs in
+        layout.encode_row_plan(size, LARGE, SMALL)
+        for co in range(0, bs, 4096)))]
+    # a cpu codec's dispatches are not device work
+    assert devices.LEDGER.snapshot(base)["devices"] == []
+    got, want = pt.finish(), ref_pt.finish()
+
+    def shape(summary):
+        return {name: (info["count"], info["bytes"])
+                for name, info in summary["phases"].items()}
+
+    assert shape(got) == shape(want)
+    assert got["notes"] == want["notes"] == {"batch_bytes": 4096,
+                                             "pipeline_depth": 3}
+    assert got["op"] == want["op"]
+
+
+def test_batch_encode_records_one_lane_a_volume(tmp_path):
+    size, nvol = 54_321, 3
+    bases = []
+    for i in range(nvol):
+        b = str(tmp_path / str(i + 1))
+        with open(b + ".dat", "wb") as f:
+            f.write(payload(size))
+        bases.append(b)
+    base = devices.LEDGER.baseline()
+    encoder.write_ec_files_batch(bases, large_block_size=LARGE,
+                                 small_block_size=SMALL, batch_bytes=4096,
+                                 device="cpu")
+    chunks = sum(-(-bs // 4096) for _, bs in
+                 layout.encode_row_plan(size, LARGE, SMALL))
+    lanes = devices.LEDGER.snapshot(base)["lanes"]
+    assert [(r["lane"], r["chunks"]) for r in lanes] == [
+        (str(vi), chunks) for vi in range(nvol)]
+    assert sum(r["chunks"] for r in lanes) == chunks * nvol
+    # a codec given to the batch encode must be of its shape
+    with pytest.raises(ValueError):
+        encoder.write_ec_files_batch(bases, rs=RSCodec(6, 3, device="cpu"))

@@ -67,7 +67,17 @@ def test_port_files_exist():
                    ("storage", "super_block.py"),
                    ("storage", "backend.py"),
                    ("storage", "ec_volume.py"),
-                   ("storage", "erasure_coding", "decoder.py")):
+                   ("storage", "erasure_coding", "decoder.py"),
+                   ("stats", "__init__.py"),
+                   ("stats", "metrics.py"),
+                   ("tracing", "__init__.py"),
+                   ("tracing", "span.py"),
+                   ("tracing", "recorder.py"),
+                   ("tracing", "render.py"),
+                   ("fault", "__init__.py"),
+                   ("ops", "link.py"),
+                   ("ops", "profiler.py"),
+                   ("telemetry", "devices.py")):
         assert os.path.join("seaweedfs_tpu_torch", *module) in names
     assert len(files) > 10
 
@@ -105,6 +115,12 @@ def test_importing_the_port_loads_no_jax():
         "import seaweedfs_tpu_torch.storage.erasure_coding\n"
         "import seaweedfs_tpu_torch.ops.codec\n"
         "import seaweedfs_tpu_torch.telemetry.phases\n"
+        "import seaweedfs_tpu_torch.telemetry.devices\n"
+        "import seaweedfs_tpu_torch.ops.link\n"
+        "import seaweedfs_tpu_torch.ops.profiler\n"
+        "import seaweedfs_tpu_torch.stats\n"
+        "import seaweedfs_tpu_torch.tracing\n"
+        "import seaweedfs_tpu_torch.fault\n"
         "import seaweedfs_tpu_torch.tools.exp_dev8\n"
         "import seaweedfs_tpu_torch.tools.exp_dev8b\n"
         "import seaweedfs_tpu_torch.tools.exp_batched\n"
