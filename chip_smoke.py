@@ -124,13 +124,33 @@ Run from the root of the repository, on a machine with a CUDA card and
     rebuilt on the same codec, its route split held to the launches and
     host dispatches, the shards hashing equal to phase 5's. Recording's
     cost a dispatch is measured last, on scratch copies of the records.
+12. the multi-GPU compute plane (``seaweedfs_tpu_torch/parallel``) on
+    ``make_mesh()`` over the visible cards and on four positions of one
+    card (``make_mesh(devices=["cuda:0"] * 4)``, a stream each; they
+    measure the dispatch path, not multi-card scaling): ``encode_sharded``
+    of an [8, 10, 16 MiB] slab from ``--seed`` on both, a second call
+    (which must build nothing and hit the dispatch cache) and the legacy
+    whole-array mode; ``encode_batch_parity`` of a ragged [3, 10, 16 MiB
+    + 12,345] batch with and without ``defer``; ``sharded_ec_step`` of
+    [2, 10, 64 MiB], its checksum equal to numpy's uint32 sum with at
+    least one entry past 2^32; ``encode_stripe_psum`` of [10, 4 MiB] on
+    4 and 3 positions; ``write_ec_files_batch(mesh=...)`` of phase 9's
+    volumes on both meshes, every shard hashing equal to phase 9's; the
+    device ledger around one 4-position encode (rows 0–3, lanes d0–d3,
+    the stage total, the imbalance); and a sweep of
+    ``encode_batch_parity`` on 1, 2 and 4 positions (median of 3) with
+    ``decompose_scaling`` over the distinct cards. Every parity is held
+    to the plain version byte for byte, and gf_swar_u8 must have been
+    launched once a position a dispatch, in its compile-time RS(10,4)
+    form; its ``multigpu`` JSON line.
 
 Phases 4, 5 (with 6), 9 and 10 pin their codecs to
 ``link_aware=False`` (the size floor alone decides their routes), so
 their expected launches and host dispatches follow from the widths;
 phase 11 runs the link-aware default.
 
-It prints ``read_decode`` and ``routing`` JSON lines, one JSON line
+It prints ``read_decode``, ``routing`` and ``multigpu`` JSON lines, one
+JSON line
 describing every kernel, then, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository beside it, it exits non-zero and prints no result.
@@ -1303,6 +1323,279 @@ def phase_routing(args, torch, dev, smi, volume_hashes, reset_counts,
     }, path
 
 
+def seeded_slab(shape: tuple[int, ...], seed: int) -> np.ndarray:
+    """Random bytes of ``shape`` from ``seed``, made 64 MiB at a time."""
+    out = np.empty(shape, dtype=np.uint8)
+    flat = out.reshape(-1)
+    rng = np.random.default_rng(seed)
+    for off in range(0, flat.size, 64 * MIB):
+        n = min(64 * MIB, flat.size - off)
+        flat[off:off + n] = np.frombuffer(rng.bytes(n), dtype=np.uint8)
+    return out
+
+
+def phase_multigpu(args, torch, smi, batch, agree, reset_counts, counters):
+    """Phase 12: the multi-GPU compute plane, on the visible cards and on
+    positions that share the card. Returns the phase's row and the
+    launch counts of its path."""
+    from seaweedfs_tpu_torch.ops import gf256
+    from seaweedfs_tpu_torch.ops.kernels import gf_swar_u8
+    from seaweedfs_tpu_torch.parallel import (
+        ec_sharded,
+        encode_batch_parity,
+        encode_sharded,
+        encode_stripe_psum,
+        make_mesh,
+        sharded_ec_step,
+    )
+    from seaweedfs_tpu_torch.storage.erasure_coding import encoder, layout
+    from seaweedfs_tpu_torch.telemetry import devices
+    from seaweedfs_tpu_torch.telemetry.phases import PhaseTimer
+
+    k, m = 10, 4
+    matrix = gf256.parity_matrix(k, m)
+    cards = torch.cuda.device_count()
+    card = torch.device("cuda", 0)
+
+    def plain_parity(data: np.ndarray):
+        """The plain version's parity of host data[..., k, N], computed
+        on the card, as a host tensor."""
+        x = torch.from_numpy(data).to(card)
+        return gf_swar_u8.gf_matmul_plain(matrix, x).cpu()
+
+    def dispatches() -> int:
+        st = ec_sharded.cache_stats()
+        return st["hits"] + st["misses"]
+
+    reset_counts()
+    # gf_swar_u8 launches the path must make: one a position a dispatch
+    expected = 0
+
+    # -- meshes ------------------------------------------------------------
+    mesh_cards = make_mesh()
+    mesh4 = make_mesh(devices=["cuda:0"] * 4)
+    check(mesh_cards.size == cards, f"make_mesh() has {mesh_cards.size} "
+                                    f"positions for {cards} cards")
+    say(f"meshes ({smi}): make_mesh() {mesh_cards.shape} over {cards} "
+        f"card(s); make_mesh(devices=['cuda:0'] * 4) {mesh4.shape}, four "
+        "positions on one card, a stream each")
+    meshes = (("cards", mesh_cards), ("4-position", mesh4))
+    row = {"card": smi, "cards": cards,
+           "meshes": {name: mesh.shape for name, mesh in meshes}}
+
+    # -- encode_sharded, cached and legacy ---------------------------------
+    shape = (8, k, 16 * MIB)
+    slab = seeded_slab(shape, args.seed + 100)
+    want = plain_parity(slab)
+    row["encode_sharded"] = {}
+    for name, mesh in meshes:
+        times = {}
+        for mode in ("first", "again", "legacy"):
+            builds = ec_sharded.trace_counts()
+            hits = ec_sharded.cache_stats()["hits"]
+            if mode == "legacy":
+                os.environ["SEAWEEDFS_SHARDED_LEGACY"] = "1"
+            try:
+                t0 = time.perf_counter()
+                out = np.asarray(encode_sharded(slab, mesh, k, m))
+                times[mode] = time.perf_counter() - t0
+            finally:
+                os.environ.pop("SEAWEEDFS_SHARDED_LEGACY", None)
+            expected += mesh.size
+            check(out.shape == (8, k + m, 16 * MIB)
+                  and np.array_equal(out[:, :k], slab),
+                  f"encode_sharded on {name} ({mode}): data rows differ")
+            agree("gf_swar_u8", torch.from_numpy(out[:, k:]), want,
+                  f"encode_sharded [8,10,16MiB] on {name} ({mode})")
+            if mode != "first":
+                check(ec_sharded.trace_counts() == builds,
+                      f"encode_sharded on {name} ({mode}) built a dispatch")
+            if mode == "again":
+                check(ec_sharded.cache_stats()["hits"] > hits,
+                      f"encode_sharded on {name} again missed the cache")
+            del out
+        row["encode_sharded"][name] = {
+            mode: {"seconds": t, "GBps": slab.nbytes / t / 1e9}
+            for mode, t in times.items()}
+        say(f"encode_sharded [8,10,16MiB] on {name} {mesh.shape}: " + ", ".join(
+            f"{mode} {t:.4f} s = {slab.nbytes / t / 1e9:.3f} GB/s"
+            for mode, t in times.items())
+            + "; byte-exact, the second call built nothing")
+
+    # -- encode_batch_parity on a ragged batch -----------------------------
+    rag = seeded_slab((3, k, 16 * MIB + 12345), args.seed + 101)
+    want_rag = plain_parity(rag)
+    row["batch_parity_ragged"] = {}
+    for defer in (False, True):
+        t0 = time.perf_counter()
+        got = encode_batch_parity(rag, mesh4, k, m, defer=defer)
+        if defer:
+            got = got()
+        secs = time.perf_counter() - t0
+        expected += mesh4.size
+        agree("gf_swar_u8", torch.from_numpy(got), want_rag,
+              f"encode_batch_parity [3,10,16MiB+12345] defer={defer}")
+        row["batch_parity_ragged"][f"defer={defer}"] = secs
+    say("encode_batch_parity [3,10,16MiB+12345] on the 4-position mesh "
+        "(folded to (1, 4)): byte-exact with and without defer")
+    del rag, want_rag
+
+    # -- sharded_ec_step: the checksum wraps as uint32 ---------------------
+    step = seeded_slab((2, k, 64 * MIB), args.seed + 102)
+    want_step = plain_parity(step)
+    shards, checksum = sharded_ec_step(step, mesh4, k, m)
+    expected += mesh4.size
+    shards, checksum = np.asarray(shards), np.asarray(checksum)
+    check(np.array_equal(shards[:, :k], step),
+          "sharded_ec_step: data rows differ")
+    agree("gf_swar_u8", torch.from_numpy(shards[:, k:]), want_step,
+          "sharded_ec_step [2,10,64MiB]")
+    check(checksum.dtype == np.uint32 and np.array_equal(
+        checksum, shards.sum(axis=-1, dtype=np.uint32)),
+        "sharded_ec_step checksum != numpy's uint32 sum of the shards")
+    past = int((shards.sum(axis=-1, dtype=np.uint64) >= 1 << 32).sum())
+    check(past >= 1, "no checksum entry passed 2^32: the wrap is untested")
+    row["checksum_entries_past_2_32"] = past
+    say(f"sharded_ec_step [2,10,64MiB]: byte-exact; checksum equals "
+        f"numpy's uint32 sum, {past} of {checksum.size} entries past 2^32")
+    del step, want_step, shards, checksum
+
+    # -- the stripe psum ---------------------------------------------------
+    stripe = seeded_slab((k, 4 * MIB), args.seed + 103)
+    want_stripe = plain_parity(stripe).numpy()
+    for n in (4, 3):
+        mesh = make_mesh(n, ("stripe",), devices=["cuda:0"] * n)
+        got = np.asarray(encode_stripe_psum(stripe, mesh, k, m))
+        check(np.array_equal(got, want_stripe),
+              f"encode_stripe_psum on {n} positions differs from plain")
+    say("encode_stripe_psum [10,4MiB] on 4 and 3 positions (80 bit rows "
+        "ragged over 3): equal to the plain version")
+
+    # -- write_ec_files_batch over the meshes ------------------------------
+    bases, hashes = batch
+    sizes = [os.path.getsize(b + ".dat") for b in bases]
+    total_bytes = sum(sizes)
+    row["batch_encode"] = {}
+    for name, mesh in meshes:
+        want_disp = sum(
+            sum(-(-bs // encoder.choose_pipeline(
+                size, volumes=sizes.count(size), devices=mesh.size)[0])
+                for _, bs in layout.encode_row_plan(size))
+            for size in set(sizes))
+        before = dispatches()
+        pt = PhaseTimer("ec.encode.batch")
+        t0 = time.perf_counter()
+        out = encoder.write_ec_files_batch(bases, mesh=mesh, phases=pt)
+        secs = time.perf_counter() - t0
+        got_disp = dispatches() - before
+        check(got_disp == want_disp, f"mesh batch encode on {name} made "
+                                     f"{got_disp} dispatches, its chunks "
+                                     f"are {want_disp}")
+        expected += got_disp * mesh.size
+        for b in bases:
+            for i, p in enumerate(out[b]):
+                check(sha256_file(p) == hashes[b][i],
+                      f"mesh batch shard {p} on {name} differs from phase 9")
+        summary = pt.summary()
+        phases = summary["phases"]
+        row["batch_encode"][name] = {
+            "seconds": secs, "GBps": total_bytes / secs / 1e9,
+            "dispatches": got_disp,
+            "phases": {p: phases[p]["seconds"] for p in phases},
+            "notes": summary.get("notes", {}),
+        }
+        say(f"write_ec_files_batch(mesh={name} {mesh.shape}) of "
+            f"{len(bases)} volumes ({total_bytes} bytes): {secs:.3f} s = "
+            f"{total_bytes / secs / 1e9:.3f} GB/s, {got_disp} dispatches; "
+            f"every shard hashes equal to phase 9's; busy s " + " ".join(
+                f"{p}={phases[p]['seconds']:.3f}"
+                for p in ("read", "stage", "h2d", "codec", "write", "flush")
+                if p in phases))
+
+    # -- the ledger around one 4-position encode ---------------------------
+    base = devices.LEDGER.baseline()
+    t0 = time.perf_counter()
+    encode_sharded(slab, mesh4, k, m)
+    wall = time.perf_counter() - t0
+    expected += mesh4.size
+    snap = devices.LEDGER.snapshot(base)
+    rows = snap["devices"]
+    check([r["device"] for r in rows] == ["0", "1", "2", "3"],
+          f"ledger rows {[r['device'] for r in rows]}")
+    for r in rows:
+        check(0 < r["busy_s"] <= wall, f"ledger row {r['device']} busy "
+                                       f"{r['busy_s']} s of {wall} s wall")
+    lanes = snap["lanes"]
+    check(sorted(lr["lane"] for lr in lanes) == ["d0", "d1", "d2", "d3"]
+          and all(lr["bytes"] > 0 for lr in lanes),
+          f"staging lanes {lanes}")
+    check(snap["totals"]["stage_s"] > 0, "no staging seconds recorded")
+    imb = snap["imbalance"]
+    check(imb["max_s"] >= imb["min_s"] > 0, f"imbalance {imb}")
+    row["ledger"] = {"wall_s": wall, "devices": rows, "lanes": lanes,
+                     "totals": snap["totals"], "imbalance": imb}
+    say(f"ledger around one 4-position encode_sharded ({wall:.4f} s): busy "
+        + " ".join(f"{r['device']}={r['busy_s']:.6f}" for r in rows)
+        + f" s; lanes " + " ".join(
+            f"{lr['lane']}={lr['bytes']}B/{lr['busy_s']:.6f}s" for lr in lanes)
+        + f"; stage {snap['totals']['stage_s']:.6f} s; imbalance {imb}")
+
+    # -- the sweep: one slab on 1, 2 and 4 positions -----------------------
+    sec: dict[str, float] = {}
+    comp: dict[str, float] = {}
+    reps = 3
+    for n in (1, 2, 4):
+        mesh = make_mesh(devices=["cuda:0"] * n)
+        encode_batch_parity(slab, mesh, k, m)  # builds the entry
+        base = devices.LEDGER.baseline()
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            encode_batch_parity(slab, mesh, k, m)
+            walls.append(time.perf_counter() - t0)
+        expected += n * (reps + 1)
+        sec[str(n)] = statistics.median(walls)
+        if n == 4:
+            snap = devices.LEDGER.snapshot(base)
+            comp = {
+                "serial_host": snap["totals"].get("stage_s", 0.0) / reps,
+                "launch_serialization":
+                    snap["totals"].get("launch_s", 0.0) / reps,
+                "transfer": sum(
+                    r.get("h2d_s_est", 0.0) + r.get("d2h_s_est", 0.0)
+                    for r in snap["devices"]) / reps,
+                "imbalance": max((r.get("ready_spread_s", 0.0)
+                                  for r in snap["devices"]),
+                                 default=0.0) / reps,
+            }
+    decomp = devices.decompose_scaling(sec, comp, 4, parallelism=cards)
+    total = sum(decomp["fractions"].values())
+    check(abs(total - 1) <= 0.01, f"decomposition fractions sum to {total}")
+    row["sweep"] = {
+        "slab_bytes": slab.nbytes, "reps": reps, "sec_per_step": sec,
+        "GBps": {n: slab.nbytes / t / 1e9 for n, t in sec.items()},
+        "components": comp, "decomposition": decomp,
+    }
+    say(f"sweep encode_batch_parity [8,10,16MiB] ({smi}), median of {reps}: "
+        + ", ".join(f"{n} position(s) {t:.4f} s = "
+                    f"{slab.nbytes / t / 1e9:.3f} GB/s"
+                    for n, t in sec.items())
+        + f"; decomposition at 4 over {cards} card(s): "
+        + json.dumps(decomp["fractions"]))
+
+    torch.cuda.synchronize()
+    counts = {name: c.value for name, c in counters.items()}
+    check(counts["gf_swar_u8"] == expected
+          and counts["gf_swar_u8_rs10x4"] == expected,
+          f"gf_swar_u8 launched {counts['gf_swar_u8']} times "
+          f"({counts['gf_swar_u8_rs10x4']} in the compile-time RS(10,4) "
+          f"form); one a position a dispatch is {expected}")
+    row["gf_swar_u8_launches"] = expected
+    say(f"phase 12 launches: gf_swar_u8 {expected}, one a position a "
+        "dispatch, all in the compile-time RS(10,4) form")
+    return row, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1377,6 +1670,7 @@ PATH_KERNELS = {
     "batch_encode": ("gf_swar",),
     "read_decode": ("gf_swar",),
     "routing": ("gf_swar",),
+    "multigpu": ("gf_swar_u8",),
 }
 
 
@@ -2529,20 +2823,32 @@ def run(args, torch, here: str) -> int:
         ) + f" wall={summary['wall_seconds']:.3f} "
             f"notes={json.dumps(summary.get('notes', {}))}")
         say(json.dumps({"batch_encode": batch_row}))
+    except BaseException:
+        shutil.rmtree(batch_dir, ignore_errors=True)
+        raise
+
+    # phase 12 encodes phase 9's volumes again, so they stay until then
+    try:
+        # -- 10. the EC read path and ec.decode -----------------------------
+        read_row, path_launches["read_decode"] = phase_read_decode(
+            args, torch, dev, agree, reset_counts, counters)
+        check_path("read_decode")
+        say(json.dumps({"read_decode": read_row, "card": smi}))
+
+        # -- 11. routing and observability ----------------------------------
+        routing_row, path_launches["routing"] = phase_routing(
+            args, torch, dev, smi, volume_hashes, reset_counts, counters)
+        check_path("routing")
+        say(json.dumps({"routing": routing_row}))
+
+        # -- 12. the multi-GPU compute plane --------------------------------
+        multigpu_row, path_launches["multigpu"] = phase_multigpu(
+            args, torch, smi, (bases, hashes), agree, reset_counts,
+            counters)
+        check_path("multigpu")
+        say(json.dumps({"multigpu": multigpu_row}))
     finally:
         shutil.rmtree(batch_dir, ignore_errors=True)
-
-    # -- 10. the EC read path and ec.decode ---------------------------------
-    read_row, path_launches["read_decode"] = phase_read_decode(
-        args, torch, dev, agree, reset_counts, counters)
-    check_path("read_decode")
-    say(json.dumps({"read_decode": read_row, "card": smi}))
-
-    # -- 11. routing and observability --------------------------------------
-    routing_row, path_launches["routing"] = phase_routing(
-        args, torch, dev, smi, volume_hashes, reset_counts, counters)
-    check_path("routing")
-    say(json.dumps({"routing": routing_row}))
 
     kernels = []
     for name, (_, source, replaces, *also) in KERNELS.items():

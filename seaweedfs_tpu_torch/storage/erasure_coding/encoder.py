@@ -18,17 +18,17 @@ returns to the ring only after the writer finished its chunk (the
 in-flight fence), so it is never refilled while the codec or the writer
 may still read it.
 
-``write_ec_files_batch`` encodes many volumes at once on one card: the
-volumes of one ``.dat`` size share a chunk plan, and each chunk of all of
-them goes to the codec as one lane-packed [k, V·n] slab.
+``write_ec_files_batch`` encodes many volumes at once: the volumes of
+one ``.dat`` size share a chunk plan. On one card each chunk of all of
+them goes to the codec as one lane-packed [k, V·n] slab; over a mesh of
+device positions (``parallel/``; the default with two or more cards)
+the chunks stack as [V, k, n] slabs through ``encode_batch_parity``,
+volumes over the mesh's "vol" axis and columns over "seq".
 
 ``batch_bytes`` and the pipeline depth size themselves from the
 ``ops/link.py`` routing EWMAs (:func:`choose_pipeline`) unless the
 caller pins them, and every volume reader records its busy time as a
 host staging lane of the device ledger (``telemetry/devices.py``).
-
-Left for a later slice: the mesh branch of ``write_ec_files_batch``
-(multi-GPU).
 """
 
 from __future__ import annotations
@@ -43,8 +43,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from ... import resolve_device
 from ...ops import codec as codec_mod
 from ...ops import link as link_mod
+from ...parallel import encode_batch_parity, make_mesh
 from ...telemetry.devices import LEDGER as _DEVICE_LEDGER
 from .. import idx as idx_mod
 from . import constants as C
@@ -164,6 +166,40 @@ class _SlabRing:
 
     def release(self, slab: np.ndarray) -> None:
         self._free.put(slab)
+
+
+class _Materializer:
+    """Wrap a zero-arg materialise function as a ``.result()`` handle."""
+
+    def __init__(self, fn):
+        self._fn = fn
+
+    def result(self):
+        return self._fn()
+
+
+class _MeshEncoder:
+    """The mesh branch's encoder, in the codec's shape for the pipeline:
+    ``encode_async`` of a stacked [V, k, n] host slab enqueues
+    ``encode_batch_parity`` over ``mesh`` (staging and the sharded
+    dispatch) and hands back the D2H for the writer thread."""
+
+    def __init__(self, mesh, data_shards: int, parity_shards: int):
+        self.mesh = mesh
+        self.data_shards = data_shards
+        self.parity_shards = parity_shards
+        self.total_shards = data_shards + parity_shards
+
+    @staticmethod
+    def host_zeros(shape: tuple[int, ...]) -> np.ndarray:
+        # each staging lane copies its tile to a pinned buffer of its own
+        return np.zeros(shape, dtype=np.uint8)
+
+    def encode_async(self, data: np.ndarray) -> _Materializer:
+        return _Materializer(encode_batch_parity(
+            data, self.mesh, self.data_shards, self.parity_shards,
+            defer=True,
+        ))
 
 
 @contextlib.contextmanager
@@ -338,6 +374,17 @@ def write_ec_files(
     )[base]
 
 
+def _default_mesh(device=None):
+    """A ("vol", "seq") mesh over every visible card, or None for
+    ``device="cpu"`` or fewer than two cards (one card stays on the
+    lane-packed codec path)."""
+    if device is not None and torch.device(device).type == "cpu":
+        return None
+    if torch.cuda.device_count() < 2:
+        return None
+    return make_mesh()
+
+
 def write_ec_files_batch(
     base_file_names: list[str | os.PathLike],
     large_block_size: int = C.LARGE_BLOCK_SIZE,
@@ -350,26 +397,39 @@ def write_ec_files_batch(
     device: str | torch.device | None = None,
     rs: codec_mod.RSCodec | None = None,
 ) -> dict[str, list[str]]:
-    """Encode many volumes at once on one card; returns {base: [shard
-    paths]}, the files byte-identical to per-volume :func:`write_ec_files`.
+    """Encode many volumes at once; returns {base: [shard paths]}, the
+    files byte-identical to per-volume :func:`write_ec_files`.
 
-    The counterpart of the reference's ``write_ec_files_batch`` with
-    ``mesh=None`` on one chip (encoder.py:507-705): volumes of one
-    ``.dat`` size share a row plan, so they go in lockstep; each volume's
-    chunk is read into its column band of one pinned [k, V·n] slab, and
-    the codec encodes the slab in one launch (GF(2^8) arithmetic is
-    column-wise, so side-by-side volumes give each volume's own parity).
-    Each volume has its own reader and writer worker, so the volumes'
-    disk reads and shard writes overlap. ``device`` and ``rs`` are as
-    for :func:`write_ec_files` (``rs``, when given, must be
-    RS(data_shards, parity_shards)). A ``mesh`` (the reference's
-    multi-chip branch) raises: multi-GPU encode is not ported yet."""
+    The counterpart of the reference's ``write_ec_files_batch``
+    (encoder.py:507-705): volumes of one ``.dat`` size share a row plan,
+    so they go in lockstep, and each volume has its own reader and
+    writer worker, so the volumes' disk reads and shard writes overlap.
+
+    * One card (no ``mesh``): each volume's chunk is read into its column
+      band of one pinned [k, V·n] slab, and the codec encodes the slab in
+      one launch (GF(2^8) arithmetic is column-wise, so side-by-side
+      volumes give each volume's own parity). ``device`` and ``rs`` are
+      as for :func:`write_ec_files` (``rs``, when given, must be
+      RS(data_shards, parity_shards)).
+    * A ``mesh`` (``parallel.make_mesh``; by default every card when two
+      or more are visible and neither ``rs`` nor ``device="cpu"`` is
+      given): the chunks stack as [V, k, n] slabs through
+      ``encode_batch_parity(..., defer=True)``, the writer thread pays
+      the D2H, and the pipeline depth counts ``mesh.size`` devices. A
+      mesh with an ``rs``, or with a ``device`` that is none of its
+      positions, raises ``ValueError``."""
+    if mesh is None and rs is None:
+        mesh = _default_mesh(device)
     if mesh is not None:
-        raise NotImplementedError(
-            "write_ec_files_batch runs on one card; the mesh branch comes "
-            "with the multi-GPU compute plane (ROADMAP queue 1 item 10)"
-        )
-    rs = rs or codec_mod.RSCodec(data_shards, parity_shards, device)
+        if rs is not None:
+            raise ValueError("a mesh encodes through encode_batch_parity; "
+                             "pass no rs with it")
+        if device is not None and resolve_device(device) not in set(
+                mesh.devices.flat):
+            raise ValueError(f"device {device} is not a position of {mesh}")
+        rs = _MeshEncoder(mesh, data_shards, parity_shards)
+    else:
+        rs = rs or codec_mod.RSCodec(data_shards, parity_shards, device)
     if (rs.data_shards, rs.parity_shards) != (data_shards, parity_shards):
         raise ValueError(
             f"codec is RS({rs.data_shards},{rs.parity_shards}), not "
@@ -393,12 +453,17 @@ def _encode_lockstep(rs, group: list[str], dat_size: int,
                      large_block_size: int, small_block_size: int,
                      batch_bytes: int | None,
                      phases) -> dict[str, list[str]]:
-    """Encode the volumes of one ``.dat`` size in lockstep: chunk by chunk,
-    volume v's chunk in column band [v·n, (v+1)·n) of one [k, V·n] slab
-    from the ring, one codec launch a slab."""
+    """Encode the volumes of one ``.dat`` size in lockstep, chunk by
+    chunk, one launch a slab from the ring: on a codec, volume v's chunk
+    in column band [v·n, (v+1)·n) of one [k, V·n] slab; on a
+    :class:`_MeshEncoder`, in row v of one stacked [V, k, n] slab."""
     k, total = rs.data_shards, rs.total_shards
     nvol = len(group)
-    batch, depth = choose_pipeline(dat_size, k, batch_bytes, volumes=nvol)
+    stacked = isinstance(rs, _MeshEncoder)
+    batch, depth = choose_pipeline(
+        dat_size, k, batch_bytes, volumes=nvol,
+        devices=rs.mesh.size if stacked else 1,
+    )
     rows = encode_row_plan(dat_size, large_block_size, small_block_size, k)
     # (row start, block size, chunk offset, chunk len) work list
     chunks = [
@@ -415,7 +480,10 @@ def _encode_lockstep(rs, group: list[str], dat_size: int,
     paths = {b: [b + C.to_ext(i) for i in range(total)] for b in group}
     buffering = _write_buffering(nvol * total, max_n)
     # depth queued writes + 1 write-ahead read + 1 being encoded
-    ring = _SlabRing(depth + 1, (k, nvol * max_n), rs.host_zeros)
+    ring = _SlabRing(
+        depth + 1, (nvol, k, max_n) if stacked else (k, nvol * max_n),
+        rs.host_zeros,
+    )
     in_flight: dict[int, np.ndarray] = {}
 
     def read_fn(ci: int) -> np.ndarray:
@@ -423,14 +491,14 @@ def _encode_lockstep(rs, group: list[str], dat_size: int,
         slab = ring.acquire()
         in_flight[ci] = slab
         pristine = ring.take_pristine(slab)
-        out = slab[:, : nvol * n]
+        out = slab[:, :, :n] if stacked else slab[:, : nvol * n]
 
         def fill_band(vi: int) -> None:
             t0 = time.perf_counter()
             _read_row_chunk(
                 dats[vi], start, bs, co, n, k,
-                out=out[:, vi * n:(vi + 1) * n], pt=phases,
-                assume_zero=pristine,
+                out=out[vi] if stacked else out[:, vi * n:(vi + 1) * n],
+                pt=phases, assume_zero=pristine,
             )
             _DEVICE_LEDGER.record_lane(vi, time.perf_counter() - t0, k * n)
 
@@ -438,13 +506,17 @@ def _encode_lockstep(rs, group: list[str], dat_size: int,
         return out
 
     def write_volume(ci, data, parity, vi):
-        n = chunks[ci][3]
-        band = slice(vi * n, (vi + 1) * n)
         files = shard_files[vi * total:(vi + 1) * total]
+        if stacked:
+            vol_data, vol_parity = data[vi], parity[vi]
+        else:
+            n = chunks[ci][3]
+            band = slice(vi * n, (vi + 1) * n)
+            vol_data, vol_parity = data[:, band], parity[:, band]
         for i in range(k):
-            _write_row(files[i], data[i, band])
+            _write_row(files[i], vol_data[i])
         for j in range(total - k):
-            _write_row(files[k + j], parity[j, band])
+            _write_row(files[k + j], vol_parity[j])
 
     def write_fn(ci, data, parity):
         list(writers.map(lambda vi: write_volume(ci, data, parity, vi),

@@ -1,31 +1,46 @@
-"""Per-device dispatch ledger.
+"""Per-device dispatch ledger + scaling-efficiency decomposer.
 
-The port's counterpart of ``seaweedfs_tpu/telemetry/devices.py``, with
-its single-device seams and views. It answers where the card's time
-went, per device, before anyone claims a scaling win:
+The port's counterpart of ``seaweedfs_tpu/telemetry/devices.py``. It
+answers where a dispatch's wall time went, per device position, before
+anyone claims a scaling win. The ledger wraps the dispatch layer at two
+seams:
 
+* **sharded paths** (``parallel/ec_sharded.py``) call
+  :meth:`DeviceLedger.observe_sharded` on their output
+  (``ec_sharded.ShardedArray``): each position's ready event is waited
+  on in turn, on the host clock from one start, so compute-busy is the
+  measured wait for THAT position's tile, never the launch-only time
+  the enqueue returns in. The per-dispatch ready spread (max−min) is the
+  imbalance signal; sequential waiting makes it a lower bound, the
+  honest direction for a gate. Rows are labelled by mesh position
+  (``"0"`` … ``"N-1"``), since positions on one card share its device
+  index;
 * **codec dispatches** arrive through the ``ops/profiler.py`` bridge
   (:meth:`DeviceLedger.on_codec_dispatch`): the ``cuda`` backend's
   dispatches attribute wall-incl-sync seconds (staging, H2D, kernel and
   the D2H wait) and input bytes to the default device's row, ``"0"``;
   the native host codec and the plain version (``cpu``) are not device
-  work and are ignored;
-* **host staging lanes** are fed by the slab readers of
-  ``storage/erasure_coding/encoder.py`` (one lane per volume reader).
+  work and are ignored.
 
-H2D seconds are *estimates* from the byte counts and the
-``ops/link.py`` probe bandwidth. Everything is exposed as bounded-label
+Host staging lanes are fed by the slab readers of
+``storage/erasure_coding/encoder.py`` (one lane per volume reader) and
+by ``ec_sharded.stage_lanes`` (one lane ``d<position>`` per position).
+H2D/D2H seconds are *estimates* from the byte counts and the
+``ops/link.py`` probe bandwidths. Everything is exposed as bounded-label
 metrics of the port's registry (``seaweedfs_device_busy_seconds{device}``
 and four more families; lane labels are clamped) and as
 :meth:`DeviceLedger.snapshot` / :meth:`DeviceLedger.summary`.
 
-The sharded seam (``observe_sharded``) and the scaling decomposition
-come with the port's multi-GPU compute plane.
+On top of the ledger, :func:`decompose_scaling` turns the 1→N scaling
+gap into named fractions (serial host, launch serialization, transfer,
+imbalance, compute serialization, and the collective residual) that sum
+to 1.0 by construction.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 
 from ..ops import link
 from ..stats.metrics import REGISTRY
@@ -117,6 +132,74 @@ class DeviceLedger:
 
     # -- attribution -----------------------------------------------------
 
+    def observe_sharded(self, out, *, launch_seconds: float = 0.0,
+                        in_bytes: int = 0, out_bytes: int = 0) -> dict | None:
+        """Attribute one sharded dispatch: wait on each position's ready
+        event in turn, timing when each position's tile became ready.
+
+        Per-position busy is the measured wait for that tile (it
+        includes the H2D it was waiting on: end to end, the honest
+        number); the ready spread (max−min) across positions is the
+        imbalance signal, a lower bound since the waits are sequential.
+        Transfer seconds are estimated from the byte split and the
+        link-probe bandwidths. Returns the per-dispatch record, or None
+        if ``out`` exposes no shards."""
+        try:
+            shards = list(out.addressable_shards)
+        except AttributeError:
+            return None
+        if not shards:
+            return None
+        t0 = time.perf_counter()
+        ready: list[tuple[str, str, float]] = []
+        for sh in shards:
+            sh.wait()
+            ready.append((
+                str(sh.position),
+                sh.device.type,
+                time.perf_counter() - t0,
+            ))
+        offsets = [r[2] for r in ready]
+        spread = max(offsets) - min(offsets)
+        n = len(ready)
+        per_in = in_bytes // n
+        per_out = out_bytes // n
+        h2d_gbps, d2h_gbps = _transfer_estimates()
+        h2d_est = per_in / (h2d_gbps * 1e9) if h2d_gbps else 0.0
+        d2h_est = per_out / (d2h_gbps * 1e9) if d2h_gbps else 0.0
+        per_launch = launch_seconds / n
+        record = {
+            "devices": {},
+            "n_devices": n,
+            "launch_s": launch_seconds,
+            "ready_spread_s": spread,
+            "wall_s": max(offsets),
+        }
+        with self._lock:
+            self._totals["launch_s"] += launch_seconds
+            self._totals["dispatches"] += 1
+            for label, platform, off in ready:
+                row = self._devices.setdefault(label, _device_row())
+                row["platform"] = platform
+                row["busy_s"] += off
+                row["dispatches"] += 1
+                row["launch_s"] += per_launch
+                row["h2d_bytes"] += per_in
+                row["d2h_bytes"] += per_out
+                row["h2d_s_est"] += h2d_est
+                row["d2h_s_est"] += d2h_est
+                row["ready_spread_s"] += spread
+                record["devices"][label] = round(off, 6)
+        for label, _platform, off in ready:
+            DEVICE_BUSY_SECONDS.inc(label, amount=off)
+            DEVICE_DISPATCH_TOTAL.inc(label)
+            DEVICE_LAUNCH_SECONDS.inc(label, amount=per_launch)
+            if per_in:
+                DEVICE_TRANSFER_BYTES.inc(label, "h2d", amount=per_in)
+            if per_out:
+                DEVICE_TRANSFER_BYTES.inc(label, "d2h", amount=per_out)
+        return record
+
     def on_codec_dispatch(self, backend: str, in_bytes: int,
                           seconds: float) -> None:
         """ops/profiler.py bridge: a single-device codec dispatch
@@ -140,8 +223,8 @@ class DeviceLedger:
             DEVICE_TRANSFER_BYTES.inc(label, "h2d", amount=in_bytes)
 
     def record_stage(self, seconds: float) -> None:
-        """Serial host work a dispatch paid before launch (padding
-        copies, staging calls)."""
+        """Serial host work a sharded dispatch paid before launch
+        (padding copies, staging calls)."""
         if seconds <= 0:
             return
         with self._lock:
@@ -289,3 +372,117 @@ def _diff_state(cur: dict, base: dict) -> dict:
 
 
 LEDGER = DeviceLedger()
+
+
+# -- scaling decomposition -------------------------------------------------
+
+
+def scaling_efficiency(
+    sec_per_step: dict, parallelism: int | None = None
+) -> dict[int, float]:
+    """``{n: t(1) / (min(n, P) * t(n))}`` for every measured device
+    count — the same fixed-total-work slab encodes at every count, so
+    perfect scaling is t(n) = t(1)/n and efficiency 1.0.
+
+    ``parallelism`` P is the count of distinct compute units behind the
+    positions. On a mesh of distinct cards P == n_devices,
+    ``min(n, P) == n``, and this is the classic fixed-work efficiency.
+    On a mesh whose positions share cards (``["cuda:0"] * 4``) or the
+    CPU's cores (``["cpu"] * 8``) t(n) physically cannot drop below
+    t(1)/P — dividing by n would grade the dispatch path against a
+    speedup the hardware cannot express. ``min(n, P)`` is the
+    achievable-speedup denominator; callers that want the raw number
+    pass ``parallelism=None`` (the default, the reference's)."""
+    sec = {}
+    for k, v in (sec_per_step or {}).items():
+        try:
+            n = int(k)
+        except (TypeError, ValueError):
+            continue
+        if isinstance(v, (int, float)) and v > 0:
+            sec[n] = float(v)
+    t1 = sec.get(1)
+    if not t1:
+        return {}
+    cap = int(parallelism) if parallelism else None
+    return {
+        n: t1 / ((min(n, cap) if cap else n) * t)
+        for n, t in sorted(sec.items()) if n > 1
+    }
+
+
+def decompose_scaling(sec_per_step: dict, components: dict,
+                      n_devices: int,
+                      parallelism: int | None = None) -> dict:
+    """Amdahl-style decomposition of the scaling gap at ``n_devices``.
+
+    The gap is ``t(N) - t(1)/N`` — the seconds per step the sweep paid
+    beyond perfect scaling. ``components`` carries the measured
+    per-step seconds at N for the four attributable costs:
+
+    * ``serial_host``          — host staging/padding serial work
+    * ``launch_serialization`` — dispatch-enqueue time on the host
+    * ``transfer``             — estimated H2D+D2H seconds
+    * ``imbalance``            — max−min per-device busy (ready spread)
+
+    With ``parallelism`` P < N (positions sharing fewer cards or
+    cores) a fifth component is attributed:
+
+    * ``compute_serialization`` — ``t(1) * (1/min(N, P) - 1/N)``, the
+      part of the gap that is time-slicing, not dispatch cost: N
+      positions on P cards cannot beat t(1)/P no matter how clean the
+      dispatch path is. On a mesh of distinct cards P == N and this
+      term is exactly zero.
+
+    Whatever the measurements don't cover — cross-device sync,
+    collective overhead, and unattributed scheduler time — lands in
+    the ``collective`` residual, clamped at zero. Fractions are of the
+    total attributed gap (measured components + residual), so the
+    named fractions sum to 1.0 by construction; ``gap_seconds`` and
+    the raw per-component seconds ride along for absolute reading.
+
+    ``efficiency`` is ceiling-aware when P is given (see
+    :func:`scaling_efficiency`); the classic fixed-work number always
+    rides along as ``efficiency_raw``."""
+    eff = scaling_efficiency(sec_per_step, parallelism)
+    eff_raw = scaling_efficiency(sec_per_step)
+    sec = {int(k): float(v) for k, v in (sec_per_step or {}).items()
+           if isinstance(v, (int, float)) and float(v) > 0}
+    t1, tn = sec.get(1), sec.get(n_devices)
+    names = ("serial_host", "launch_serialization", "transfer",
+             "imbalance")
+    comp = {
+        name: max(0.0, float(components.get(name, 0.0) or 0.0))
+        for name in names
+    }
+    cap = min(n_devices, int(parallelism)) if parallelism else n_devices
+    comp["compute_serialization"] = (
+        t1 * (1.0 / cap - 1.0 / n_devices) if t1 else 0.0
+    )
+    if t1 is None or tn is None:
+        gap = 0.0
+    else:
+        gap = max(0.0, tn - t1 / n_devices)
+    residual = max(0.0, gap - sum(comp.values()))
+    total = sum(comp.values()) + residual
+    if total <= 0:
+        fractions = {name: 0.0 for name in comp}
+        fractions["collective"] = 1.0
+    else:
+        fractions = {
+            name: round(v / total, 4) for name, v in comp.items()
+        }
+        fractions["collective"] = round(residual / total, 4)
+    return {
+        "n_devices": n_devices,
+        "parallelism": int(parallelism) if parallelism else n_devices,
+        "gap_seconds": round(gap, 6),
+        "ideal_seconds": round(t1 / n_devices, 6) if t1 else None,
+        "efficiency": round(eff.get(n_devices, 0.0), 4),
+        "efficiency_raw": round(eff_raw.get(n_devices, 0.0), 4),
+        "seconds": {
+            **{k: round(v, 6) for k, v in comp.items()},
+            "collective": round(residual, 6),
+        },
+        "fractions": fractions,
+    }

@@ -20,6 +20,8 @@ from seaweedfs_tpu.storage.erasure_coding import (  # noqa: E402
     encoder as ref_encoder,
 )
 from seaweedfs_tpu_torch.ops import codec  # noqa: E402
+from seaweedfs_tpu_torch.parallel import make_mesh  # noqa: E402
+from seaweedfs_tpu_torch.parallel.mesh import Mesh  # noqa: E402
 from seaweedfs_tpu_torch.storage.erasure_coding import (  # noqa: E402
     constants as C,
     encoder,
@@ -131,8 +133,15 @@ def test_choose_pipeline_is_the_references_cold_link(monkeypatch, dat_size,
 
 def test_mesh_and_no_card_raise(tmp_path, monkeypatch):
     port, _ = write_volumes(str(tmp_path), [100])
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        write_ec_files_batch(port, mesh=object(), device="cpu")
+    # the mesh branch takes no codec, and only a device among its positions
+    mesh = make_mesh(2, devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="no rs"):
+        write_ec_files_batch(port, mesh=mesh,
+                             rs=codec.RSCodec(device="cpu"))
+    cards = Mesh(np.array([torch.device("cuda", 0)] * 2,
+                          dtype=object).reshape(1, 2), ("vol", "seq"))
+    with pytest.raises(ValueError, match="not a position"):
+        write_ec_files_batch(port, mesh=cards, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         write_ec_files_batch(port)

@@ -77,7 +77,10 @@ def test_port_files_exist():
                    ("fault", "__init__.py"),
                    ("ops", "link.py"),
                    ("ops", "profiler.py"),
-                   ("telemetry", "devices.py")):
+                   ("telemetry", "devices.py"),
+                   ("parallel", "__init__.py"),
+                   ("parallel", "mesh.py"),
+                   ("parallel", "ec_sharded.py")):
         assert os.path.join("seaweedfs_tpu_torch", *module) in names
     assert len(files) > 10
 
@@ -121,6 +124,7 @@ def test_importing_the_port_loads_no_jax():
         "import seaweedfs_tpu_torch.stats\n"
         "import seaweedfs_tpu_torch.tracing\n"
         "import seaweedfs_tpu_torch.fault\n"
+        "import seaweedfs_tpu_torch.parallel\n"
         "import seaweedfs_tpu_torch.tools.exp_dev8\n"
         "import seaweedfs_tpu_torch.tools.exp_dev8b\n"
         "import seaweedfs_tpu_torch.tools.exp_batched\n"
