@@ -143,15 +143,42 @@ Run from the root of the repository, on a machine with a CUDA card and
     to the plain version byte for byte, and gf_swar_u8 must have been
     launched once a position a dispatch, in its compile-time RS(10,4)
     form; its ``multigpu`` JSON line.
+13. one volume server on the card (``seaweedfs_tpu_torch/server``),
+    driven only through HTTP requests: ``VolumeServer(device="cuda")``
+    with its master on an unbound local port (every heartbeat and
+    ``/ec/lookup`` fails), its start timed with the failed heartbeat;
+    phase 10's needle volume (linked in) through ``/admin/volume_mount``;
+    ``/admin/assign_volume`` of a second volume, 1,000 needles sized as
+    phase 10's generator sizes them POSTed and read back byte-exact,
+    50 DELETEd, each then a 404 (writes/s, reads/s, p50/p99 ms);
+    ``/admin/readonly`` and ``/admin/ec/generate`` of the 1 GiB volume,
+    every ``.ec00–.ec13`` and the ``.ecx`` hashing equal to phase 10's
+    (GB/s and the response's ``timing``), ``/admin/ec/mount`` and
+    ``/admin/delete_volume``; ``/admin/ec/delete_shards`` of {0, 5, 11,
+    13} and 2,000 seeded live needles read byte-exact on 8 client
+    threads (needles/s, p50/p99 ms) with the
+    ``seaweedfs_codec_route_total`` delta, which must show link-aware
+    routes and no ``static`` one; ``/admin/ec/rebuild`` (the same four
+    ids, hashes equal), ``/admin/ec/mount`` and the sample again;
+    ``/admin/ec/to_volume`` (the ``.dat`` equal to the volume's live
+    extent, the ``.idx`` to the ``.ecx``) and the sample from the normal
+    volume; ``/admin/ec/generate_batch`` of the HTTP-written volume and
+    a small one, every shard hashing equal to ``write_ec_files`` of byte
+    copies. gf_swar must launch in its compile-time form for every
+    encode launch and its run-time form for the rebuild and for every
+    kernel-routed reconstruction; ``/metrics`` must list the three
+    volume-server families, the request counter and the latency
+    histogram counting exactly the data-plane requests sent. Its
+    ``volume_server`` JSON line.
 
 Phases 4, 5 (with 6), 9 and 10 pin their codecs to
 ``link_aware=False`` (the size floor alone decides their routes), so
 their expected launches and host dispatches follow from the widths;
 phase 11 runs the link-aware default.
 
-It prints ``read_decode``, ``routing`` and ``multigpu`` JSON lines, one
-JSON line
-describing every kernel, then, last,
+It prints ``read_decode``, ``routing``, ``multigpu`` and
+``volume_server`` JSON lines, one JSON line describing every kernel,
+then, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository beside it, it exits non-zero and prints no result.
 """
@@ -167,11 +194,13 @@ import json
 import os
 import re
 import shutil
+import socket
 import statistics
 import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -804,9 +833,13 @@ def crossover(torch, dev, seed, agree, reps):
     return rows, cross
 
 
-def phase_read_decode(args, torch, dev, agree, reset_counts, counters):
+def phase_read_decode(args, torch, dev, agree, reset_counts, counters,
+                      keep_dir):
     """Phase 10: the EC read path and ec.decode on a needle volume.
-    Returns the phase's row and the launch counts of its path."""
+    Returns the phase's row, the launch counts of its path, and what
+    phase 13 serves again: the generated ``1.dat`` (a hard link) and
+    ``1.idx`` in ``keep_dir``, the generator's live needles and the
+    hashes of the shards and ``.ecx`` the volume encoded to."""
     from seaweedfs_tpu_torch.ops.codec import RSCodec
     from seaweedfs_tpu_torch.storage.ec_volume import EcVolume
     from seaweedfs_tpu_torch.storage.erasure_coding import (
@@ -825,6 +858,8 @@ def phase_read_decode(args, torch, dev, agree, reset_counts, counters):
                                            args.seed)
         dat_size = os.path.getsize(base + ".dat")
         gen_s = time.perf_counter() - t0
+        os.link(base + ".dat", os.path.join(keep_dir, "1.dat"))
+        shutil.copyfile(base + ".idx", os.path.join(keep_dir, "1.idx"))
         # pinned to the size floor, as phases 4, 5 and 9: the expected
         # routes below follow from the widths alone
         rs = RSCodec(C.DATA_SHARDS, C.PARITY_SHARDS, device=dev,
@@ -836,6 +871,8 @@ def phase_read_decode(args, torch, dev, agree, reset_counts, counters):
         say(f"needle volume: {dat_size} bytes, {len(live)} live needles "
             f"and {len(deleted)} deleted, from seed {args.seed} in "
             f"{gen_s:.2f} s; encoded in {time.perf_counter() - t0:.2f} s")
+        encoded = {ext: sha256_file(base + ext) for ext in
+                   [C.to_ext(i) for i in range(C.TOTAL_SHARDS)] + [".ecx"]}
         keys = sorted(live)
         rng = np.random.default_rng(args.seed)
         sample = [keys[j] for j in sorted(rng.choice(
@@ -984,7 +1021,7 @@ def phase_read_decode(args, torch, dev, agree, reset_counts, counters):
         "reads": reads, "decode": decode, "crossover": rows,
         "crossover_bytes": cross, "floor_bytes": floor,
         "host_dispatches_in_path": path["codec_host"],
-    }, path
+    }, path, {"dir": keep_dir, "live": live, "encoded": encoded}
 
 
 def route_delta(link, before) -> dict[str, int]:
@@ -1596,6 +1633,380 @@ def phase_multigpu(args, torch, smi, batch, agree, reset_counts, counters):
     return row, counts
 
 
+def needle_cookies(dat: str, idx_path: str, keys) -> dict[int, int]:
+    """The cookie of each live needle in ``keys``, read from the header
+    of the record its last ``.idx`` entry points at."""
+    from seaweedfs_tpu_torch.storage import idx
+
+    with open(idx_path, "rb") as f:
+        entries = idx.parse_entries(f.read())
+    last = {int(k): int(o) for k, o in zip(entries["key"], entries["offset"])}
+    out = {}
+    with open(dat, "rb") as f:
+        for key in keys:
+            cookie, nid = struct.unpack(">IQ", os.pread(f.fileno(), 12,
+                                                        last[key]))
+            check(nid == key, f"needle {key:x}: its .idx entry points at "
+                              f"needle {nid:x}")
+            out[key] = cookie
+    return out
+
+
+def phase_volume_server(args, torch, smi, kept, reset_counts, counters):
+    """Phase 13: one port ``VolumeServer`` on the card, with no master,
+    driven only through HTTP requests. Returns the phase's row and the
+    launch counts of its path."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from seaweedfs_tpu_torch.ops import link
+    from seaweedfs_tpu_torch.ops.codec import RSCodec
+    from seaweedfs_tpu_torch.ops.kernels import gf_swar
+    from seaweedfs_tpu_torch.server.volume import VolumeServer
+    from seaweedfs_tpu_torch.stats import metrics as stats
+    from seaweedfs_tpu_torch.storage.erasure_coding import (
+        constants as C,
+        decoder,
+        encoder,
+    )
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+    from seaweedfs_tpu_torch.util import http
+
+    work = tempfile.mkdtemp(prefix="chip_smoke-server-", dir=args.workdir)
+    sent = {"get": 0, "post": 0}  # data-plane requests, as /metrics counts
+    row: dict = {"card": smi}
+    vs = None
+    # an unbound local port: every heartbeat and lookup fails
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        no_master = f"http://127.0.0.1:{probe.getsockname()[1]}"
+
+    def admin(path, body):
+        return http.post_json(f"{vs.url}{path}", body, timeout=600)
+
+    def get(fid, want):
+        t0 = time.perf_counter()
+        body = http.request("GET", f"{vs.url}/{fid}", timeout=120)
+        sec = time.perf_counter() - t0
+        check(body == want, f"GET {fid}: {len(body)} bytes differ from "
+                            f"the {len(want)} written")
+        return sec
+
+    def get_all(fids, want, threads=1):
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(threads) as pool:
+            lat = list(pool.map(lambda f: get(f, want(f)), fids))
+        wall = time.perf_counter() - t0
+        sent["get"] += len(fids)
+        return {"needles": len(fids), "threads": threads,
+                "per_s": len(fids) / wall, "wall_s": wall,
+                "latency_sum_s": sum(lat),
+                "p50_ms": percentile_ms(lat, 50),
+                "p99_ms": percentile_ms(lat, 99)}
+
+    def swar():
+        return (counters["gf_swar"].value,
+                counters["gf_swar_rs10x4"].value,
+                counters["codec_host"].value)
+
+    def delta(before):
+        now = swar()
+        return {"launches": now[0] - before[0],
+                "rs10x4": now[1] - before[1],
+                "host": now[2] - before[2]}
+
+    try:
+        # 2. the volume: phase 10's generated needles, linked in
+        src, live = kept["dir"], kept["live"]
+        os.link(os.path.join(src, "1.dat"), os.path.join(work, "1.dat"))
+        shutil.copyfile(os.path.join(src, "1.idx"),
+                        os.path.join(work, "1.idx"))
+        keys = sorted(live)
+        rng = np.random.default_rng(args.seed)
+        sample = [keys[j] for j in sorted(rng.choice(
+            len(keys), min(2000, len(keys)), replace=False))]
+        cookies = needle_cookies(os.path.join(work, "1.dat"),
+                                 os.path.join(work, "1.idx"), sample)
+        fids1 = {str(FileId(1, k, cookies[k])): k for k in sample}
+
+        def want1(fid):
+            i, n_bytes, _, _ = live[fids1[fid]]
+            return needle_payload(args.seed, i, n_bytes)
+
+        reset_counts()
+        route0 = link.ROUTE_TOTAL.values()
+        # 1. start, the failed heartbeat included
+        t0 = time.perf_counter()
+        vs = VolumeServer(no_master, [work], max_volume_counts=[8],
+                          device="cuda")
+        vs.start()
+        row["start_s"] = time.perf_counter() - t0
+        say(f"volume server on {vs.url} ({vs.device}), master "
+            f"{no_master} unbound: started in {row['start_s']:.3f} s, "
+            "its heartbeat failed (stream, POST, no peers)")
+        check(admin("/admin/volume_mount", {"volume": 1}) == {"ok": True},
+              "volume_mount of the needle volume")
+        dat_bytes = os.path.getsize(os.path.join(work, "1.dat"))
+
+        # 3. writes and reads over HTTP on an assigned volume
+        admin("/admin/assign_volume", {"volume": 2})
+        wrng = np.random.default_rng([args.seed, 13])
+        writes = {}
+        for i in range(1000):
+            n = int(np.exp(wrng.uniform(np.log(1024), np.log(4 * MIB))))
+            fid = str(FileId(2, i + 1, int(wrng.integers(0, 1 << 32))))
+            writes[fid] = np.random.default_rng([args.seed, 13, i]).bytes(n)
+        lat = []
+        t0 = time.perf_counter()
+        for j, (fid, data) in enumerate(writes.items()):
+            q = f"?name=obj-{j:04d}.bin" if j % 2 else ""
+            t1 = time.perf_counter()
+            out = json.loads(http.request("POST", f"{vs.url}/{fid}{q}",
+                                          data, timeout=120))
+            lat.append(time.perf_counter() - t1)
+            check(out["size"] == len(data), f"POST {fid}: {out}")
+        write_s = time.perf_counter() - t0
+        sent["post"] += len(writes)
+        w_bytes = sum(len(d) for d in writes.values())
+        row["writes"] = {"needles": len(writes), "bytes": w_bytes,
+                         "per_s": len(writes) / write_s,
+                         "MBps": w_bytes / write_s / 1e6,
+                         "p50_ms": percentile_ms(lat, 50),
+                         "p99_ms": percentile_ms(lat, 99)}
+        row["reads"] = get_all(list(writes), writes.__getitem__)
+        doomed = list(writes)[::20]
+        for fid in doomed:
+            check(json.loads(http.request("DELETE", f"{vs.url}/{fid}"))
+                  ["size"] > 0, f"DELETE {fid}")
+            try:
+                http.request("GET", f"{vs.url}/{fid}")
+                raise AssertionError(f"deleted {fid} still reads")
+            except http.HttpError as e:
+                check(e.status == 404, f"GET of deleted {fid}: {e.status}")
+        sent["get"] += len(doomed)
+        for fid in doomed:
+            del writes[fid]
+        say(f"HTTP writes: {len(lat)} needles, {w_bytes} bytes, "
+            f"{row['writes']['per_s']:.1f} writes/s "
+            f"({row['writes']['MBps']:.1f} MB/s), p50 "
+            f"{row['writes']['p50_ms']:.4f} ms, p99 "
+            f"{row['writes']['p99_ms']:.4f} ms; reads byte-exact "
+            f"{row['reads']['per_s']:.1f} reads/s, p50 "
+            f"{row['reads']['p50_ms']:.4f} ms, p99 "
+            f"{row['reads']['p99_ms']:.4f} ms; {len(doomed)} deletes, "
+            "each then 404")
+
+        # 4. ec.encode as the shell drives it
+        base1 = os.path.join(work, "1")
+        admin("/admin/readonly", {"volume": 1})
+        before = swar()
+        t0 = time.perf_counter()
+        gen = admin("/admin/ec/generate", {"volume": 1})
+        gen_s = time.perf_counter() - t0
+        row["generate"] = {"seconds": gen_s, "GBps": dat_bytes / gen_s / 1e9,
+                           **delta(before),
+                           "phases": {p: v["seconds"] for p, v in
+                                      gen["timing"]["phases"].items()}}
+        for ext, want in kept["encoded"].items():
+            check(sha256_file(base1 + ext) == want,
+                  f"/admin/ec/generate: {ext} differs from phase 10's")
+        check(row["generate"]["launches"] > 0
+              and row["generate"]["launches"] == row["generate"]["rs10x4"],
+              f"generate's launches {row['generate']}: every one must take "
+              "gf_swar's compile-time RS(10,4) form")
+        admin("/admin/ec/mount", {"volume": 1,
+                                  "shard_ids": list(range(C.TOTAL_SHARDS))})
+        admin("/admin/delete_volume", {"volume": 1})
+        check(not os.path.exists(base1 + ".dat"), "the volume's .dat stays")
+        say(f"/admin/ec/generate of {dat_bytes} bytes: {gen_s:.3f} s = "
+            f"{row['generate']['GBps']:.3f} GB/s, {row['generate']} "
+            "; .ec00-.ec13 and .ecx hash equal to phase 10's; timing "
+            + " ".join(f"{p}={v:.3f}" for p, v in
+                       row["generate"]["phases"].items()))
+
+        # 5. degraded reads, over HTTP, with no master to ask
+        lost = [0, 5, 11, 13]
+        ecx = open(base1 + ".ecx", "rb").read()
+        admin("/admin/ec/delete_shards", {"volume": 1, "shard_ids": lost})
+        # thread-seconds in the master lookups and in the
+        # reconstructions: wrappers on this server's own methods,
+        # removed after the reads
+        ev = vs.store.find_ec_volume(1)
+        spent = {"lookup": [0, 0.0], "reconstruct": [0, 0.0]}
+        lock = threading.Lock()
+
+        def timed(name, fn):
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    with lock:
+                        spent[name][0] += 1
+                        spent[name][1] += time.perf_counter() - t0
+            return call
+
+        vs._cached_ec_locations = timed("lookup", vs._cached_ec_locations)
+        ev._reconstruct_interval = timed("reconstruct",
+                                         ev._reconstruct_interval)
+        before, routes0 = swar(), link.ROUTE_TOTAL.values()
+        try:
+            row["degraded"] = get_all(list(fids1), want1, threads=8)
+        finally:
+            del vs._cached_ec_locations, ev._reconstruct_interval
+        row["degraded"].update(delta(before))
+        row["degraded"].update(
+            lookups=spent["lookup"][0], lookup_s=spent["lookup"][1],
+            reconstructions=spent["reconstruct"][0],
+            reconstruct_s=spent["reconstruct"][1])
+        routes = route_delta(link, routes0)
+        row["degraded"]["routes"] = routes
+        check(not any(r.endswith("/static") for r in routes)
+              and any(r.split("/")[1] in ("link", "probe") for r in routes),
+              f"degraded reads routed {routes}: the server's EcVolume "
+              "must take the link-aware route above the floor")
+        kernel_routed = sum(n for r, n in routes.items()
+                            if r.startswith("device/"))
+        check(row["degraded"]["launches"] == kernel_routed > 0
+              and row["degraded"]["rs10x4"] == 0,
+              f"degraded reads: {row['degraded']} for {kernel_routed} "
+              "kernel-routed reconstructions, all in the run-time form")
+        say(f"degraded reads over HTTP, lost {lost}, no master: "
+            f"{len(fids1)} needles byte-exact on 8 client threads, "
+            f"{row['degraded']['per_s']:.1f} needles/s, p50 "
+            f"{row['degraded']['p50_ms']:.4f} ms, p99 "
+            f"{row['degraded']['p99_ms']:.4f} ms; routes {routes}; "
+            f"gf_swar {row['degraded']['launches']}, host dispatches "
+            f"{row['degraded']['host']}; thread-seconds: "
+            f"{row['degraded']['lookups']} failed master lookups "
+            f"{row['degraded']['lookup_s']:.4f} s, "
+            f"{row['degraded']['reconstructions']} reconstructions "
+            f"{row['degraded']['reconstruct_s']:.4f} s (which holds some "
+            "of the lookups) of the reads' "
+            f"{row['degraded']['latency_sum_s']:.4f} s")
+
+        # 6. ec.rebuild, mount, and the sample again
+        before = swar()
+        t0 = time.perf_counter()
+        rebuilt = admin("/admin/ec/rebuild", {"volume": 1})
+        row["rebuild"] = {"seconds": time.perf_counter() - t0,
+                          **delta(before)}
+        check(rebuilt == {"rebuilt_shards": lost}, f"rebuild {rebuilt}")
+        for sid in lost:
+            check(sha256_file(base1 + C.to_ext(sid))
+                  == kept["encoded"][C.to_ext(sid)],
+                  f"rebuilt shard {sid} differs from the encode's")
+        check(row["rebuild"]["launches"] > 0
+              and row["rebuild"]["rs10x4"] == 0,
+              f"rebuild {row['rebuild']}: gf_swar's run-time form only")
+        admin("/admin/ec/mount", {"volume": 1, "shard_ids": lost})
+        row["rebuilt_reads"] = get_all(list(fids1), want1)
+        say(f"/admin/ec/rebuild -> {lost} in "
+            f"{row['rebuild']['seconds']:.3f} s ({row['rebuild']}), "
+            "hashes equal; the sample again, whole: "
+            f"{row['rebuilt_reads']['per_s']:.1f} needles/s, p50 "
+            f"{row['rebuilt_reads']['p50_ms']:.4f} ms, p99 "
+            f"{row['rebuilt_reads']['p99_ms']:.4f} ms")
+
+        # 7. ec.decode back to a normal volume
+        extent = decoder.find_dat_file_size(base1)
+        t0 = time.perf_counter()
+        out = admin("/admin/ec/to_volume", {"volume": 1})
+        row["decode"] = {"seconds": time.perf_counter() - t0,
+                         "dat_bytes": extent}
+        check(out == {"ok": True, "dat_size": extent}, f"to_volume {out}")
+        h = hashlib.sha256()
+        with open(os.path.join(src, "1.dat"), "rb") as f:
+            left = extent
+            while left:
+                buf = f.read(min(left, 16 * MIB))
+                h.update(buf)
+                left -= len(buf)
+        check(os.path.getsize(base1 + ".dat") == extent
+              and sha256_file(base1 + ".dat") == h.hexdigest(),
+              "decoded .dat differs from the volume's live extent")
+        check(open(base1 + ".idx", "rb").read() == ecx,
+              "decoded .idx differs from the .ecx")
+        row["decoded_reads"] = get_all(list(fids1), want1)
+        say(f"/admin/ec/to_volume: {extent} bytes in "
+            f"{row['decode']['seconds']:.3f} s; .dat equals the live extent, "
+            ".idx the .ecx; the sample from the normal volume "
+            f"{row['decoded_reads']['per_s']:.1f} needles/s")
+
+        # 8. generate_batch of the HTTP-written volume and a small one
+        admin("/admin/assign_volume", {"volume": 3})
+        small = {str(FileId(3, i + 1, 7 + i)):
+                 np.random.default_rng([args.seed, 14, i]).bytes(
+                     4096 + 777 * i) for i in range(64)}
+        for fid, data in small.items():
+            http.request("POST", f"{vs.url}/{fid}", data)
+        sent["post"] += len(small)
+        copies = os.path.join(work, "copies")
+        os.mkdir(copies)
+        for vid in (2, 3):
+            admin("/admin/readonly", {"volume": vid})
+            for ext in (".dat", ".idx"):
+                shutil.copyfile(os.path.join(work, f"{vid}{ext}"),
+                                os.path.join(copies, f"{vid}{ext}"))
+        before = swar()
+        t0 = time.perf_counter()
+        admin("/admin/ec/generate_batch", {"volumes": [2, 3]})
+        batch_s = time.perf_counter() - t0
+        b_bytes = sum(os.path.getsize(os.path.join(copies, f"{v}.dat"))
+                      for v in (2, 3))
+        row["generate_batch"] = {"seconds": batch_s, "dat_bytes": b_bytes,
+                                 "GBps": b_bytes / batch_s / 1e9,
+                                 **delta(before)}
+        check(row["generate_batch"]["launches"] > 0
+              and row["generate_batch"]["launches"]
+              == row["generate_batch"]["rs10x4"],
+              f"generate_batch {row['generate_batch']}: every launch in "
+              "the compile-time form")
+
+        # 9. the path's launches, read before any comparison launches
+        path = {name: c.value for name, c in counters.items()}
+        row["route_total"] = route_delta(link, route0)
+
+        # 10. /metrics counts the requests this phase sent
+        text = http.request("GET", f"{vs.url}/metrics").decode()
+        for family in ("SeaweedFS_volumeServer_request_total",
+                       "SeaweedFS_volumeServer_request_seconds",
+                       "SeaweedFS_volumeServer_volumes"):
+            check(f"# TYPE {family} " in text, f"/metrics lacks {family}")
+        got = {k[0]: int(v) for k, v in
+               stats.VOLUME_SERVER_REQUESTS.values().items()}
+        seen = {k[0]: n for k, (_, n, _) in
+                stats.VOLUME_SERVER_LATENCY.snapshot().items()}
+        check(got == sent == seen,
+              f"/metrics counts {got} (latency {seen}), sent {sent}")
+        for kind, n in sent.items():
+            check(f'SeaweedFS_volumeServer_request_total{{type="{kind}"}} '
+                  f"{float(n)}" in text, f"/metrics text lacks {kind} {n}")
+        row["requests"] = sent
+
+        # outside the path's count: the batch's shards against
+        # write_ec_files of byte copies of both volumes
+        rs = RSCodec(C.DATA_SHARDS, C.PARITY_SHARDS, device="cuda")
+        for vid in (2, 3):
+            cb = os.path.join(copies, str(vid))
+            paths = encoder.write_ec_files(cb, rs=rs)
+            for i, p in enumerate(paths):
+                check(sha256_file(p) == sha256_file(
+                    os.path.join(work, f"{vid}{C.to_ext(i)}")),
+                    f"generate_batch shard {i} of volume {vid} differs "
+                    "from write_ec_files")
+        say(f"/admin/ec/generate_batch of volumes 2 and 3 ({b_bytes} "
+            f"bytes): {batch_s:.3f} s = {row['generate_batch']['GBps']:.3f} "
+            f"GB/s, {row['generate_batch']}; every shard hashes equal to "
+            "write_ec_files of byte copies; /metrics counts "
+            f"{sent} data-plane requests")
+    finally:
+        if vs is not None:
+            vs.stop()
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(kept["dir"], ignore_errors=True)
+    return row, path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1671,6 +2082,7 @@ PATH_KERNELS = {
     "read_decode": ("gf_swar",),
     "routing": ("gf_swar",),
     "multigpu": ("gf_swar_u8",),
+    "volume_server": ("gf_swar",),
 }
 
 
@@ -2827,11 +3239,14 @@ def run(args, torch, here: str) -> int:
         shutil.rmtree(batch_dir, ignore_errors=True)
         raise
 
-    # phase 12 encodes phase 9's volumes again, so they stay until then
+    # phase 12 encodes phase 9's volumes again, so they stay until then;
+    # phase 13 serves phase 10's needle volume again
+    keep_dir = tempfile.mkdtemp(prefix="chip_smoke-needles-",
+                                dir=args.workdir)
     try:
         # -- 10. the EC read path and ec.decode -----------------------------
-        read_row, path_launches["read_decode"] = phase_read_decode(
-            args, torch, dev, agree, reset_counts, counters)
+        read_row, path_launches["read_decode"], kept = phase_read_decode(
+            args, torch, dev, agree, reset_counts, counters, keep_dir)
         check_path("read_decode")
         say(json.dumps({"read_decode": read_row, "card": smi}))
 
@@ -2847,8 +3262,15 @@ def run(args, torch, here: str) -> int:
             counters)
         check_path("multigpu")
         say(json.dumps({"multigpu": multigpu_row}))
+
+        # -- 13. one volume server on the card --------------------------------
+        server_row, path_launches["volume_server"] = phase_volume_server(
+            args, torch, smi, kept, reset_counts, counters)
+        check_path("volume_server")
+        say(json.dumps({"volume_server": server_row}))
     finally:
         shutil.rmtree(batch_dir, ignore_errors=True)
+        shutil.rmtree(keep_dir, ignore_errors=True)
 
     kernels = []
     for name, (_, source, replaces, *also) in KERNELS.items():

@@ -1,9 +1,11 @@
 """Runtime fault injection: named points with deterministic seeds.
 
-The port's copy of ``seaweedfs_tpu/fault`` (its ``/admin/fault`` routes
-come with the port of the servers). A fault *point* is a named site;
-the port declares one:
+The port's copy of ``seaweedfs_tpu/fault``. A fault *point* is a named
+site in the serving path:
 
+    http.client.send        every outbound client request (util/http.py)
+    volume.replicate.send   one replica write in the fan-out
+    ec.shard.read           one remote EC shard fetch
     codec.dispatch          one GF codec dispatch (ops/codec.py), before
                             any work, on every route (kernel, native
                             host codec, plain version)
@@ -19,8 +21,10 @@ Every injected fault is tagged on the active tracing span
 ``seaweedfs_fault_injected_total{point,kind}``.
 
 Control surfaces: ``SEAWEEDFS_FAULTS`` env (JSON list of specs, read at
-import) and ``REGISTRY.inject(point, kind, count=..., ...)`` /
-``REGISTRY.clear()`` in process.
+import), ``REGISTRY.inject(point, kind, count=..., ...)`` /
+``REGISTRY.clear()`` in process, and ``/admin/fault`` on every server
+(``install_routes`` — 403 unless ``SEAWEEDFS_FAULTS_ADMIN=1`` opts in,
+see ``admin_enabled``).
 """
 
 from __future__ import annotations
@@ -34,9 +38,8 @@ from dataclasses import dataclass
 
 from ..stats import metrics as stats
 
-# leaf tracing module only, as in the reference: its HTTP client
-# (util/http.py, ported with the servers) imports this package back, so
-# the tracing package init stays out of this import chain
+# leaf tracing module only — util/http.py imports this package back,
+# so the tracing package init must stay out of this import chain
 from ..tracing import span as trace_span
 
 KINDS = ("error", "latency", "conn_drop", "partition")
@@ -188,6 +191,83 @@ def point(name: str, **ctx) -> None:
         time.sleep(spec.delay)
         return
     raise FaultInjected(name, spec.kind, status=spec.status)
+
+
+def _configure_from_env() -> None:
+    raw = os.environ.get("SEAWEEDFS_FAULTS", "")
+    if not raw:
+        return
+    try:
+        REGISTRY.load(json.loads(raw))
+    except (ValueError, TypeError) as e:
+        raise ValueError(f"bad SEAWEEDFS_FAULTS: {e}") from None
+
+
+_configure_from_env()
+
+
+# -- /admin/fault (installed on every server's router) -----------------------
+
+
+def admin_enabled() -> bool:
+    """Whether the /admin/fault control surface accepts requests.
+
+    The endpoint can inject errors, stalls, and partitions into every
+    server — a DoS switchboard — so it ships disabled and must be
+    armed explicitly with SEAWEEDFS_FAULTS_ADMIN=1 (a chaos test bed
+    sets it for its process).
+    Checked per request so a harness can arm it after servers start.
+    """
+    return os.environ.get("SEAWEEDFS_FAULTS_ADMIN", "").lower() in (
+        "1", "true", "yes"
+    )
+
+
+def _deny_admin():
+    from ..util.http import Response
+
+    return Response.error(
+        "fault admin disabled (set SEAWEEDFS_FAULTS_ADMIN=1)", 403
+    )
+
+
+def _h_fault_get(req):
+    from ..util.http import Response
+
+    if not admin_enabled():
+        return _deny_admin()
+    return Response.json(
+        {"faults": REGISTRY.list()}
+    )
+
+
+def _h_fault_post(req):
+    from ..util.http import Response
+
+    if not admin_enabled():
+        return _deny_admin()
+    body = req.json()
+    action = body.pop("action", "inject")
+    if action == "clear":
+        REGISTRY.clear(body.get("point"))
+        return Response.json({"ok": True, "faults": REGISTRY.list()})
+    if action != "inject":
+        return Response.error(f"unknown action {action!r}", 400)
+    try:
+        spec = REGISTRY.inject(**body)
+    except (TypeError, ValueError) as e:
+        return Response.error(str(e), 400)
+    return Response.json({"ok": True, "injected": spec.to_dict()})
+
+
+def install_routes(router) -> None:
+    """Expose GET/POST /admin/fault on a server's router (prepended so
+    catch-all data-plane patterns — the S3 gateway's — don't shadow
+    it, same convention as /debug/traces). The handlers refuse with
+    403 unless admin_enabled() — arming faults over the network is
+    strictly opt-in."""
+    router.add("GET", r"/admin/fault", _h_fault_get, prepend=True)
+    router.add("POST", r"/admin/fault", _h_fault_post, prepend=True)
 
 
 def _configure_from_env() -> None:

@@ -1,0 +1,140 @@
+"""Control-plane message shapes (JSON-serializable dataclasses).
+
+The port's copy of ``seaweedfs_tpu/pb/messages.py``: ``to_dict`` gives
+the reference's dicts key for key, so its master reads port heartbeats.
+
+Field sets mirror the reference protos (weed/pb/master.proto:30-120), so
+heartbeat/topology semantics carry over 1:1 even though the transport is
+JSON/HTTP rather than protobuf/gRPC.
+"""
+
+from __future__ import annotations
+
+from dataclasses import asdict, dataclass, field
+
+
+@dataclass
+class VolumeInformationMessage:
+    id: int
+    size: int = 0
+    collection: str = ""
+    file_count: int = 0
+    delete_count: int = 0
+    deleted_byte_count: int = 0
+    read_only: bool = False
+    replica_placement: int = 0
+    version: int = 3
+    ttl: int = 0
+    compact_revision: int = 0
+    modified_at_second: int = 0
+    disk_type: str = ""
+
+    to_dict = asdict
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "VolumeInformationMessage":
+        return cls(**{k: d[k] for k in cls.__dataclass_fields__ if k in d})
+
+
+@dataclass
+class EcShardInformationMessage:
+    id: int
+    collection: str = ""
+    ec_index_bits: int = 0
+    disk_type: str = ""
+
+    to_dict = asdict
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "EcShardInformationMessage":
+        return cls(**{k: d[k] for k in cls.__dataclass_fields__ if k in d})
+
+
+@dataclass
+class Heartbeat:
+    ip: str = ""
+    port: int = 0
+    public_url: str = ""
+    max_volume_count: int = 0
+    max_file_key: int = 0
+    data_center: str = ""
+    rack: str = ""
+    volumes: list[VolumeInformationMessage] = field(default_factory=list)
+    new_volumes: list[VolumeInformationMessage] = field(default_factory=list)
+    deleted_volumes: list[VolumeInformationMessage] = field(
+        default_factory=list
+    )
+    ec_shards: list[EcShardInformationMessage] = field(default_factory=list)
+    new_ec_shards: list[EcShardInformationMessage] = field(
+        default_factory=list
+    )
+    deleted_ec_shards: list[EcShardInformationMessage] = field(
+        default_factory=list
+    )
+    has_no_volumes: bool = False
+    has_no_ec_shards: bool = False
+    # fids written at quorum but missing replicas (degraded writes);
+    # the master's repair loop drives re-replication from these
+    under_replicated: list[str] = field(default_factory=list)
+    # piggybacked telemetry snapshot (telemetry/snapshot.py): the
+    # volume server's periodic health/SLO payload rides the pulse it
+    # already pays for; None keeps pre-telemetry heartbeats valid
+    telemetry: dict | None = None
+
+    def to_dict(self) -> dict:
+        return asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Heartbeat":
+        hb = cls(
+            **{
+                k: d[k]
+                for k in cls.__dataclass_fields__
+                if k in d
+                and k
+                not in (
+                    "volumes",
+                    "new_volumes",
+                    "deleted_volumes",
+                    "ec_shards",
+                    "new_ec_shards",
+                    "deleted_ec_shards",
+                )
+            }
+        )
+        for name in ("volumes", "new_volumes", "deleted_volumes"):
+            setattr(
+                hb,
+                name,
+                [
+                    VolumeInformationMessage.from_dict(v)
+                    for v in d.get(name, [])
+                ],
+            )
+        for name in ("ec_shards", "new_ec_shards", "deleted_ec_shards"):
+            setattr(
+                hb,
+                name,
+                [
+                    EcShardInformationMessage.from_dict(v)
+                    for v in d.get(name, [])
+                ],
+            )
+        return hb
+
+
+@dataclass
+class VolumeLocation:
+    url: str = ""
+    public_url: str = ""
+    new_vids: list[int] = field(default_factory=list)
+    deleted_vids: list[int] = field(default_factory=list)
+    new_ec_vids: list[int] = field(default_factory=list)
+    deleted_ec_vids: list[int] = field(default_factory=list)
+    leader: str = ""
+
+    to_dict = asdict
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "VolumeLocation":
+        return cls(**{k: d[k] for k in cls.__dataclass_fields__ if k in d})

@@ -1,0 +1,107 @@
+"""Client side of the bidi heartbeat stream.
+
+The port's copy of ``seaweedfs_tpu/server/heartbeat_stream.py``.
+
+Behavioral model: weed/server/volume_grpc_client_to_master.go:50-97 —
+the volume server holds ONE long-lived stream to its master, writes a
+heartbeat message per pulse, and reads the master's response off the
+same stream; the broken stream is the liveness boundary. Over HTTP/1.1
+this is a chunked POST whose response is read incrementally while the
+request body is still being written (the server's streaming handler
+interleaves the two).
+"""
+
+from __future__ import annotations
+
+import json
+import socket
+import urllib.parse
+
+
+class HeartbeatStreamConn:
+    def __init__(self, master_url: str, timeout: float = 10.0):
+        from ..util import http as http_mod
+
+        scheme = http_mod._client_tls["scheme"]
+        netloc = master_url
+        if master_url.startswith("http"):
+            parts = urllib.parse.urlsplit(master_url)
+            scheme = parts.scheme
+            netloc = parts.netloc
+        host, _, port = netloc.rpartition(":")
+        self._sock = socket.create_connection(
+            (host, int(port)), timeout
+        )
+        if scheme == "https":
+            ctx = http_mod._client_tls["context"]
+            if ctx is None:
+                import ssl
+
+                ctx = ssl.create_default_context()
+            # server_hostname: required when the context verifies
+            # hostnames, and carries SNI either way
+            self._sock = ctx.wrap_socket(
+                self._sock, server_hostname=host
+            )
+        self._sock.sendall(
+            (
+                "POST /heartbeat/stream HTTP/1.1\r\n"
+                f"Host: {netloc}\r\n"
+                "Transfer-Encoding: chunked\r\n"
+                "Content-Type: application/x-ndjson\r\n\r\n"
+            ).encode()
+        )
+        self._r = self._sock.makefile("rb")
+        self._headers_read = False
+        self._body = None  # BodyReader over the chunked response
+        self._buf = b""
+
+    def send(self, payload: dict) -> dict:
+        """One pulse: write a heartbeat line up, read the master's
+        answer line down."""
+        line = json.dumps(payload).encode() + b"\n"
+        self._sock.sendall(
+            f"{len(line):x}\r\n".encode() + line + b"\r\n"
+        )
+        if not self._headers_read:
+            self._read_response_head()
+        return json.loads(self._read_line())
+
+    def _read_response_head(self) -> None:
+        status_line = self._r.readline()
+        if not status_line:
+            raise ConnectionError("no response on heartbeat stream")
+        parts = status_line.split()
+        if len(parts) < 2 or parts[1] != b"200":
+            raise ConnectionError(
+                f"heartbeat stream rejected: {status_line!r}"
+            )
+        while True:
+            h = self._r.readline()
+            if h in (b"\r\n", b"\n", b""):
+                break
+        from ..util.http import BodyReader
+
+        self._body = BodyReader(self._r, chunked=True)
+        self._headers_read = True
+
+    def _read_line(self) -> bytes:
+        while b"\n" not in self._buf:
+            piece = self._body.read(65536)
+            if not piece:
+                raise ConnectionError(
+                    "heartbeat stream closed/ended"
+                )
+            self._buf += piece
+        line, self._buf = self._buf.split(b"\n", 1)
+        return line
+
+    def close(self) -> None:
+        try:
+            self._sock.sendall(b"0\r\n\r\n")
+        except OSError:
+            pass
+        try:
+            self._r.close()
+        finally:
+            self._sock.close()

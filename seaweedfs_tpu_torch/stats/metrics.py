@@ -6,9 +6,10 @@ histograms, exposed as text/plain in the same format, so a family keeps
 its name and its dashboards whichever package fed it. :data:`REGISTRY`
 is the port's own: the modules that define families (``ops/link.py``,
 ``ops/profiler.py``, ``telemetry/devices.py``, ``telemetry/phases.py``,
-``tracing/recorder.py``, ``fault``) register them here. The reference's
-server families (volume server, filer, S3, master ring, broker) come
-with the port of those servers.
+``tracing/recorder.py``, ``fault``) register them here, and the volume
+server's three families are defined below. The reference's other server
+families (filer, S3, master ring, broker) come with the port of those
+servers.
 """
 
 from __future__ import annotations
@@ -252,3 +253,20 @@ class Registry:
 
 
 REGISTRY = Registry()
+
+# the reference's volume-server families (weed/stats/metrics.go:19-123)
+VOLUME_SERVER_REQUESTS = REGISTRY.counter(
+    "SeaweedFS_volumeServer_request_total",
+    "Counter of volume server requests.",
+    ("type",),
+)
+VOLUME_SERVER_LATENCY = REGISTRY.histogram(
+    "SeaweedFS_volumeServer_request_seconds",
+    "Bucketed histogram of volume server request latency.",
+    ("type",),
+)
+VOLUME_SERVER_VOLUME_COUNT = REGISTRY.gauge(
+    "SeaweedFS_volumeServer_volumes",
+    "Number of volumes or EC shards.",
+    ("collection", "type"),
+)

@@ -374,7 +374,7 @@ def write_ec_files(
     )[base]
 
 
-def _default_mesh(device=None):
+def default_mesh(device=None):
     """A ("vol", "seq") mesh over every visible card, or None for
     ``device="cpu"`` or fewer than two cards (one card stays on the
     lane-packed codec path)."""
@@ -419,7 +419,7 @@ def write_ec_files_batch(
       mesh with an ``rs``, or with a ``device`` that is none of its
       positions, raises ``ValueError``."""
     if mesh is None and rs is None:
-        mesh = _default_mesh(device)
+        mesh = default_mesh(device)
     if mesh is not None:
         if rs is not None:
             raise ValueError("a mesh encodes through encode_batch_parity; "

@@ -1,8 +1,6 @@
 """Scalar storage types of the port's on-disk formats.
 
-The port's copy of the part of ``seaweedfs_tpu/storage/types.py`` that
-``idx.py``, ``needle.py``, ``super_block.py``, ``ec_volume.py`` and the
-decoder use. Byte-compatible with SeaweedFS's formats (all integers
+The port's copy of ``seaweedfs_tpu/storage/types.py``. Byte-compatible with SeaweedFS's formats (all integers
 big-endian):
 
 * NeedleId — u64
@@ -14,13 +12,14 @@ big-endian):
 * ReplicaPlacement — one byte, decimal digits DC/rack/server
 
 The offset width follows ``WEED_LARGE_DISK`` as in the reference, read
-once at import; the reference's runtime ``set_offset_size`` comes with
-the port of the volume engine.
+once at import; the reference's runtime ``set_offset_size`` is not
+ported (no caller of the port switches widths).
 """
 
 from __future__ import annotations
 
 import os
+import struct
 from dataclasses import dataclass
 
 NEEDLE_ID_SIZE = 8
@@ -156,3 +155,44 @@ class ReplicaPlacement:
             f"{self.diff_data_center_count}"
             f"{self.diff_rack_count}{self.same_rack_count}"
         )
+
+
+def offset_to_actual(stored: int) -> int:
+    """Stored offset (units of the padding) → byte offset in the .dat."""
+    return stored * NEEDLE_PADDING_SIZE
+
+
+def actual_to_offset(actual: int) -> int:
+    assert actual % NEEDLE_PADDING_SIZE == 0, actual
+    return actual // NEEDLE_PADDING_SIZE
+
+
+_IDX_ENTRY = struct.Struct(">QIi")  # needle id, offset(÷8), size
+# 5-byte layout: 4 bytes big-endian low-32, then ONE extra byte carrying
+# bits 32-39
+_IDX_ENTRY5_HEAD = struct.Struct(">QI")
+_IDX_ENTRY5_TAIL = struct.Struct(">Bi")
+
+
+def pack_idx_entry(key: int, offset_bytes: int, size: int) -> bytes:
+    stored = actual_to_offset(offset_bytes)
+    if stored >> (8 * OFFSET_SIZE):
+        raise ValueError(
+            f"offset {offset_bytes} exceeds the {OFFSET_SIZE}-byte "
+            f"volume limit ({MAX_POSSIBLE_VOLUME_SIZE} bytes)"
+        )
+    if OFFSET_SIZE == 4:
+        return _IDX_ENTRY.pack(key, stored, size)
+    return _IDX_ENTRY5_HEAD.pack(
+        key, stored & 0xFFFFFFFF
+    ) + _IDX_ENTRY5_TAIL.pack(stored >> 32, size)
+
+
+def unpack_idx_entry(b: bytes) -> tuple[int, int, int]:
+    """One idx entry (16 or 17 bytes) → (needle id, byte offset, size)."""
+    if OFFSET_SIZE == 4:
+        key, off, size = _IDX_ENTRY.unpack(b)
+        return key, offset_to_actual(off), size
+    key, low = _IDX_ENTRY5_HEAD.unpack(b[:12])
+    high, size = _IDX_ENTRY5_TAIL.unpack(b[12:17])
+    return key, offset_to_actual(low | (high << 32)), size

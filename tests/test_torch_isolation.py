@@ -80,7 +80,27 @@ def test_port_files_exist():
                    ("telemetry", "devices.py"),
                    ("parallel", "__init__.py"),
                    ("parallel", "mesh.py"),
-                   ("parallel", "ec_sharded.py")):
+                   ("parallel", "ec_sharded.py"),
+                   ("util", "__init__.py"),
+                   ("util", "http.py"),
+                   ("util", "retry.py"),
+                   ("util", "glog.py"),
+                   ("util", "config.py"),
+                   ("util", "limiter.py"),
+                   ("util", "compression.py"),
+                   ("pb", "__init__.py"),
+                   ("pb", "messages.py"),
+                   ("security", "__init__.py"),
+                   ("security", "jwt.py"),
+                   ("images", "__init__.py"),
+                   ("images", "resizing.py"),
+                   ("storage", "file_id.py"),
+                   ("storage", "needle_map.py"),
+                   ("storage", "volume.py"),
+                   ("storage", "store.py"),
+                   ("server", "__init__.py"),
+                   ("server", "heartbeat_stream.py"),
+                   ("server", "volume.py")):
         assert os.path.join("seaweedfs_tpu_torch", *module) in names
     assert len(files) > 10
 
@@ -128,6 +148,12 @@ def test_importing_the_port_loads_no_jax():
         "import seaweedfs_tpu_torch.tools.exp_dev8\n"
         "import seaweedfs_tpu_torch.tools.exp_dev8b\n"
         "import seaweedfs_tpu_torch.tools.exp_batched\n"
+        "import seaweedfs_tpu_torch.util.http\n"
+        "import seaweedfs_tpu_torch.pb\n"
+        "import seaweedfs_tpu_torch.security\n"
+        "import seaweedfs_tpu_torch.storage.store\n"
+        "import seaweedfs_tpu_torch.server.volume\n"
+        "import seaweedfs_tpu_torch.server.heartbeat_stream\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'seaweedfs_tpu', 'bench', 'tools')]\n"
         "print(bad)\n"
