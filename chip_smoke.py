@@ -170,14 +170,37 @@ Run from the root of the repository, on a machine with a CUDA card and
     volume-server families, the request counter and the latency
     histogram counting exactly the data-plane requests sent. Its
     ``volume_server`` JSON line.
+14. a port cluster on the card (``seaweedfs_tpu_torch/server/harness``,
+    ``shell/``, ``operation/``): one master and four
+    ``VolumeServer(device="cuda")`` in this process, pulse 0.2 s, phase
+    10's needle volume hard-linked into the first server's directory,
+    driven only through the shell and the client: ``lock`` and
+    ``ec.encode -volumeId 1`` (every ``.ec00–.ec13`` and ``.ecx``
+    hashing equal to phase 10's wherever the spread put it);
+    {0, 5, 11, 13} deleted from their holders and ``ec.rebuild`` with two
+    reader threads beside it (rebuilt shards hashing equal); the four
+    deleted again and 2,000 needles read byte-exact through the client
+    on 8 threads, the master answering the servers' ``/ec/lookup`` (the
+    lookups, the failed ones, the remote shard reads and the
+    reconstructions timed apart; p50/p99 by needle size); a second
+    ``ec.rebuild``; 1,000 needles written through ``/dir/assign`` and
+    upload into collection ``bulk`` and read back; ``ec.encode
+    -parallel`` of those volumes (one ``generate_batch`` a server) and
+    reads from their shards; ``ec.decode`` (the ``.dat`` equal to the
+    volume's live extent, the ``.idx`` to the ``.ecx``) and reads from
+    the normal volume. Each shell command's wall seconds and GB/s are
+    printed with the card; every step's gf_swar launches equal its
+    ``device/*`` routes and its host dispatches its ``host/*`` routes,
+    none ``static``, every encode launch in the compile-time form and
+    no rebuild or read launch. Its ``cluster`` JSON line.
 
 Phases 4, 5 (with 6), 9 and 10 pin their codecs to
 ``link_aware=False`` (the size floor alone decides their routes), so
 their expected launches and host dispatches follow from the widths;
 phase 11 runs the link-aware default.
 
-It prints ``read_decode``, ``routing``, ``multigpu`` and
-``volume_server`` JSON lines, one JSON line describing every kernel,
+It prints ``read_decode``, ``routing``, ``multigpu``, ``volume_server``
+and ``cluster`` JSON lines, one JSON line describing every kernel,
 then, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository beside it, it exits non-zero and prints no result.
@@ -837,8 +860,8 @@ def phase_read_decode(args, torch, dev, agree, reset_counts, counters,
                       keep_dir):
     """Phase 10: the EC read path and ec.decode on a needle volume.
     Returns the phase's row, the launch counts of its path, and what
-    phase 13 serves again: the generated ``1.dat`` (a hard link) and
-    ``1.idx`` in ``keep_dir``, the generator's live needles and the
+    phases 13 and 14 serve again: the generated ``1.dat`` (a hard link)
+    and ``1.idx`` in ``keep_dir``, the generator's live needles and the
     hashes of the shards and ``.ecx`` the volume encoded to."""
     from seaweedfs_tpu_torch.ops.codec import RSCodec
     from seaweedfs_tpu_torch.storage.ec_volume import EcVolume
@@ -1652,6 +1675,30 @@ def needle_cookies(dat: str, idx_path: str, keys) -> dict[int, int]:
     return out
 
 
+def swar_state(counters) -> tuple[int, int, int]:
+    """gf_swar's launches, those in its compile-time RS(10,4) form, and
+    the codec's host dispatches."""
+    return (counters["gf_swar"].value, counters["gf_swar_rs10x4"].value,
+            counters["codec_host"].value)
+
+
+def swar_delta(counters, before) -> dict[str, int]:
+    now = swar_state(counters)
+    return {"launches": now[0] - before[0], "rs10x4": now[1] - before[1],
+            "host": now[2] - before[2]}
+
+
+def live_extent_sha(dat: str, extent: int) -> str:
+    h = hashlib.sha256()
+    with open(dat, "rb") as f:
+        left = extent
+        while left:
+            buf = f.read(min(left, 16 * MIB))
+            h.update(buf)
+            left -= len(buf)
+    return h.hexdigest()
+
+
 def phase_volume_server(args, torch, smi, kept, reset_counts, counters):
     """Phase 13: one port ``VolumeServer`` on the card, with no master,
     driven only through HTTP requests. Returns the phase's row and the
@@ -1704,15 +1751,10 @@ def phase_volume_server(args, torch, smi, kept, reset_counts, counters):
                 "p99_ms": percentile_ms(lat, 99)}
 
     def swar():
-        return (counters["gf_swar"].value,
-                counters["gf_swar_rs10x4"].value,
-                counters["codec_host"].value)
+        return swar_state(counters)
 
     def delta(before):
-        now = swar()
-        return {"launches": now[0] - before[0],
-                "rs10x4": now[1] - before[1],
-                "host": now[2] - before[2]}
+        return swar_delta(counters, before)
 
     try:
         # 2. the volume: phase 10's generated needles, linked in
@@ -1914,15 +1956,9 @@ def phase_volume_server(args, torch, smi, kept, reset_counts, counters):
         row["decode"] = {"seconds": time.perf_counter() - t0,
                          "dat_bytes": extent}
         check(out == {"ok": True, "dat_size": extent}, f"to_volume {out}")
-        h = hashlib.sha256()
-        with open(os.path.join(src, "1.dat"), "rb") as f:
-            left = extent
-            while left:
-                buf = f.read(min(left, 16 * MIB))
-                h.update(buf)
-                left -= len(buf)
         check(os.path.getsize(base1 + ".dat") == extent
-              and sha256_file(base1 + ".dat") == h.hexdigest(),
+              and sha256_file(base1 + ".dat")
+              == live_extent_sha(os.path.join(src, "1.dat"), extent),
               "decoded .dat differs from the volume's live extent")
         check(open(base1 + ".idx", "rb").read() == ecx,
               "decoded .idx differs from the .ecx")
@@ -2003,7 +2039,451 @@ def phase_volume_server(args, torch, smi, kept, reset_counts, counters):
         if vs is not None:
             vs.stop()
         shutil.rmtree(work, ignore_errors=True)
-        shutil.rmtree(kept["dir"], ignore_errors=True)
+    return row, path
+
+
+def phase_cluster(args, smi, kept, reset_counts, counters):
+    """Phase 14: a port cluster on the card — a master with its
+    topology and raft, four volume servers on ``cuda``, all in this
+    process — driven only through the port's shell and ``operation``
+    client. Returns the phase's row and the launch counts of its path."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from seaweedfs_tpu_torch import operation
+    from seaweedfs_tpu_torch.operation import client as op_client
+    from seaweedfs_tpu_torch.ops import link
+    from seaweedfs_tpu_torch.server.harness import ClusterHarness
+    from seaweedfs_tpu_torch.shell import CommandEnv, run_command
+    from seaweedfs_tpu_torch.storage.erasure_coding import (
+        constants as C,
+        decoder,
+    )
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+    from seaweedfs_tpu_torch.util import http
+
+    phase_t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke-cluster-", dir=args.workdir)
+    src, live = kept["dir"], kept["live"]
+    lost = [0, 5, 11, 13]
+    row: dict = {"card": smi}
+    c = env = None
+
+    def on_card(text):
+        say(f"[{smi}] {text}")
+
+    def state():
+        """The counts before a step, which starts on a fresh, probed link
+        state: the four servers share this process's one estimate, which
+        a step's contended dispatches would otherwise carry into the
+        next, where a server process of its own starts from its probe."""
+        link.STATE = link.LinkState()
+        link.probe()
+        return swar_state(counters), link.ROUTE_TOTAL.values()
+
+    def delta(before, what, form):
+        """gf_swar's launches, the host dispatches and the codec's route
+        split since ``before``; the step launched on the card, each
+        launch is one ``device/*`` route and each host dispatch one
+        ``host/*`` route, and every launch takes the compile-time
+        RS(10,4) form (``form="rs10x4"``) or none does
+        (``"run-time"``)."""
+        out = swar_delta(counters, before[0])
+        out["routes"] = route_delta(link, before[1])
+        on_dev = sum(n for r, n in out["routes"].items()
+                     if r.startswith("device/"))
+        on_host = sum(n for r, n in out["routes"].items()
+                      if r.startswith("host/"))
+        check(out["launches"] == on_dev and out["host"] == on_host
+              and out["launches"] > 0
+              and out["rs10x4"] == (out["launches"] if form == "rs10x4"
+                                    else 0)
+              and not any(r.endswith("/static") for r in out["routes"]),
+              f"{what}: {out}: launches on the card, one gf_swar launch a "
+              f"device route, one host dispatch a host route, link-aware, "
+              f"every launch {form}")
+        return out
+
+    def ec_map():
+        try:
+            info = http.get_json(f"{m}/ec/lookup?volumeId=1")
+        except http.HttpError:
+            return {}
+        return {int(s): [loc["url"] for loc in locs]
+                for s, locs in info["shards"].items()}
+
+    def wait_shards(want: set):
+        deadline = time.time() + 30
+        while set(ec_map()) != want:
+            check(time.time() < deadline,
+                  f"the master's EC map {sorted(ec_map())} never became "
+                  f"{sorted(want)}")
+            time.sleep(0.05)
+
+    def drop(sids):
+        shards = ec_map()
+        for sid in sids:
+            for url in shards[sid]:
+                http.post_json(f"{url}/admin/ec/delete_shards",
+                               {"volume": 1, "shard_ids": [sid]})
+        wait_shards(set(range(C.TOTAL_SHARDS)) - set(sids))
+
+    def shell(line):
+        t0 = time.perf_counter()
+        out = run_command(env, line)
+        return out, time.perf_counter() - t0
+
+    def files_of(ext):
+        """Every copy of volume 1's ``ext`` in the servers' directories."""
+        return [p for p in (os.path.join(root, f"vs{i}", "1" + ext)
+                            for i in range(4)) if os.path.exists(p)]
+
+    def check_shards(sids, what):
+        for sid in sids:
+            paths = files_of(C.to_ext(sid))
+            check(paths and all(sha256_file(p)
+                                == kept["encoded"][C.to_ext(sid)]
+                                for p in paths),
+                  f"{what}: shard {sid} at {paths} differs from phase 10's")
+
+    def read(fid, want):
+        t0 = time.perf_counter()
+        body = operation.read_file(m, fid)
+        sec = time.perf_counter() - t0
+        check(body == want, f"read {fid}: {len(body)} bytes differ from "
+                            f"the {len(want)} written")
+        return sec, len(want)
+
+    def read_all(fids, want, threads):
+        """Reads of ``fids`` on ``threads`` client threads: the rate,
+        p50 and p99 ms, and p50/p99 ms by needle size (under and from
+        1 MiB, the small block: a larger needle spans more intervals)."""
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(threads) as pool:
+            done = list(pool.map(lambda f: read(f, want(f)), fids))
+        wall = time.perf_counter() - t0
+        lat = [sec for sec, _ in done]
+        by_size = {}
+        for label, pick in (("under_1MiB", lambda n: n < MIB),
+                            ("from_1MiB", lambda n: n >= MIB)):
+            part = [sec for sec, n in done if pick(n)]
+            if part:
+                by_size[label] = {"needles": len(part),
+                                  "p50_ms": percentile_ms(part, 50),
+                                  "p99_ms": percentile_ms(part, 99)}
+        return {"needles": len(fids), "threads": threads,
+                "per_s": len(fids) / wall, "wall_s": wall,
+                "latency_sum_s": sum(lat),
+                "p50_ms": percentile_ms(lat, 50),
+                "p99_ms": percentile_ms(lat, 99), "by_size": by_size}
+
+    try:
+        # phase 10's needle volume, hard-linked into the first server's
+        # directory: the server loads it at start
+        os.makedirs(os.path.join(root, "vs0"))
+        os.link(os.path.join(src, "1.dat"), os.path.join(root, "vs0",
+                                                         "1.dat"))
+        shutil.copyfile(os.path.join(src, "1.idx"),
+                        os.path.join(root, "vs0", "1.idx"))
+        dat_bytes = os.path.getsize(os.path.join(src, "1.dat"))
+        keys = sorted(live)
+        rng = np.random.default_rng(args.seed)
+        sample = [keys[j] for j in sorted(rng.choice(
+            len(keys), min(2000, len(keys)), replace=False))]
+        cookies = needle_cookies(os.path.join(src, "1.dat"),
+                                 os.path.join(src, "1.idx"), sample)
+        fids1 = {str(FileId(1, k, cookies[k])): k for k in sample}
+
+        def want1(fid):
+            i, n_bytes, _, _ = live[fids1[fid]]
+            return needle_payload(args.seed, i, n_bytes)
+
+        reset_counts()
+        route0 = link.ROUTE_TOTAL.values()
+        t0 = time.perf_counter()
+        c = ClusterHarness(n_volume_servers=4, volumes_per_server=8,
+                           pulse_seconds=0.2, root=root, device="cuda")
+        c.wait_for_nodes(4)
+        m = c.master.url
+        deadline = time.time() + 30
+        while True:
+            try:
+                http.get_json(f"{m}/dir/lookup?volumeId=1")
+                break
+            except http.HttpError:
+                check(time.time() < deadline, "volume 1 never registered")
+                time.sleep(0.05)
+        row["start_s"] = time.perf_counter() - t0
+        urls = [vs.url for vs in c.volume_servers]
+        on_card(f"cluster: master {m} and volume servers {urls} on "
+                f"{c.device}, pulse {c.pulse} s, volume 1 ({dat_bytes} "
+                f"bytes) registered {row['start_s']:.3f} s after the start")
+        env = CommandEnv(m)
+
+        # 1. lock, then ec.encode of the 1 GiB volume through the shell
+        check(shell("lock")[0] == "locked", "the cluster lock")
+        before = state()
+        out, sec = shell("ec.encode -volumeId 1")
+        row["ec_encode"] = {"seconds": sec, "GBps": dat_bytes / sec / 1e9,
+                            **delta(before, "ec.encode", "rs10x4")}
+        check("volume 1: ec.encode done" in out, f"ec.encode: {out}")
+        wait_shards(set(range(C.TOTAL_SHARDS)))
+        check_shards(range(C.TOTAL_SHARDS), "ec.encode")
+        ecx = files_of(".ecx")
+        check(ecx and all(sha256_file(p) == kept["encoded"][".ecx"]
+                          for p in ecx), "ec.encode: an .ecx differs")
+        check(not files_of(".dat"), "ec.encode left the .dat")
+        holders = {u: sorted(s for s, us in ec_map().items() if u in us)
+                   for u in urls}
+        on_card(f"shell ec.encode -volumeId 1: {sec:.3f} s = "
+                f"{row['ec_encode']['GBps']:.3f} GB/s of .dat, "
+                f"{row['ec_encode']}; shards by server {holders}, every "
+                f".ec00-.ec13 and all {len(ecx)} .ecx hash equal to phase "
+                "10's")
+
+        # 2. lose four shards, then ec.rebuild while reads run on every
+        # server (four servers' codecs on one card at once)
+        drop(lost)
+        op_client._lookup_cache.clear()
+        stop, reads_during, misses = threading.Event(), [0], [0]
+        during = list(fids1)[:200]
+
+        def reader():
+            # each read that answers is byte-exact; one that fails while
+            # the rebuild moves shards is counted apart
+            while not stop.is_set():
+                for fid in during:
+                    try:
+                        body = operation.read_file(m, fid)
+                    except (http.HttpError, OSError, RuntimeError):
+                        misses[0] += 1
+                        continue
+                    check(body == want1(fid), f"read {fid} beside the "
+                                              "rebuild differs")
+                    reads_during[0] += 1
+
+        before = state()
+        with ThreadPoolExecutor(2) as pool:
+            futures = [pool.submit(reader) for _ in range(2)]
+            try:
+                out, sec = shell("ec.rebuild -volumeId 1")
+            finally:
+                stop.set()
+            for fut in futures:
+                fut.result()
+        shard_bytes = os.path.getsize(files_of(C.to_ext(1))[0])
+        row["ec_rebuild"] = {
+            "seconds": sec, "GBps": len(lost) * shard_bytes / sec / 1e9,
+            "reads_during": reads_during[0], "reads_missed": misses[0],
+            **delta(before, "ec.rebuild and the reads beside it",
+                    "run-time")}
+        check(f"rebuilt shards {lost}" in out, f"ec.rebuild: {out}")
+        wait_shards(set(range(C.TOTAL_SHARDS)))
+        check_shards(lost, "ec.rebuild")
+        on_card(f"shell ec.rebuild -volumeId 1 of {lost}: {sec:.3f} s = "
+                f"{row['ec_rebuild']['GBps']:.3f} GB/s of rebuilt shards, "
+                f"{row['ec_rebuild']}, {reads_during[0]} byte-exact reads "
+                f"beside it on 2 threads ({misses[0]} failed); rebuilt "
+                "shards hash equal")
+
+        # 3. degraded reads with the four shards gone again, the master
+        # answering the servers' /ec/lookup
+        drop(lost)
+        op_client._lookup_cache.clear()
+        spent = {"lookup": [0, 0.0], "failed": [0, 0.0], "remote": [0, 0.0],
+                 "reconstruct": [0, 0.0]}
+        lock = threading.Lock()
+
+        def timed(name, fn):
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                out = None
+                try:
+                    out = fn(*a, **kw)
+                    return out
+                finally:
+                    sec = time.perf_counter() - t0
+                    with lock:
+                        spent[name][0] += 1
+                        spent[name][1] += sec
+                        if name == "lookup" and not out:
+                            spent["failed"][0] += 1
+                            spent["failed"][1] += sec
+            return call
+
+        def timed_reader(make):
+            return lambda vid: timed("remote", make(vid))
+
+        wrapped = []
+        for vs in c.volume_servers:
+            vs._cached_ec_locations = timed("lookup",
+                                            vs._cached_ec_locations)
+            vs._remote_shard_reader = timed_reader(vs._remote_shard_reader)
+            wrapped.append(vs)
+            ev = vs.store.find_ec_volume(1)
+            if ev is not None:
+                ev._reconstruct_interval = timed("reconstruct",
+                                                 ev._reconstruct_interval)
+                wrapped.append(ev)
+        before = state()
+        try:
+            row["degraded"] = read_all(list(fids1), want1, threads=8)
+        finally:
+            for obj in wrapped:
+                for name in ("_cached_ec_locations",
+                             "_remote_shard_reader",
+                             "_reconstruct_interval"):
+                    obj.__dict__.pop(name, None)
+        row["degraded"].update(delta(before, "degraded reads", "run-time"))
+        row["degraded"].update(
+            lookups=spent["lookup"][0], lookup_s=spent["lookup"][1],
+            failed_lookups=spent["failed"][0],
+            failed_lookup_s=spent["failed"][1],
+            remote_reads=spent["remote"][0], remote_s=spent["remote"][1],
+            reconstructions=spent["reconstruct"][0],
+            reconstruct_s=spent["reconstruct"][1])
+        routes = row["degraded"]["routes"]
+        on_card(f"degraded reads through the client, lost {lost}, master "
+                f"answering /ec/lookup: {len(fids1)} needles byte-exact on "
+                f"8 client threads, {row['degraded']['per_s']:.1f} "
+                f"needles/s, p50 {row['degraded']['p50_ms']:.4f} ms, p99 "
+                f"{row['degraded']['p99_ms']:.4f} ms (by needle size "
+                f"{row['degraded']['by_size']}); routes {routes}; "
+                f"gf_swar {row['degraded']['launches']}, host dispatches "
+                f"{row['degraded']['host']}; thread-seconds: "
+                f"{row['degraded']['lookups']} /ec/lookup calls "
+                f"{row['degraded']['lookup_s']:.4f} s, of them "
+                f"{row['degraded']['failed_lookups']} failed "
+                f"{row['degraded']['failed_lookup_s']:.4f} s; "
+                f"{row['degraded']['remote_reads']} remote shard reads "
+                f"{row['degraded']['remote_s']:.4f} s; "
+                f"{row['degraded']['reconstructions']} reconstructions "
+                f"{row['degraded']['reconstruct_s']:.4f} s (which holds "
+                "the remote reads they make), of the reads' "
+                f"{row['degraded']['latency_sum_s']:.4f} s")
+
+        # the volume whole again for ec.decode
+        before = state()
+        out, sec = shell("ec.rebuild -volumeId 1")
+        row["ec_rebuild_again"] = {
+            "seconds": sec, "GBps": len(lost) * shard_bytes / sec / 1e9,
+            **delta(before, "the second ec.rebuild", "run-time")}
+        wait_shards(set(range(C.TOTAL_SHARDS)))
+        check_shards(lost, "the second ec.rebuild")
+        on_card(f"shell ec.rebuild -volumeId 1 again: {sec:.3f} s = "
+                f"{row['ec_rebuild_again']['GBps']:.3f} GB/s, "
+                f"{row['ec_rebuild_again']}; rebuilt shards hash equal")
+
+        # 4. writes through /dir/assign and upload, read back
+        wrng = np.random.default_rng([args.seed, 15])
+        t0 = time.perf_counter()
+        payloads = [np.random.default_rng([args.seed, 15, i]).bytes(
+            int(np.exp(wrng.uniform(np.log(1024), np.log(4 * MIB)))))
+            for i in range(1000)]
+        gen_s = time.perf_counter() - t0
+        writes = {}
+        lat, split = [], []  # a write's seconds; (assign, upload) seconds
+        t0 = time.perf_counter()
+        for data in payloads:
+            t1 = time.perf_counter()
+            a = operation.assign(m, collection="bulk")
+            t2 = time.perf_counter()
+            check(operation.upload(a.url, a.fid, data) == len(data),
+                  f"upload {a.fid}")
+            t3 = time.perf_counter()
+            lat.append(t3 - t1)
+            split.append((t2 - t1, t3 - t2))
+            writes[a.fid] = data
+        write_s = time.perf_counter() - t0
+        w_bytes = sum(len(d) for d in writes.values())
+        bulk = sorted({int(f.split(",")[0]) for f in writes})
+        slowest = sorted(range(len(lat)), key=lat.__getitem__)[-5:][::-1]
+        row["writes"] = {
+            "needles": len(writes), "bytes": w_bytes, "volumes": bulk,
+            "per_s": len(writes) / write_s, "MBps": w_bytes / write_s / 1e6,
+            "p50_ms": percentile_ms(lat, 50), "p99_ms": percentile_ms(lat, 99),
+            "assign_s": sum(a for a, _ in split),
+            "upload_s": sum(u for _, u in split),
+            # the five slowest: (write, assign s, upload s); the first
+            # assign grows the collection's volumes
+            "slowest": [(i, *split[i]) for i in slowest],
+            "payloads_made_s": gen_s}
+        row["reads"] = read_all(list(writes), writes.__getitem__, 1)
+        on_card(f"client writes: {len(writes)} needles, {w_bytes} bytes "
+                f"into volumes {bulk}, {row['writes']['per_s']:.1f} "
+                f"writes/s ({row['writes']['MBps']:.1f} MB/s), p50 "
+                f"{row['writes']['p50_ms']:.4f} ms, p99 "
+                f"{row['writes']['p99_ms']:.4f} ms, assign "
+                f"{row['writes']['assign_s']:.4f} s and upload "
+                f"{row['writes']['upload_s']:.4f} s in all, slowest "
+                f"{row['writes']['slowest']}; read back byte-exact "
+                f"{row['reads']['per_s']:.1f} reads/s, p50 "
+                f"{row['reads']['p50_ms']:.4f} ms, p99 "
+                f"{row['reads']['p99_ms']:.4f} ms")
+
+        # 5. ec.encode -parallel of those volumes: one generate_batch a
+        # server, the lane-packed batch encode
+        before = state()
+        out, sec = shell("ec.encode -collection bulk -quietFor 0s -parallel")
+        row["ec_encode_parallel"] = {
+            "seconds": sec, "GBps": w_bytes / sec / 1e9,
+            "volumes": len(bulk),
+            **delta(before, "ec.encode -parallel", "rs10x4")}
+        check(len(bulk) > 1 and "batch-generated shards on" in out
+              and all(f"volume {v}: ec.encode done" in out for v in bulk),
+              f"ec.encode -parallel: {out}")
+        op_client._lookup_cache.clear()
+        after = list(writes)[::5]
+        row["ec_reads"] = read_all(after, writes.__getitem__, 8)
+        on_card(f"shell ec.encode -parallel of volumes {bulk}: {sec:.3f} "
+                f"s = {row['ec_encode_parallel']['GBps']:.3f} GB/s of "
+                f"needle data, {row['ec_encode_parallel']}; {len(after)} "
+                "of the needles then read byte-exact from the shards, "
+                f"{row['ec_reads']['per_s']:.1f} reads/s")
+
+        # 6. ec.decode of volume 1 back to a normal volume
+        extent = decoder.find_dat_file_size(files_of(".ec00")[0][:-5],
+                                            files_of(".ecx")[0][:-4])
+        before = state()
+        out, sec = shell("ec.decode -volumeId 1")
+        now = swar_state(counters)
+        row["ec_decode"] = {"seconds": sec,
+                            **swar_delta(counters, before[0])}
+        check(now == before[0], f"ec.decode {row['ec_decode']}: all ten "
+                                "data shards are there, so no dispatch")
+        target = [i for i, u in enumerate(urls)
+                  if f"decoded back to normal volume on {u}" in out]
+        check(len(target) == 1, f"ec.decode: {out}")
+        base = os.path.join(root, f"vs{target[0]}", "1")
+        row["ec_decode"].update(dat_bytes=extent,
+                                GBps=extent / sec / 1e9)
+        check(os.path.getsize(base + ".dat") == extent
+              and sha256_file(base + ".dat")
+              == live_extent_sha(os.path.join(src, "1.dat"), extent),
+              "decoded .dat differs from the volume's live extent")
+        check(sha256_file(base + ".idx") == kept["encoded"][".ecx"],
+              "decoded .idx differs from the .ecx")
+        op_client._lookup_cache.clear()
+        row["decoded_reads"] = read_all(list(fids1)[:500], want1, 8)
+        on_card(f"shell ec.decode -volumeId 1: {sec:.3f} s = "
+                f"{row['ec_decode']['GBps']:.3f} GB/s of .dat "
+                f"({extent} bytes), {row['ec_decode']}; .dat equals the "
+                "live extent, .idx the .ecx; 500 needles from the normal "
+                f"volume {row['decoded_reads']['per_s']:.1f} reads/s")
+        check(shell("unlock")[0] == "unlocked", "unlock")
+        env = None
+
+        path = {name: counter.value for name, counter in counters.items()}
+        row["route_total"] = route_delta(link, route0)
+        row["phase_s"] = time.perf_counter() - phase_t0
+        on_card(f"phase 14 took {row['phase_s']:.1f} s; routes "
+                f"{row['route_total']}")
+    finally:
+        if env is not None:
+            with contextlib.suppress(Exception):
+                env.unlock()
+        if c is not None:
+            c.stop()
+        shutil.rmtree(root, ignore_errors=True)
     return row, path
 
 
@@ -2083,6 +2563,7 @@ PATH_KERNELS = {
     "routing": ("gf_swar",),
     "multigpu": ("gf_swar_u8",),
     "volume_server": ("gf_swar",),
+    "cluster": ("gf_swar",),
 }
 
 
@@ -3240,7 +3721,7 @@ def run(args, torch, here: str) -> int:
         raise
 
     # phase 12 encodes phase 9's volumes again, so they stay until then;
-    # phase 13 serves phase 10's needle volume again
+    # phases 13 and 14 serve phase 10's needle volume again
     keep_dir = tempfile.mkdtemp(prefix="chip_smoke-needles-",
                                 dir=args.workdir)
     try:
@@ -3268,6 +3749,12 @@ def run(args, torch, here: str) -> int:
             args, torch, smi, kept, reset_counts, counters)
         check_path("volume_server")
         say(json.dumps({"volume_server": server_row}))
+
+        # -- 14. a port cluster on the card ------------------------------------
+        cluster_row, path_launches["cluster"] = phase_cluster(
+            args, smi, kept, reset_counts, counters)
+        check_path("cluster")
+        say(json.dumps({"cluster": cluster_row}))
     finally:
         shutil.rmtree(batch_dir, ignore_errors=True)
         shutil.rmtree(keep_dir, ignore_errors=True)

@@ -1,0 +1,573 @@
+"""Callable cluster-admin building blocks.
+
+The bodies of the `weed shell` lifecycle verbs (ec.encode /
+ec.rebuild / volume.vacuum / volume.fix.replication /
+volume.balance), extracted into plain functions over a master url so
+the maintenance executors call them directly instead of shelling out
+— and the shell commands stay thin wrappers over the same code
+(weed/shell/command_ec_encode.go:55-297, command_ec_rebuild.go:97-190,
+topology_vacuum.go, command_volume_fix_replication.go).
+
+Every RPC goes through the shared retry policy (util/retry.py):
+short idempotent admin calls ride `retry.ADMIN`; long-running
+mutations (generate/copy/compact) ride `retry.ADMIN_LONG` (single
+attempt — the scheduler's cooldown/requeue is the retry layer for
+those, a blind replay of a 10-minute copy helps nobody).
+
+The port's copy of ``seaweedfs_tpu/maintenance/ops.py``.
+"""
+
+from __future__ import annotations
+
+import io
+from concurrent.futures import ThreadPoolExecutor
+
+from .. import tracing
+from ..operation.masters import ring_of
+from ..storage import types as t
+from ..storage.erasure_coding import constants as C
+from ..util import http
+from ..util import retry as retry_mod
+
+LONG_TIMEOUT = 3600
+
+
+def _master_get(master, path: str) -> dict:
+    """One GET against the master tier. `master` may be a url, a url
+    list, or a MasterRing: multi-candidate forms follow leader hints
+    and re-resolve through /cluster/status, so an admin verb issued
+    mid-failover lands on whichever master won the election instead
+    of dying against the caller's pinned (possibly dead) url."""
+    ring = ring_of(master)
+    if len(ring) == 1:
+        return http.get_json(
+            f"{ring.leader()}{path}", retry=retry_mod.ADMIN
+        )
+    return ring.call(lambda u: http.get_json(
+        f"{u}{path}", retry=retry_mod.ADMIN
+    ))
+
+
+def _out(out):
+    return out if out is not None else io.StringIO()
+
+
+def _phase_line(res: dict) -> str | None:
+    """Render the phase waterfall an ec/generate RPC returned
+    (telemetry/phases.py summary riding the response) as one shell
+    line, with the end-to-end GB/s derived from the bytes the read
+    phase actually consumed and the pipeline geometry the adaptive
+    sizing chose (slab bytes x depth, reader workers) so an operator
+    reading the shell output sees WHY the phases look like they do."""
+    timing = res.get("timing") if isinstance(res, dict) else None
+    if not timing:
+        return None
+    from ..telemetry import phases as phases_mod
+
+    line = phases_mod.summarize_line(timing)
+    wall = timing.get("wall_seconds") or 0.0
+    read_bytes = (
+        (timing.get("phases") or {}).get("read", {}).get("bytes", 0)
+    )
+    if wall > 0 and read_bytes:
+        line += f", {read_bytes / wall / 1e9:.4f} GB/s e2e"
+    notes = timing.get("notes") or {}
+    if notes.get("batch_bytes"):
+        line += (
+            f", slab {notes['batch_bytes'] >> 20}MiB"
+            f"x{notes.get('pipeline_depth', '?')}"
+        )
+        if notes.get("readers", 0) > 1:
+            line += f", {notes['readers']} readers"
+    return line
+
+
+# -- cluster views -----------------------------------------------------------
+
+
+def topology(master_url) -> dict:
+    return _master_get(master_url, "/topology")
+
+
+def data_nodes(master_url) -> list[dict]:
+    """Flat data-node dicts annotated with dc/rack (the shell
+    CommandEnv view, shared with the executors)."""
+    out = []
+    for dc in topology(master_url)["data_centers"]:
+        for rack in dc["racks"]:
+            for dn in rack["data_nodes"]:
+                dn = dict(dn)
+                dn["dc"] = dc["id"]
+                dn["rack"] = rack["id"]
+                out.append(dn)
+    return out
+
+
+def volume_locations(master_url, vid: int) -> list[str]:
+    info = _master_get(master_url, f"/dir/lookup?volumeId={vid}")
+    return [loc["url"] for loc in info.get("locations", [])]
+
+
+def ec_shard_map(master_url, vid: int) -> dict[int, list[str]]:
+    """shard id → server urls, from the master's EC map."""
+    try:
+        info = _master_get(master_url, f"/ec/lookup?volumeId={vid}")
+    except http.HttpError:
+        return {}
+    return {
+        int(sid): [loc["url"] for loc in locs]
+        for sid, locs in info.get("shards", {}).items()
+    }
+
+
+def collect_ec_nodes(master_url) -> list[dict]:
+    """Data nodes with free EC slots, most-free first
+    (command_ec_common.go collectEcNodes)."""
+    nodes = data_nodes(master_url)
+    for dn in nodes:
+        dn["free_ec_slots"] = max(
+            0,
+            (dn["max_volume_count"] - dn["volume_count"])
+            * C.TOTAL_SHARDS
+            - dn["ec_shard_count"],
+        )
+    nodes.sort(key=lambda d: -d["free_ec_slots"])
+    return nodes
+
+
+def balanced_ec_distribution(nodes: list[dict]) -> list[list[int]]:
+    """Round-robin 14 shards over nodes by free slot count
+    (command_ec_encode.go:248-264)."""
+    allocations: list[list[int]] = [[] for _ in nodes]
+    free = [n["free_ec_slots"] for n in nodes]
+    sid = 0
+    while sid < C.TOTAL_SHARDS:
+        progressed = False
+        for i in range(len(nodes)):
+            if sid >= C.TOTAL_SHARDS:
+                break
+            if free[i] > len(allocations[i]):
+                allocations[i].append(sid)
+                sid += 1
+                progressed = True
+        if not progressed:
+            raise RuntimeError("not enough free ec shard slots")
+    return allocations
+
+
+def _mark_readonly(urls: list[str], vid: int, readonly: bool) -> None:
+    for url in urls:
+        http.post_json(
+            f"{url}/admin/readonly",
+            {"volume": vid, "readonly": readonly},
+            retry=retry_mod.ADMIN,
+        )
+
+
+def _restore_writable(urls: list[str], vid: int) -> None:
+    """Best-effort rollback: un-strand a volume the encode froze."""
+    for url in urls:
+        try:
+            http.post_json(
+                f"{url}/admin/readonly",
+                {"volume": vid, "readonly": False},
+                retry=retry_mod.ADMIN,
+            )
+        except http.HttpError:
+            pass
+
+
+# -- ec encode ---------------------------------------------------------------
+
+
+def ec_encode_volume(
+    master_url: str, vid: int, collection: str, out=None
+) -> None:
+    """readonly → generate shards on the first replica → spread →
+    delete the original (command_ec_encode.go:55-160). ANY failure
+    before the shards land restores writability on every replica — a
+    mid-task crash must never strand an un-encoded volume readonly."""
+    out = _out(out)
+    locations = volume_locations(master_url, vid)
+    if not locations:
+        raise RuntimeError(f"volume {vid} not found")
+    _mark_readonly(locations, vid, True)
+    try:
+        source = locations[0]
+        res = http.post_json(
+            f"{source}/admin/ec/generate",
+            {"volume": vid, "collection": collection},
+            timeout=LONG_TIMEOUT, retry=retry_mod.ADMIN_LONG,
+        )
+        out.write(f"volume {vid}: generated 14 shards on {source}\n")
+        if line := _phase_line(res):
+            out.write(f"volume {vid}: {line}\n")
+        spread_ec_shards(master_url, vid, collection, source, out)
+    except Exception:
+        _restore_writable(locations, vid)
+        raise
+    # shards are spread and mounted: the volume is now EC-served, so
+    # the original stays readonly by design while it is deleted
+    for url in locations:
+        try:
+            http.post_json(
+                f"{url}/admin/delete_volume", {"volume": vid},
+                retry=retry_mod.ADMIN,
+            )
+        except http.HttpError:
+            pass
+    out.write(f"volume {vid}: ec.encode done\n")
+
+
+def ec_encode_batch(
+    master_url: str, vids: list[int], collection: str, out=None
+) -> None:
+    """Group volumes by source server and run ONE batched generate rpc
+    per server, so the server's device mesh encodes volumes in lockstep
+    (vs. the reference's serial per-volume loop,
+    weed/shell/command_ec_encode.go:92-120)."""
+    out = _out(out)
+    # resolve every volume BEFORE mutating anything, so a missing vid
+    # aborts with zero side effects
+    locs: dict[int, list[str]] = {}
+    for vid in vids:
+        locations = volume_locations(master_url, vid)
+        if not locations:
+            raise RuntimeError(f"volume {vid} not found")
+        locs[vid] = locations
+    by_source: dict[str, list[int]] = {}
+    marked: list[int] = []
+    try:
+        for vid in vids:
+            _mark_readonly(locs[vid], vid, True)
+            marked.append(vid)
+            by_source.setdefault(locs[vid][0], []).append(vid)
+        for source, group in by_source.items():
+            res = http.post_json(
+                f"{source}/admin/ec/generate_batch",
+                {"volumes": group, "collection": collection},
+                timeout=LONG_TIMEOUT, retry=retry_mod.ADMIN_LONG,
+            )
+            out.write(
+                f"volumes {group}: batch-generated shards on {source}\n"
+            )
+            if line := _phase_line(res):
+                out.write(f"volumes {group}: {line}\n")
+            for vid in group:
+                spread_ec_shards(master_url, vid, collection, source, out)
+                for url in locs[vid]:
+                    try:
+                        http.post_json(
+                            f"{url}/admin/delete_volume",
+                            {"volume": vid},
+                            retry=retry_mod.ADMIN,
+                        )
+                    except http.HttpError:
+                        pass
+                marked.remove(vid)  # encoded: stays readonly by design
+                out.write(f"volume {vid}: ec.encode done\n")
+    except Exception:
+        # a failed batch must not strand un-encoded volumes readonly
+        for vid in marked:
+            _restore_writable(locs[vid], vid)
+        raise
+
+
+def spread_ec_shards(
+    master_url: str, vid: int, collection: str, source: str, out=None
+) -> None:
+    """Copy + mount shard groups across the ec-capable nodes, then
+    drop the moved shards from the source
+    (command_ec_encode.go:160-207)."""
+    out = _out(out)
+    nodes = collect_ec_nodes(master_url)
+    if not nodes:
+        raise RuntimeError("no ec-capable nodes")
+    allocations = balanced_ec_distribution(nodes)
+
+    # pool workers have no thread-local span or deadline; carry the
+    # maintenance task's explicitly so shard placement stays inside
+    # the scheduler's span tree and its deadline budget
+    span = tracing.current()
+    budget = retry_mod.deadline()
+
+    def place(node, shard_ids):
+        if not shard_ids:
+            return
+        prev = retry_mod.set_deadline(budget)
+        try:
+            with tracing.attach(span):
+                url = node["url"]
+                if url != source:
+                    http.post_json(
+                        f"{url}/admin/ec/copy",
+                        {
+                            "volume": vid,
+                            "collection": collection,
+                            "shard_ids": shard_ids,
+                            "source": source,
+                            "copy_ecx_file": True,
+                        },
+                        timeout=LONG_TIMEOUT,
+                        retry=retry_mod.ADMIN_LONG,
+                    )
+                http.post_json(
+                    f"{url}/admin/ec/mount",
+                    {
+                        "volume": vid,
+                        "collection": collection,
+                        "shard_ids": shard_ids,
+                    },
+                    retry=retry_mod.ADMIN,
+                )
+                out.write(
+                    f"volume {vid}: shards {shard_ids} -> {url}\n"
+                )
+        finally:
+            retry_mod.set_deadline(prev)
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(place, nodes, allocations))
+    # unmount + delete moved shards from source
+    for node, shard_ids in zip(nodes, allocations):
+        if node["url"] == source or not shard_ids:
+            continue
+        try:
+            http.post_json(
+                f"{source}/admin/ec/delete_shards",
+                {
+                    "volume": vid,
+                    "collection": collection,
+                    "shard_ids": shard_ids,
+                },
+                retry=retry_mod.ADMIN,
+            )
+        except http.HttpError:
+            pass
+
+
+# -- ec rebuild --------------------------------------------------------------
+
+
+def rebuild_ec_volume(
+    master_url: str,
+    vid: int,
+    collection: str,
+    present: set[int] | None = None,
+    out=None,
+) -> list[int]:
+    """Collect >= k shards onto one rebuilder, rebuild the missing
+    ones locally, mount them (command_ec_rebuild.go:130-190); returns
+    the rebuilt shard ids."""
+    out = _out(out)
+    shard_map = ec_shard_map(master_url, vid)
+    if present is None:
+        present = set(shard_map)
+    if len(present) >= C.TOTAL_SHARDS:
+        return []
+    if len(present) < C.DATA_SHARDS:
+        raise RuntimeError(
+            f"volume {vid}: only {len(present)} shards survive, "
+            f"need {C.DATA_SHARDS}"
+        )
+    nodes = collect_ec_nodes(master_url)
+    if not nodes:
+        raise RuntimeError("no ec-capable nodes")
+    rebuilder = nodes[0]
+    url = rebuilder["url"]
+    local = {
+        sid for sid, urls in shard_map.items() if url in urls
+    }
+    copied = []
+    for sid in sorted(present - local):
+        srcs = [u for u in shard_map.get(sid, []) if u != url]
+        if not srcs:
+            continue
+        http.post_json(
+            f"{url}/admin/ec/copy",
+            {
+                "volume": vid,
+                "collection": collection,
+                "shard_ids": [sid],
+                "source": srcs[0],
+                "copy_ecx_file": not local and not copied,
+            },
+            timeout=LONG_TIMEOUT, retry=retry_mod.ADMIN_LONG,
+        )
+        copied.append(sid)
+    res = http.post_json(
+        f"{url}/admin/ec/rebuild",
+        {"volume": vid, "collection": collection},
+        timeout=LONG_TIMEOUT, retry=retry_mod.ADMIN_LONG,
+    )
+    rebuilt = res.get("rebuilt_shards", [])
+    http.post_json(
+        f"{url}/admin/ec/mount",
+        {"volume": vid, "collection": collection, "shard_ids": rebuilt},
+        retry=retry_mod.ADMIN,
+    )
+    # drop the shards we only copied in for rebuilding (not mounted)
+    if copied:
+        http.post_json(
+            f"{url}/admin/ec/delete_shards",
+            {
+                "volume": vid,
+                "collection": collection,
+                "shard_ids": copied,
+                "keep_index": True,
+            },
+            retry=retry_mod.ADMIN,
+        )
+    out.write(f"volume {vid}: rebuilt shards {rebuilt} on {url}\n")
+    return rebuilt
+
+
+# -- vacuum ------------------------------------------------------------------
+
+
+def vacuum_volume(
+    master_url: str,
+    vid: int,
+    garbage_threshold: float = 0.0,
+    bytes_per_second: int = 0,
+    out=None,
+) -> dict:
+    """check → compact → commit one volume on every replica
+    (topology_vacuum.go per-volume arm). Re-checks the live garbage
+    ratio first (replica-max) so a stale candidate is skipped, and
+    forwards the byte/s throttle to every compact."""
+    out = _out(out)
+    urls = volume_locations(master_url, vid)
+    if not urls:
+        raise RuntimeError(f"volume {vid} not found")
+    ratios = [
+        http.post_json(
+            f"{u}/admin/vacuum/check", {"volume": vid},
+            retry=retry_mod.ADMIN,
+        )["garbage_ratio"]
+        for u in urls
+    ]
+    ratio = max(ratios)
+    if garbage_threshold and ratio < garbage_threshold:
+        out.write(
+            f"volume {vid}: garbage {ratio:.3f} below threshold, "
+            f"skipping\n"
+        )
+        return {"vacuumed": False, "garbage_ratio": ratio}
+    for u in urls:
+        http.post_json(
+            f"{u}/admin/vacuum/compact",
+            {
+                "volume": vid,
+                "compaction_byte_per_second": bytes_per_second,
+            },
+            timeout=LONG_TIMEOUT, retry=retry_mod.ADMIN_LONG,
+        )
+    for u in urls:
+        http.post_json(
+            f"{u}/admin/vacuum/commit", {"volume": vid},
+            timeout=LONG_TIMEOUT, retry=retry_mod.ADMIN_LONG,
+        )
+    out.write(f"volume {vid}: vacuumed (garbage was {ratio:.3f})\n")
+    return {"vacuumed": True, "garbage_ratio": ratio}
+
+
+# -- replication repair ------------------------------------------------------
+
+
+def fix_replication_volume(
+    master_url: str, vid: int, out=None
+) -> int:
+    """Copy one under-replicated volume onto enough free nodes to meet
+    its replica placement (command_volume_fix_replication.go); returns
+    the number of copies created."""
+    out = _out(out)
+    nodes = data_nodes(master_url)
+    holders: list[str] = []
+    placement = 0
+    collection = ""
+    for dn in nodes:
+        for v in dn["volumes"]:
+            if v["id"] == vid:
+                holders.append(dn["url"])
+                placement = v.get("replica_placement", 0)
+                collection = v.get("collection", "")
+    if not holders:
+        raise RuntimeError(f"volume {vid} has no live replica to copy")
+    rp = t.ReplicaPlacement.from_byte(placement)
+    need = rp.copy_count - len(holders)
+    if need <= 0:
+        out.write(f"volume {vid}: replication already satisfied\n")
+        return 0
+    candidates = [
+        dn["url"]
+        for dn in sorted(
+            nodes,
+            key=lambda d: d["volume_count"] - d["max_volume_count"],
+        )
+        if dn["url"] not in holders
+        and dn["volume_count"] < dn["max_volume_count"]
+    ]
+    if not candidates:
+        raise RuntimeError(
+            f"volume {vid}: no node with a free slot for a new replica"
+        )
+    fixed = 0
+    for target in candidates[:need]:
+        http.post_json(
+            f"{target}/admin/volume_copy",
+            {
+                "volume": vid,
+                "collection": collection,
+                "source": holders[0],
+            },
+            timeout=LONG_TIMEOUT, retry=retry_mod.ADMIN_LONG,
+        )
+        out.write(f"volume {vid}: replicated {holders[0]} -> {target}\n")
+        fixed += 1
+    return fixed
+
+
+# -- balance -----------------------------------------------------------------
+
+
+def balance_step(master_url: str, out=None) -> int:
+    """Move ONE volume from the fullest node to the emptiest
+    (command_volume_balance.go inner step); returns volumes moved
+    (0 when the spread is already tight or nothing is movable)."""
+    out = _out(out)
+    nodes = data_nodes(master_url)
+    if len(nodes) < 2:
+        return 0
+    ratios = [
+        (dn["volume_count"] / max(1, dn["max_volume_count"]), dn)
+        for dn in nodes
+    ]
+    ratios.sort(key=lambda x: x[0])
+    low, high = ratios[0], ratios[-1]
+    if high[0] - low[0] <= 1.0 / max(1, low[1]["max_volume_count"]):
+        return 0
+    held = {x["id"] for x in low[1]["volumes"]}
+    candidates = [
+        v for v in high[1]["volumes"] if v["id"] not in held
+    ]
+    if not candidates:
+        return 0
+    v = candidates[0]
+    http.post_json(
+        f"{low[1]['url']}/admin/volume_copy",
+        {
+            "volume": v["id"],
+            "collection": v.get("collection", ""),
+            "source": high[1]["url"],
+        },
+        timeout=LONG_TIMEOUT, retry=retry_mod.ADMIN_LONG,
+    )
+    http.post_json(
+        f"{high[1]['url']}/admin/delete_volume", {"volume": v["id"]},
+        retry=retry_mod.ADMIN,
+    )
+    out.write(
+        f"moved volume {v['id']} {high[1]['url']} -> {low[1]['url']}\n"
+    )
+    return 1

@@ -1,0 +1,185 @@
+"""MaintenancePolicy: every knob of the autonomous plane in one place.
+
+The reference spreads these across master.toml scripts and per-command
+flags (`-garbageThreshold`, `-fullPercent`, `-quietFor`); here one
+dataclass configures detection thresholds, scheduling caps, and the
+compact throttle, with `SEAWEEDFS_MAINT_*` env defaults and runtime
+merges from `weed shell maintenance.policy` / `POST
+/cluster/maintenance {"action": "policy"}`.
+
+Also home to :func:`parse_duration`, the "1h"/"30m"/"90s" parser the
+shell flags (`ec.encode -quietFor`) share with the policy env vars.
+
+The port's copy of ``seaweedfs_tpu/maintenance/policy.py``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import re
+from dataclasses import dataclass
+
+from .tasks import TASK_TYPES
+
+_DURATION_RE = re.compile(r"(\d+(?:\.\d+)?)\s*([a-z]*)")
+_UNITS = {
+    "": 1.0, "s": 1.0, "sec": 1.0, "second": 1.0, "seconds": 1.0,
+    "m": 60.0, "min": 60.0, "minute": 60.0, "minutes": 60.0,
+    "h": 3600.0, "hr": 3600.0, "hour": 3600.0, "hours": 3600.0,
+    "d": 86400.0, "day": 86400.0, "days": 86400.0,
+}
+
+
+def parse_duration(value: str | float | int) -> float:
+    """`"1h"` / `"30m"` / `"90s"` / `"1h30m"` / `90` → seconds.
+
+    Bare numbers are seconds (so existing numeric call sites keep
+    working); unknown units or empty strings raise ValueError.
+    """
+    if isinstance(value, (int, float)):
+        return float(value)
+    s = value.strip().lower()
+    if not s:
+        raise ValueError("empty duration")
+    total = 0.0
+    pos = 0
+    for m in _DURATION_RE.finditer(s):
+        if m.start() != pos:
+            raise ValueError(f"bad duration {value!r}")
+        unit = m.group(2)
+        if unit not in _UNITS:
+            raise ValueError(
+                f"bad duration unit {unit!r} in {value!r}"
+            )
+        total += float(m.group(1)) * _UNITS[unit]
+        pos = m.end()
+    if pos != len(s):
+        raise ValueError(f"bad duration {value!r}")
+    return total
+
+
+def _env_bool(name: str, default: bool) -> bool:
+    raw = os.environ.get(name, "")
+    if not raw:
+        return default
+    return raw.lower() in ("1", "true", "yes", "on")
+
+
+@dataclass(frozen=True)
+class MaintenancePolicy:
+    """Detection thresholds + scheduling limits for the plane."""
+
+    # master plane off by default: an operator (or harness/env) opts a
+    # cluster into autonomy explicitly, exactly like the reference's
+    # scripted master.toml maintenance block
+    enabled: bool = False
+    # detector round cadence, seconds
+    interval: float = 17.0
+    # executor worker threads
+    workers: int = 2
+    # which task types the detector may emit / scheduler may run
+    task_types: tuple[str, ...] = TASK_TYPES
+    # vacuum: replica-max garbage_level() >= threshold triggers
+    garbage_threshold: float = 0.3
+    # ec_encode: full (size >= full_percent% of the volume size limit)
+    # AND quiet (no append for quiet_seconds) volumes get encoded —
+    # the command_ec_encode.go predicate that keeps warm volumes
+    # flowing into the GF(256) codec
+    full_percent: float = 95.0
+    quiet_seconds: float = 3600.0
+    # balance: trigger when the fullest/emptiest slot-usage ratio
+    # spread exceeds this
+    balance_skew: float = 0.3
+    # scheduler: per-node and per-type running-task ceilings
+    per_node_concurrency: int = 1
+    per_type_concurrency: int = 1
+    # seconds before the same (type, volume) may be re-enqueued after
+    # a terminal outcome (completed, failed, or skipped)
+    cooldown_seconds: float = 60.0
+    # ec_encode batch coalescing: one executor slot drains up to this
+    # many queued same-collection EC tasks into one mesh dispatch
+    # (volume-data-parallel across the chips); 1 disables coalescing
+    ec_batch_max: int = 8
+    # compact throttle forwarded to Volume.compact
+    # (`compaction_byte_per_second`); 0 = unthrottled
+    bytes_per_second: int = 0
+    # finished-task ring size for /cluster/maintenance
+    history_size: int = 256
+
+    @classmethod
+    def from_env(cls, **overrides) -> "MaintenancePolicy":
+        """Policy from SEAWEEDFS_MAINT_* env; explicit overrides win."""
+        env = os.environ
+        vals: dict = {}
+        vals["enabled"] = _env_bool("SEAWEEDFS_MAINT_ENABLED", False)
+        for key, name, cast in (
+            ("interval", "SEAWEEDFS_MAINT_INTERVAL", parse_duration),
+            ("quiet_seconds", "SEAWEEDFS_MAINT_QUIET_FOR",
+             parse_duration),
+            ("cooldown_seconds", "SEAWEEDFS_MAINT_COOLDOWN",
+             parse_duration),
+            ("garbage_threshold", "SEAWEEDFS_MAINT_GARBAGE_THRESHOLD",
+             float),
+            ("full_percent", "SEAWEEDFS_MAINT_FULL_PERCENT", float),
+            ("balance_skew", "SEAWEEDFS_MAINT_BALANCE_SKEW", float),
+            ("workers", "SEAWEEDFS_MAINT_WORKERS", int),
+            ("per_node_concurrency", "SEAWEEDFS_MAINT_PER_NODE", int),
+            ("per_type_concurrency", "SEAWEEDFS_MAINT_PER_TYPE", int),
+            ("bytes_per_second", "SEAWEEDFS_MAINT_BPS", int),
+            ("ec_batch_max", "SEAWEEDFS_MAINT_EC_BATCH", int),
+        ):
+            raw = env.get(name, "")
+            if raw:
+                vals[key] = cast(raw)
+        if raw := env.get("SEAWEEDFS_MAINT_TYPES", ""):
+            wanted = tuple(
+                t.strip() for t in raw.split(",") if t.strip()
+            )
+            bad = [t for t in wanted if t not in TASK_TYPES]
+            if bad:
+                raise ValueError(
+                    f"SEAWEEDFS_MAINT_TYPES: unknown task types {bad} "
+                    f"(want a subset of {list(TASK_TYPES)})"
+                )
+            vals["task_types"] = wanted
+        vals.update(overrides)
+        return cls(**vals)
+
+    def merge(self, updates: dict) -> "MaintenancePolicy":
+        """A new policy with `updates` applied; duration-shaped fields
+        accept "30m"-style strings, unknown keys raise."""
+        fields = {f.name: f for f in dataclasses.fields(self)}
+        clean: dict = {}
+        for key, value in updates.items():
+            if key not in fields:
+                raise ValueError(f"unknown policy key {key!r}")
+            if key == "task_types":
+                if isinstance(value, str):
+                    value = [
+                        t.strip() for t in value.split(",") if t.strip()
+                    ]
+                bad = [t for t in value if t not in TASK_TYPES]
+                if bad:
+                    raise ValueError(f"unknown task types {bad}")
+                clean[key] = tuple(value)
+            elif key in ("interval", "quiet_seconds",
+                         "cooldown_seconds"):
+                clean[key] = parse_duration(value)
+            elif key == "enabled":
+                clean[key] = (
+                    value if isinstance(value, bool)
+                    else str(value).lower() in ("1", "true", "yes", "on")
+                )
+            elif key in ("workers", "per_node_concurrency",
+                         "per_type_concurrency", "bytes_per_second",
+                         "history_size", "ec_batch_max"):
+                clean[key] = int(value)
+            else:
+                clean[key] = float(value)
+        return dataclasses.replace(self, **clean)
+
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["task_types"] = list(self.task_types)
+        return d

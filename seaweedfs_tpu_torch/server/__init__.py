@@ -1,3 +1,4 @@
-"""Servers of the port: the volume server (``volume.VolumeServer``) and
-the client side of its heartbeat stream. The master, filer and gateways
-are not ported yet."""
+"""Servers of the port: the master (``master.MasterServer``, with its
+raft in ``raft``), the volume server (``volume.VolumeServer``), the
+client side of the heartbeat stream and the in-process
+``harness.ClusterHarness``. The filer and gateways are not ported yet."""

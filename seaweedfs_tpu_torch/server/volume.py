@@ -20,14 +20,16 @@ its store mounts — takes that device with the server's
 Not ported yet, each answered with a 501: ``/admin/volume_copy`` and
 ``/admin/tail`` (with ``storage/volume_backup.py``), ``/admin/fsck``,
 ``/admin/query``, ``/admin/tier/{upload,download}`` (with the S3
-backend) and ``/ui``; and reading or deleting a chunk-manifest needle
-(with ``operation/``). The request-tracing middleware and the telemetry
+backend) and ``/ui``. A chunk-manifest needle resolves through the
+port's ``operation/`` client, as the reference's does. The
+request-tracing middleware and the telemetry
 snapshot are not ported either: the server routes through the plain
 ``Router``, and its heartbeats carry ``telemetry: None``.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
@@ -387,7 +389,7 @@ class VolumeServer:
         if n.has(needle_mod.FLAG_IS_CHUNK_MANIFEST) and not (
             req is not None and req.param("cm") == "false"
         ):
-            return _manifest_not_ported()
+            return self._chunk_manifest_response(n)
         headers = {"ETag": f'"{n.etag}"'}
         if n.mime:
             headers["Content-Type"] = n.mime.decode("ascii", "replace")
@@ -421,6 +423,38 @@ class VolumeServer:
                 req.param("mode"),
             )
         return Response(status=200, body=body, headers=headers)
+
+    def _chunk_manifest_response(self, n: needle_mod.Needle) -> Response:
+        """Resolve a chunk-manifest needle into one streamed body:
+        fetch each chunk from its volume server in offset order
+        (volume_server_handlers_read.go chunked-manifest resolution +
+        operation/chunked_file.go)."""
+        manifest = json.loads(n.data)
+        chunks = sorted(
+            manifest.get("chunks", []), key=lambda c: c["offset"]
+        )
+
+        def gen():
+            from .. import operation
+
+            for c in chunks:
+                yield operation.read_file(self.master_url, c["fid"])
+
+        headers = {
+            "Content-Type": manifest.get("mime")
+            or "application/octet-stream",
+            "X-Chunk-Manifest": "true",
+        }
+        if manifest.get("name"):
+            headers["Content-Disposition"] = (
+                f'inline; filename="{manifest["name"]}"'
+            )
+        return Response(
+            status=200,
+            stream=gen(),
+            content_length=int(manifest.get("size", 0)),
+            headers=headers,
+        )
 
     def _h_write(self, req: Request) -> Response:
         tracing.set_op("write")
@@ -533,17 +567,26 @@ class VolumeServer:
                 f"volume {fid.volume_id} not local", 404
             )
         # a chunk-manifest delete fans out to its chunks first
-        # (volume_server_handlers_write.go DeleteHandler); only the
-        # PRIMARY delete fans out. The fan-out needs operation/, so
-        # until it is ported a primary manifest delete is refused
-        # whole, never half done
+        # (volume_server_handlers_write.go DeleteHandler resolves
+        # manifests so auto-split uploads don't orphan chunk needles);
+        # only the PRIMARY delete fans out — replicas deleting their
+        # manifest copy must not re-issue cluster-wide chunk deletes
         if req.param("cm") != "false" and req.param("type") != "replicate":
             try:
                 n = vol.read_needle(fid.key, cookie=fid.cookie)
+                if n.has(needle_mod.FLAG_IS_CHUNK_MANIFEST):
+                    from .. import operation
+
+                    for c in json.loads(n.data).get("chunks", []):
+                        try:
+                            operation.delete_file(
+                                self.master_url, c["fid"],
+                                jwt_signing_key=self.guard.signing_key,
+                            )
+                        except Exception:
+                            pass
             except Exception:
-                n = None  # manifest resolution must not block the delete
-            if n is not None and n.has(needle_mod.FLAG_IS_CHUNK_MANIFEST):
-                return _manifest_not_ported()
+                pass  # manifest resolution must not block the delete
         size = vol.delete_needle(fid.key)
         if req.param("type") != "replicate":
             err = self._replicate(req, fid, "DELETE")
@@ -1248,10 +1291,3 @@ _NOT_PORTED = (
 
 def _not_ported(req: Request) -> Response:
     return Response.error(f"{req.path} is not ported yet", 501)
-
-
-def _manifest_not_ported() -> Response:
-    return Response.error(
-        "chunk-manifest needles are not served yet (resolving one needs "
-        "operation/, not ported yet)", 501
-    )

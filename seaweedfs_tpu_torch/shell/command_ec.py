@@ -1,0 +1,307 @@
+"""EC admin workflows: ec.encode / ec.rebuild / ec.decode / ec.balance.
+
+Behavioral model: weed/shell/command_ec_encode.go:55-297 (readonly →
+generate → spread → cleanup), command_ec_rebuild.go:97-190,
+command_ec_decode.go:76-150, command_ec_balance.go, command_ec_common.go.
+The generate/rebuild steps run the codec on the target volume server.
+
+The encode/rebuild/vacuum bodies live in maintenance/ops.py as callable
+building blocks shared with the autonomous maintenance executors; the
+commands here are the interactive wrappers.
+
+The port's copy of ``seaweedfs_tpu/shell/command_ec.py``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+from ..maintenance import ops, parse_duration
+from ..storage.erasure_coding import constants as C
+from ..util import http
+from ..util import retry as retry_mod
+from .commands import CommandEnv, command
+
+
+# -- shared helpers (command_ec_common.go analogs) ---------------------------
+
+
+def collect_ec_nodes(env: CommandEnv) -> list[dict]:
+    """Data nodes with free slots, most-free first
+    (command_ec_common.go collectEcNodes)."""
+    return ops.collect_ec_nodes(env.master_url)
+
+
+def _volume_locations(env: CommandEnv, vid: int) -> list[str]:
+    return ops.volume_locations(env.master_url, vid)
+
+
+def _ec_shard_map(env: CommandEnv, vid: int) -> dict[int, list[str]]:
+    """shard id → server urls, from the master's EC map."""
+    return ops.ec_shard_map(env.master_url, vid)
+
+
+def balanced_ec_distribution(nodes: list[dict]) -> list[list[int]]:
+    """Round-robin 14 shards over nodes by free slot count
+    (command_ec_encode.go:248-264)."""
+    return ops.balanced_ec_distribution(nodes)
+
+
+def collect_volume_ids_for_ec_encode(
+    env: CommandEnv, collection: str, full_percentage: float,
+    quiet_seconds: float,
+) -> list[int]:
+    """Full + quiet volumes (command_ec_encode.go:266-297)."""
+    vids = []
+    now = time.time()
+    for dn in env.data_nodes():
+        for v in dn["volumes"]:
+            if v.get("collection", "") != collection:
+                continue
+            if v.get("read_only"):
+                continue
+            # quiet: no append in the window (modified_at_second rides
+            # the heartbeat); fullness is enforced by the master-side
+            # detector which knows the live size limit — callers
+            # targeting one volume pass -volumeId
+            if v.get("modified_at_second", 0) + quiet_seconds <= now:
+                vids.append(v["id"])
+    return sorted(set(vids))
+
+
+# -- ec.encode ---------------------------------------------------------------
+
+
+@command("ec.encode", "ec.encode -volumeId <id> [-collection c] [-quietFor 1h] [-parallel] # erasure-code a volume on the card")
+def cmd_ec_encode(env: CommandEnv, args: list[str], out) -> None:
+    p = argparse.ArgumentParser(prog="ec.encode")
+    p.add_argument("-volumeId", type=int, default=0)
+    p.add_argument("-collection", default="")
+    p.add_argument("-fullPercent", type=float, default=95.0)
+    p.add_argument("-quietFor", default="1h")
+    p.add_argument(
+        "-parallel", action="store_true",
+        help="batch same-server volumes through the device mesh "
+             "(volume-parallel encode, BASELINE config 4)",
+    )
+    opts = p.parse_args(args)
+    env.confirm_is_locked()
+    if opts.volumeId:
+        vids = [opts.volumeId]
+    else:
+        vids = collect_volume_ids_for_ec_encode(
+            env, opts.collection, opts.fullPercent,
+            parse_duration(opts.quietFor),
+        )
+    if opts.parallel and len(vids) > 1:
+        do_ec_encode_parallel(env, opts.collection, vids, out)
+    else:
+        for vid in vids:
+            do_ec_encode(env, opts.collection, vid, out)
+
+
+def do_ec_encode_parallel(
+    env: CommandEnv, collection: str, vids: list[int], out
+) -> None:
+    """Group volumes by source server and run ONE batched generate rpc
+    per server, so the server's device mesh encodes volumes in lockstep
+    (vs. the reference's serial per-volume loop,
+    weed/shell/command_ec_encode.go:92-120)."""
+    ops.ec_encode_batch(env.master_url, vids, collection, out)
+
+
+def do_ec_encode(
+    env: CommandEnv, collection: str, vid: int, out
+) -> None:
+    ops.ec_encode_volume(env.master_url, vid, collection, out)
+
+
+def spread_ec_shards(
+    env: CommandEnv, vid: int, collection: str, source: str, out
+) -> None:
+    ops.spread_ec_shards(env.master_url, vid, collection, source, out)
+
+
+# -- ec.rebuild --------------------------------------------------------------
+
+
+@command("ec.rebuild", "ec.rebuild [-volumeId <id>] # regenerate missing ec shards")
+def cmd_ec_rebuild(env: CommandEnv, args: list[str], out) -> None:
+    p = argparse.ArgumentParser(prog="ec.rebuild")
+    p.add_argument("-volumeId", type=int, default=0)
+    p.add_argument("-collection", default="")
+    opts = p.parse_args(args)
+    env.confirm_is_locked()
+    # find ec volumes with missing shards
+    shard_counts: dict[int, set[int]] = {}
+    for dn in env.data_nodes():
+        for es in dn["ec_shards"]:
+            sids = shard_counts.setdefault(es["id"], set())
+            for sid in range(C.TOTAL_SHARDS):
+                if es["ec_index_bits"] & (1 << sid):
+                    sids.add(sid)
+    targets = [
+        vid
+        for vid, sids in shard_counts.items()
+        if len(sids) < C.TOTAL_SHARDS
+        and (not opts.volumeId or vid == opts.volumeId)
+    ]
+    for vid in targets:
+        rebuild_one_ec_volume(
+            env, opts.collection, vid, shard_counts[vid], out
+        )
+    if not targets:
+        out.write("nothing to rebuild\n")
+
+
+def rebuild_one_ec_volume(
+    env: CommandEnv, collection: str, vid: int, present: set[int], out
+) -> None:
+    """Collect >= k shards onto one rebuilder, rebuild locally, mount
+    (command_ec_rebuild.go:130-190)."""
+    ops.rebuild_ec_volume(
+        env.master_url, vid, collection, present=present, out=out
+    )
+
+
+# -- ec.decode ---------------------------------------------------------------
+
+
+@command("ec.decode", "ec.decode -volumeId <id> # convert ec shards back to a normal volume")
+def cmd_ec_decode(env: CommandEnv, args: list[str], out) -> None:
+    p = argparse.ArgumentParser(prog="ec.decode")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-collection", default="")
+    opts = p.parse_args(args)
+    env.confirm_is_locked()
+    vid = opts.volumeId
+    shard_map = _ec_shard_map(env, vid)
+    if not shard_map:
+        raise RuntimeError(f"ec volume {vid} not found")
+    # pick the node with the most data shards already local
+    counts: dict[str, int] = {}
+    for sid, urls in shard_map.items():
+        if sid < C.DATA_SHARDS:
+            for u in urls:
+                counts[u] = counts.get(u, 0) + 1
+    target = max(counts, key=counts.get)
+    # collect missing data shards onto the target
+    for sid in range(C.DATA_SHARDS):
+        urls = shard_map.get(sid, [])
+        if target in urls:
+            continue
+        if not urls:
+            raise RuntimeError(
+                f"volume {vid}: data shard {sid} lost everywhere; "
+                "run ec.rebuild first"
+            )
+        http.post_json(
+            f"{target}/admin/ec/copy",
+            {
+                "volume": vid,
+                "collection": opts.collection,
+                "shard_ids": [sid],
+                "source": urls[0],
+                "copy_ecx_file": False,
+                "copy_ecj_file": True,
+            },
+            timeout=3600, retry=retry_mod.ADMIN_LONG,
+        )
+    http.post_json(
+        f"{target}/admin/ec/to_volume",
+        {"volume": vid, "collection": opts.collection},
+        timeout=3600, retry=retry_mod.ADMIN_LONG,
+    )
+    # delete remaining shards elsewhere
+    for sid, urls in shard_map.items():
+        for u in urls:
+            if u != target:
+                try:
+                    http.post_json(
+                        f"{u}/admin/ec/delete_shards",
+                        {
+                            "volume": vid,
+                            "collection": opts.collection,
+                            "shard_ids": [sid],
+                        },
+                        retry=retry_mod.ADMIN,
+                    )
+                except http.HttpError:
+                    pass
+    out.write(f"volume {vid}: decoded back to normal volume on {target}\n")
+
+
+# -- ec.balance --------------------------------------------------------------
+
+
+@command("ec.balance", "ec.balance # spread ec shards evenly across nodes")
+def cmd_ec_balance(env: CommandEnv, args: list[str], out) -> None:
+    p = argparse.ArgumentParser(prog="ec.balance")
+    p.add_argument("-collection", default="")
+    opts = p.parse_args(args)
+    env.confirm_is_locked()
+    moved = 0
+    # per-volume: no node should hold more than ceil(14 / n_nodes)+1
+    vids = set()
+    for dn in env.data_nodes():
+        for es in dn["ec_shards"]:
+            vids.add(es["id"])
+    for vid in sorted(vids):
+        moved += _balance_one(env, vid, opts.collection, out)
+    out.write(f"moved {moved} shards\n")
+
+
+def _balance_one(env: CommandEnv, vid: int, collection: str, out) -> int:
+    shard_map = _ec_shard_map(env, vid)
+    nodes = collect_ec_nodes(env)
+    if not nodes:
+        return 0
+    per_node: dict[str, list[int]] = {n["url"]: [] for n in nodes}
+    for sid, urls in shard_map.items():
+        for u in urls:
+            per_node.setdefault(u, []).append(sid)
+    cap = -(-C.TOTAL_SHARDS // len(per_node))  # ceil
+    overloaded = {
+        u: sids for u, sids in per_node.items() if len(sids) > cap
+    }
+    moved = 0
+    for src, sids in overloaded.items():
+        excess = sids[cap:]
+        for sid in excess:
+            dst = min(per_node, key=lambda u: len(per_node[u]))
+            if len(per_node[dst]) >= cap or dst == src:
+                continue
+            http.post_json(
+                f"{dst}/admin/ec/copy",
+                {
+                    "volume": vid,
+                    "collection": collection,
+                    "shard_ids": [sid],
+                    "source": src,
+                },
+                timeout=3600, retry=retry_mod.ADMIN_LONG,
+            )
+            http.post_json(
+                f"{dst}/admin/ec/mount",
+                {
+                    "volume": vid,
+                    "collection": collection,
+                    "shard_ids": [sid],
+                },
+                retry=retry_mod.ADMIN,
+            )
+            http.post_json(
+                f"{src}/admin/ec/delete_shards",
+                {
+                    "volume": vid,
+                    "collection": collection,
+                    "shard_ids": [sid],
+                },
+                retry=retry_mod.ADMIN,
+            )
+            per_node[src].remove(sid)
+            per_node[dst].append(sid)
+            out.write(f"volume {vid}: shard {sid} {src} -> {dst}\n")
+            moved += 1
+    return moved

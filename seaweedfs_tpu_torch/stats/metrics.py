@@ -270,3 +270,22 @@ VOLUME_SERVER_VOLUME_COUNT = REGISTRY.gauge(
     "Number of volumes or EC shards.",
     ("collection", "type"),
 )
+
+# failover arc families: leader re-resolution in the client master
+# ring (operation/masters.py). The `master` label is the candidate's
+# SLOT INDEX in the ring — cardinality is bounded by the spec'd master
+# count (a hint pointing outside the configured ring collapses to the
+# single "external" slot), never by the URL space. `reason` is one of
+# {hint, status, rotate}: a not-leader body hint, a /cluster/status
+# re-resolution, or a blind next-candidate rotation on a dead peer.
+MASTER_RING_ROTATIONS = REGISTRY.counter(
+    "seaweedfs_master_ring_rotations_total",
+    "Client master-ring leader changes by ring slot and reason.",
+    ("master", "reason"),
+)
+MASTER_LEADER_RESOLVES = REGISTRY.counter(
+    "seaweedfs_master_leader_resolves_total",
+    "Full /cluster/status leader sweeps by outcome "
+    "(found | no_leader).",
+    ("outcome",),
+)

@@ -1,0 +1,354 @@
+"""Topology root: node registry, collections, EC shard map, sequencing.
+
+Behavioral model: weed/topology/topology.go:22-120, topology_ec.go,
+collection.go, weed/sequence/memory_sequencer.go. The raft-backed
+max-volume-id is modeled as a pluggable id allocator (the in-proc master
+uses the memory sequencer; a lease/consensus layer can wrap it later).
+
+The port's copy of ``seaweedfs_tpu/topology/topology.py``.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+
+from ..pb.messages import (
+    EcShardInformationMessage,
+    Heartbeat,
+    VolumeInformationMessage,
+)
+from ..storage import types as t
+from ..storage.erasure_coding import constants as C
+from .node import DataCenter, DataNode, Node
+from .volume_layout import VolumeLayout
+
+
+class Collection:
+    def __init__(self, name: str, volume_size_limit: int):
+        self.name = name
+        self.volume_size_limit = volume_size_limit
+        self._layouts: dict[tuple[int, int], VolumeLayout] = {}
+        self._lock = threading.RLock()
+
+    def get_or_create_layout(
+        self, rp: t.ReplicaPlacement, ttl: t.TTL
+    ) -> VolumeLayout:
+        key = (rp.to_byte(), ttl.to_uint32())
+        with self._lock:
+            if key not in self._layouts:
+                self._layouts[key] = VolumeLayout(
+                    rp, ttl, self.volume_size_limit
+                )
+            return self._layouts[key]
+
+    def layouts(self) -> list[VolumeLayout]:
+        return list(self._layouts.values())
+
+    def lookup(self, vid: int) -> list[DataNode]:
+        for layout in self._layouts.values():
+            if locations := layout.lookup(vid):
+                return locations
+        return []
+
+
+class EcShardLocations:
+    def __init__(self, collection: str = ""):
+        self.collection = collection
+        self.locations: list[list[DataNode]] = [
+            [] for _ in range(C.TOTAL_SHARDS)
+        ]
+
+    def add_shard(self, shard_id: int, dn: DataNode) -> bool:
+        for node in self.locations[shard_id]:
+            if node.id == dn.id:
+                return False
+        self.locations[shard_id].append(dn)
+        return True
+
+    def delete_shard(self, shard_id: int, dn: DataNode) -> bool:
+        for i, node in enumerate(self.locations[shard_id]):
+            if node.id == dn.id:
+                del self.locations[shard_id][i]
+                return True
+        return False
+
+
+class Topology(Node):
+    def __init__(
+        self,
+        volume_size_limit: int = 30 * 1000 * 1000 * 1000,
+        pulse_seconds: int = 5,
+    ):
+        super().__init__("topo")
+        self.volume_size_limit = volume_size_limit
+        self.pulse_seconds = pulse_seconds
+        self.collections: dict[str, Collection] = {}
+        self.ec_shard_map: dict[tuple[str, int], EcShardLocations] = {}
+        # vid -> collections holding EC shards for it: lookups arrive
+        # without a collection (fid URLs carry only the vid), and a
+        # full-map scan per lookup is O(EC volumes) on a hot path
+        self._ec_cols_by_vid: dict[int, set[str]] = {}
+        self._seq_lock = threading.Lock()
+        self._max_volume_id = 0
+        # Optional consensus hook: candidate vid -> committed vid (may be
+        # higher), raising on no quorum. Set by raft-backed masters.
+        self.vid_committer = None
+
+    # -- id sequencing (raft state machine analog) -----------------------
+
+    def next_volume_id(self) -> int:
+        with self._seq_lock:
+            candidate = max(
+                self._max_volume_id, self.max_volume_id
+            ) + 1
+            if self.vid_committer is not None:
+                # Raft-backed masters commit the id through consensus
+                # before it is ever used (cluster_commands.go
+                # MaxVolumeIdCommand analog); raises NoQuorumError on a
+                # partitioned minority, which aborts the growth.
+                candidate = self.vid_committer(candidate)
+            self._max_volume_id = candidate
+            self.adjust_max_volume_id(candidate)
+            return candidate
+
+    # -- tree ------------------------------------------------------------
+
+    def get_or_create_data_center(self, dc_id: str) -> DataCenter:
+        with self._lock:
+            if dc_id in self.children:
+                return self.children[dc_id]
+            return self.link_child_node(DataCenter(dc_id))
+
+    def data_nodes(self) -> list[DataNode]:
+        out = []
+        for dc in self.children.values():
+            for rack in dc.children.values():
+                out.extend(rack.children.values())
+        return out
+
+    def find_data_node(self, node_id: str) -> DataNode | None:
+        for dn in self.data_nodes():
+            if dn.id == node_id:
+                return dn
+        return None
+
+    # -- collections / layouts -------------------------------------------
+
+    def get_or_create_collection(self, name: str) -> Collection:
+        with self._lock:
+            if name not in self.collections:
+                self.collections[name] = Collection(
+                    name, self.volume_size_limit
+                )
+            return self.collections[name]
+
+    def get_volume_layout(
+        self, collection: str, rp: t.ReplicaPlacement, ttl: t.TTL
+    ) -> VolumeLayout:
+        return self.get_or_create_collection(
+            collection
+        ).get_or_create_layout(rp, ttl)
+
+    def delete_collection(self, name: str) -> None:
+        with self._lock:
+            self.collections.pop(name, None)
+
+    def lookup(self, collection: str, vid: int) -> list[DataNode]:
+        if collection:
+            col = self.collections.get(collection)
+            return col.lookup(vid) if col else []
+        for col in self.collections.values():
+            if locations := col.lookup(vid):
+                return locations
+        return []
+
+    def lookup_ec_shards(
+        self, vid: int, collection: str = ""
+    ) -> EcShardLocations | None:
+        if collection:
+            return self.ec_shard_map.get((collection, vid))
+        for col in self._ec_cols_by_vid.get(vid, ()):
+            if locs := self.ec_shard_map.get((col, vid)):
+                return locs
+        return None
+
+    # -- heartbeat processing (master_grpc_server.go:20-170) -------------
+
+    def register_data_node(self, hb: Heartbeat) -> DataNode:
+        dc = self.get_or_create_data_center(hb.data_center or "DefaultDataCenter")
+        rack = dc.get_or_create_rack(hb.rack or "DefaultRack")
+        dn = rack.new_or_get_data_node(
+            f"{hb.ip}:{hb.port}",
+            hb.ip,
+            hb.port,
+            hb.public_url,
+            hb.max_volume_count,
+        )
+        if hb.max_volume_count != dn.max_volume_count:
+            diff = hb.max_volume_count - dn.max_volume_count
+            dn.max_volume_count = hb.max_volume_count
+            dn._adjust(0, 0, 0, diff)
+        dn.last_seen = time.monotonic()
+        return dn
+
+    def sync_data_node_registration(
+        self, hb: Heartbeat, dn: DataNode
+    ) -> tuple[list[int], list[int]]:
+        """Full volume-state sync; returns (new vids, deleted vids)."""
+        new, deleted = dn.update_volumes(hb.volumes)
+        for v in hb.volumes:
+            self._register_volume(v, dn)
+        for v in deleted:
+            self._unregister_volume(v, dn)
+        return [v.id for v in new], [v.id for v in deleted]
+
+    def incremental_sync_data_node(
+        self, hb: Heartbeat, dn: DataNode
+    ) -> None:
+        for v in hb.new_volumes:
+            dn.add_or_update_volume(v)
+            self._register_volume(v, dn)
+        for v in hb.deleted_volumes:
+            dn.delete_volume_by_id(v.id)
+            self._unregister_volume(v, dn)
+
+    def _register_volume(
+        self, v: VolumeInformationMessage, dn: DataNode
+    ) -> None:
+        layout = self.get_volume_layout(
+            v.collection,
+            t.ReplicaPlacement.from_byte(v.replica_placement),
+            t.TTL.from_uint32(v.ttl),
+        )
+        layout.register_volume(v, dn)
+
+    def _unregister_volume(
+        self, v: VolumeInformationMessage, dn: DataNode
+    ) -> None:
+        layout = self.get_volume_layout(
+            v.collection,
+            t.ReplicaPlacement.from_byte(v.replica_placement),
+            t.TTL.from_uint32(v.ttl),
+        )
+        layout.unregister_volume(v, dn)
+
+    # -- EC shard state (topology_ec.go) ---------------------------------
+
+    def sync_data_node_ec_shards(
+        self, shards: list[EcShardInformationMessage], dn: DataNode
+    ) -> None:
+        new, deleted = dn.update_ec_shards(shards)
+        for m in shards:
+            self.register_ec_shards(m, dn)
+        for vid, bits in deleted:
+            self._delete_ec_bits(vid, bits, dn)
+
+    def register_ec_shards(
+        self, m: EcShardInformationMessage, dn: DataNode
+    ) -> None:
+        # heartbeats from different volume servers land on concurrent
+        # handler threads; setdefault/add on the shared shard map must
+        # be atomic (the RLock keeps already-locked callers reentrant)
+        with self._lock:
+            key = (m.collection, m.id)
+            dn.ec_collections[m.id] = m.collection
+            locs = self.ec_shard_map.setdefault(
+                key, EcShardLocations(m.collection)
+            )
+            self._ec_cols_by_vid.setdefault(m.id, set()).add(
+                m.collection
+            )
+            for sid in range(C.TOTAL_SHARDS):
+                if m.ec_index_bits & (1 << sid):
+                    locs.add_shard(sid, dn)
+
+    def unregister_ec_shards(
+        self, m: EcShardInformationMessage, dn: DataNode
+    ) -> None:
+        self._delete_ec_bits(m.id, m.ec_index_bits, dn, m.collection)
+
+    def _delete_ec_bits(
+        self, vid: int, bits: int, dn: DataNode, collection: str | None = None
+    ) -> None:
+        with self._lock:
+            cols = self._ec_cols_by_vid.get(vid, set())
+            for col in list(cols):
+                if collection is not None and col != collection:
+                    continue
+                locs = self.ec_shard_map.get((col, vid))
+                if locs is None:
+                    cols.discard(col)
+                    continue
+                for sid in range(C.TOTAL_SHARDS):
+                    if bits & (1 << sid):
+                        locs.delete_shard(sid, dn)
+                if all(not lst for lst in locs.locations):
+                    del self.ec_shard_map[(col, vid)]
+                    cols.discard(col)
+            if not cols:
+                self._ec_cols_by_vid.pop(vid, None)
+
+    def unregister_data_node(self, dn: DataNode) -> None:
+        """Node death: remove all its volumes from layouts
+        (master_grpc_server.go:22-50)."""
+        for v in list(dn.volumes.values()):
+            self._unregister_volume(v, dn)
+        for vid, bits in list(dn.ec_shards.items()):
+            self._delete_ec_bits(vid, bits, dn)
+        if dn.parent:
+            dn.parent.unlink_child_node(dn.id)
+
+    # -- write targeting -------------------------------------------------
+
+    def pick_for_write(
+        self,
+        collection: str = "",
+        replication: str = "000",
+        ttl: str = "",
+        count: int = 1,
+    ) -> tuple[str, int, list[DataNode]]:
+        """→ (fid-less vid string..., vid, locations); raises
+        NoWritableVolumeError when the layout has no writable volume."""
+        rp = t.ReplicaPlacement.parse(replication)
+        layout = self.get_volume_layout(collection, rp, t.TTL.parse(ttl))
+        vid, locations = layout.pick_for_write()
+        return str(vid), vid, locations
+
+    def to_topology_info(self) -> dict:
+        """Topology dump for shell/UI (master_grpc_server_volume.go)."""
+        dcs = []
+        for dc in self.children.values():
+            racks = []
+            for rack in dc.children.values():
+                nodes = []
+                for dn in rack.children.values():
+                    nodes.append(
+                        {
+                            "id": dn.id,
+                            "url": dn.url,
+                            "public_url": dn.public_url,
+                            "volume_count": dn.volume_count,
+                            "max_volume_count": dn.max_volume_count,
+                            "ec_shard_count": dn.ec_shard_count,
+                            "volumes": [
+                                v.to_dict() for v in dn.volumes.values()
+                            ],
+                            "ec_shards": [
+                                {
+                                    "id": vid,
+                                    "ec_index_bits": bits,
+                                    "collection": (
+                                        dn.ec_collections.get(vid, "")
+                                    ),
+                                }
+                                for vid, bits in dn.ec_shards.items()
+                            ],
+                        }
+                    )
+                racks.append({"id": rack.id, "data_nodes": nodes})
+            dcs.append({"id": dc.id, "racks": racks})
+        return {
+            "max_volume_id": self.max_volume_id,
+            "data_centers": dcs,
+        }

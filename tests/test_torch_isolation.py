@@ -100,7 +100,29 @@ def test_port_files_exist():
                    ("storage", "store.py"),
                    ("server", "__init__.py"),
                    ("server", "heartbeat_stream.py"),
-                   ("server", "volume.py")):
+                   ("server", "volume.py"),
+                   ("topology", "__init__.py"),
+                   ("topology", "node.py"),
+                   ("topology", "volume_layout.py"),
+                   ("topology", "topology.py"),
+                   ("topology", "volume_growth.py"),
+                   ("server", "location_watch.py"),
+                   ("server", "raft.py"),
+                   ("server", "master.py"),
+                   ("server", "harness.py"),
+                   ("security", "tls.py"),
+                   ("operation", "__init__.py"),
+                   ("operation", "masters.py"),
+                   ("operation", "watch.py"),
+                   ("operation", "client.py"),
+                   ("operation", "submit.py"),
+                   ("maintenance", "__init__.py"),
+                   ("maintenance", "tasks.py"),
+                   ("maintenance", "policy.py"),
+                   ("maintenance", "ops.py"),
+                   ("shell", "__init__.py"),
+                   ("shell", "commands.py"),
+                   ("shell", "command_ec.py")):
         assert os.path.join("seaweedfs_tpu_torch", *module) in names
     assert len(files) > 10
 
@@ -154,6 +176,14 @@ def test_importing_the_port_loads_no_jax():
         "import seaweedfs_tpu_torch.storage.store\n"
         "import seaweedfs_tpu_torch.server.volume\n"
         "import seaweedfs_tpu_torch.server.heartbeat_stream\n"
+        "import seaweedfs_tpu_torch.server.master\n"
+        "import seaweedfs_tpu_torch.server.harness\n"
+        "import seaweedfs_tpu_torch.security.tls\n"
+        "import seaweedfs_tpu_torch.operation\n"
+        "import seaweedfs_tpu_torch.maintenance.ops\n"
+        "import seaweedfs_tpu_torch.shell\n"
+        "import seaweedfs_tpu_torch.shell.commands\n"
+        "seaweedfs_tpu_torch.shell.commands.all_commands()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'seaweedfs_tpu', 'bench', 'tools')]\n"
         "print(bad)\n"
