@@ -193,14 +193,43 @@ Run from the root of the repository, on a machine with a CUDA card and
     ``device/*`` routes and its host dispatches its ``host/*`` routes,
     none ``static``, every encode launch in the compile-time form and
     no rebuild or read launch. Its ``cluster`` JSON line.
+15. the cluster maintains itself on the card: a port master with its
+    autonomous maintenance plane (the reference tests' accelerated
+    policy: 0.4 s rounds, quiet 1.5 s, full at 90 % of a
+    ``--volume-mib`` size limit, two workers, batches of up to eight)
+    and four ``VolumeServer(device="cuda")`` in this process. With the
+    plane paused, phase 10's volume (a link) and a copy of it with eight
+    needles' data rewritten in place (same size, different bytes) are
+    mounted on the first server as volumes 1 and 2 of collection
+    ``warm``, a ``trash`` volume gets 40 client writes and 28 deletes,
+    and a ``001`` volume loses one of its two replicas. Resumed, with no
+    shell command, the plane must EC-encode both in one coalesced
+    ``generate_batch``, two lanes of one lockstep group (volume 1's
+    shards and ``.ecx`` hashing equal to phase 10's, volume 2's to
+    ``write_ec_files`` of its copy, every gf_swar launch in the
+    compile-time form), copy the replica back over ``/admin/volume_copy``
+    (byte-equal) and vacuum the garbage; with shards {0, 5, 11, 13} of
+    volume 1 deleted, rebuild them (hashes equal, every launch in the
+    run-time form); with a third link mounted as volume 5, encode it
+    alone. Then 200 needles of volume 1 read byte-exact through the
+    client, ``/cluster/telemetry`` must show a fleet EC rate above zero
+    and the three volumes' bytes in the servers' ``ec`` sections,
+    ``maintenance.status`` and ``cluster.health`` print through the shell,
+    and ``seaweedfs_maintenance_tasks_total`` must count every completed
+    task. Each step starts on a fresh, probed link state; the seconds
+    from resume to each volume's 14 mapped shards and from the loss to
+    14 live shards again, the batch generate's GB/s by its timing and
+    the rebuild's are printed with the card. Its ``maintenance`` JSON
+    line.
 
 Phases 4, 5 (with 6), 9 and 10 pin their codecs to
 ``link_aware=False`` (the size floor alone decides their routes), so
 their expected launches and host dispatches follow from the widths;
 phase 11 runs the link-aware default.
 
-It prints ``read_decode``, ``routing``, ``multigpu``, ``volume_server``
-and ``cluster`` JSON lines, one JSON line describing every kernel,
+It prints ``read_decode``, ``routing``, ``multigpu``, ``volume_server``,
+``cluster`` and ``maintenance`` JSON lines, one JSON line describing
+every kernel,
 then, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository beside it, it exits non-zero and prints no result.
@@ -1675,6 +1704,35 @@ def needle_cookies(dat: str, idx_path: str, keys) -> dict[int, int]:
     return out
 
 
+def rewrite_needles(dat: str, idx_path: str, keys, rng) -> dict:
+    """Give each needle in ``keys`` new data of its length, in place in
+    the version-3 ``dat``, its checksum recomputed: the file keeps its
+    size and every record its length. Returns each key's cookie and new
+    data."""
+    from seaweedfs_tpu_torch.storage import idx, needle
+    from seaweedfs_tpu_torch.storage import types as t
+
+    with open(idx_path, "rb") as f:
+        entries = idx.parse_entries(f.read())
+    last = {int(k): (int(o), int(s)) for k, o, s in
+            zip(entries["key"], entries["offset"], entries["size"])}
+    out = {}
+    with open(dat, "r+b") as f:
+        for key in keys:
+            offset, size = last[key]
+            length = needle.get_actual_size(size, t.VERSION3)
+            n = needle.Needle.from_record(
+                os.pread(f.fileno(), length, offset), t.VERSION3)
+            n.data = rng.bytes(len(n.data))
+            record = n.to_bytes(t.VERSION3)
+            check(len(record) == length and n.id == key,
+                  f"needle {key:x}: rewritten as needle {n.id:x} of "
+                  f"{len(record)} bytes, not {length}")
+            os.pwrite(f.fileno(), record, offset)
+            out[key] = (n.cookie, n.data)
+    return out
+
+
 def swar_state(counters) -> tuple[int, int, int]:
     """gf_swar's launches, those in its compile-time RS(10,4) form, and
     the codec's host dispatches."""
@@ -1686,6 +1744,39 @@ def swar_delta(counters, before) -> dict[str, int]:
     now = swar_state(counters)
     return {"launches": now[0] - before[0], "rs10x4": now[1] - before[1],
             "host": now[2] - before[2]}
+
+
+def step_start(link, counters):
+    """The counts before a cluster step, which starts on a fresh, probed
+    link state: the in-process servers share this process's one
+    estimate, which a step's contended dispatches would otherwise carry
+    into the next, where a server process of its own starts from its
+    probe."""
+    link.STATE = link.LinkState()
+    link.probe()
+    return swar_state(counters), link.ROUTE_TOTAL.values()
+
+
+def step_delta(link, counters, before, what: str, form: str) -> dict:
+    """gf_swar's launches, the host dispatches and the codec's route
+    split since ``before`` (``step_start``); the step launched on the
+    card, each launch is one ``device/*`` route and each host dispatch
+    one ``host/*`` route, and every launch takes the compile-time
+    RS(10,4) form (``form="rs10x4"``) or none does (``"run-time"``)."""
+    out = swar_delta(counters, before[0])
+    out["routes"] = route_delta(link, before[1])
+    on_dev = sum(n for r, n in out["routes"].items()
+                 if r.startswith("device/"))
+    on_host = sum(n for r, n in out["routes"].items()
+                  if r.startswith("host/"))
+    check(out["launches"] == on_dev and out["host"] == on_host
+          and out["launches"] > 0
+          and out["rs10x4"] == (out["launches"] if form == "rs10x4" else 0)
+          and not any(r.endswith("/static") for r in out["routes"]),
+          f"{what}: {out}: launches on the card, one gf_swar launch a "
+          f"device route, one host dispatch a host route, link-aware, "
+          f"every launch {form}")
+    return out
 
 
 def live_extent_sha(dat: str, extent: int) -> str:
@@ -2071,38 +2162,6 @@ def phase_cluster(args, smi, kept, reset_counts, counters):
     def on_card(text):
         say(f"[{smi}] {text}")
 
-    def state():
-        """The counts before a step, which starts on a fresh, probed link
-        state: the four servers share this process's one estimate, which
-        a step's contended dispatches would otherwise carry into the
-        next, where a server process of its own starts from its probe."""
-        link.STATE = link.LinkState()
-        link.probe()
-        return swar_state(counters), link.ROUTE_TOTAL.values()
-
-    def delta(before, what, form):
-        """gf_swar's launches, the host dispatches and the codec's route
-        split since ``before``; the step launched on the card, each
-        launch is one ``device/*`` route and each host dispatch one
-        ``host/*`` route, and every launch takes the compile-time
-        RS(10,4) form (``form="rs10x4"``) or none does
-        (``"run-time"``)."""
-        out = swar_delta(counters, before[0])
-        out["routes"] = route_delta(link, before[1])
-        on_dev = sum(n for r, n in out["routes"].items()
-                     if r.startswith("device/"))
-        on_host = sum(n for r, n in out["routes"].items()
-                      if r.startswith("host/"))
-        check(out["launches"] == on_dev and out["host"] == on_host
-              and out["launches"] > 0
-              and out["rs10x4"] == (out["launches"] if form == "rs10x4"
-                                    else 0)
-              and not any(r.endswith("/static") for r in out["routes"]),
-              f"{what}: {out}: launches on the card, one gf_swar launch a "
-              f"device route, one host dispatch a host route, link-aware, "
-              f"every launch {form}")
-        return out
-
     def ec_map():
         try:
             info = http.get_json(f"{m}/ec/lookup?volumeId=1")
@@ -2221,10 +2280,11 @@ def phase_cluster(args, smi, kept, reset_counts, counters):
 
         # 1. lock, then ec.encode of the 1 GiB volume through the shell
         check(shell("lock")[0] == "locked", "the cluster lock")
-        before = state()
+        before = step_start(link, counters)
         out, sec = shell("ec.encode -volumeId 1")
         row["ec_encode"] = {"seconds": sec, "GBps": dat_bytes / sec / 1e9,
-                            **delta(before, "ec.encode", "rs10x4")}
+                            **step_delta(link, counters, before,
+                                         "ec.encode", "rs10x4")}
         check("volume 1: ec.encode done" in out, f"ec.encode: {out}")
         wait_shards(set(range(C.TOTAL_SHARDS)))
         check_shards(range(C.TOTAL_SHARDS), "ec.encode")
@@ -2261,7 +2321,7 @@ def phase_cluster(args, smi, kept, reset_counts, counters):
                                               "rebuild differs")
                     reads_during[0] += 1
 
-        before = state()
+        before = step_start(link, counters)
         with ThreadPoolExecutor(2) as pool:
             futures = [pool.submit(reader) for _ in range(2)]
             try:
@@ -2274,8 +2334,8 @@ def phase_cluster(args, smi, kept, reset_counts, counters):
         row["ec_rebuild"] = {
             "seconds": sec, "GBps": len(lost) * shard_bytes / sec / 1e9,
             "reads_during": reads_during[0], "reads_missed": misses[0],
-            **delta(before, "ec.rebuild and the reads beside it",
-                    "run-time")}
+            **step_delta(link, counters, before,
+                         "ec.rebuild and the reads beside it", "run-time")}
         check(f"rebuilt shards {lost}" in out, f"ec.rebuild: {out}")
         wait_shards(set(range(C.TOTAL_SHARDS)))
         check_shards(lost, "ec.rebuild")
@@ -2324,7 +2384,7 @@ def phase_cluster(args, smi, kept, reset_counts, counters):
                 ev._reconstruct_interval = timed("reconstruct",
                                                  ev._reconstruct_interval)
                 wrapped.append(ev)
-        before = state()
+        before = step_start(link, counters)
         try:
             row["degraded"] = read_all(list(fids1), want1, threads=8)
         finally:
@@ -2333,7 +2393,8 @@ def phase_cluster(args, smi, kept, reset_counts, counters):
                              "_remote_shard_reader",
                              "_reconstruct_interval"):
                     obj.__dict__.pop(name, None)
-        row["degraded"].update(delta(before, "degraded reads", "run-time"))
+        row["degraded"].update(step_delta(link, counters, before,
+                                          "degraded reads", "run-time"))
         row["degraded"].update(
             lookups=spent["lookup"][0], lookup_s=spent["lookup"][1],
             failed_lookups=spent["failed"][0],
@@ -2362,11 +2423,12 @@ def phase_cluster(args, smi, kept, reset_counts, counters):
                 f"{row['degraded']['latency_sum_s']:.4f} s")
 
         # the volume whole again for ec.decode
-        before = state()
+        before = step_start(link, counters)
         out, sec = shell("ec.rebuild -volumeId 1")
         row["ec_rebuild_again"] = {
             "seconds": sec, "GBps": len(lost) * shard_bytes / sec / 1e9,
-            **delta(before, "the second ec.rebuild", "run-time")}
+            **step_delta(link, counters, before, "the second ec.rebuild",
+                         "run-time")}
         wait_shards(set(range(C.TOTAL_SHARDS)))
         check_shards(lost, "the second ec.rebuild")
         on_card(f"shell ec.rebuild -volumeId 1 again: {sec:.3f} s = "
@@ -2422,12 +2484,13 @@ def phase_cluster(args, smi, kept, reset_counts, counters):
 
         # 5. ec.encode -parallel of those volumes: one generate_batch a
         # server, the lane-packed batch encode
-        before = state()
+        before = step_start(link, counters)
         out, sec = shell("ec.encode -collection bulk -quietFor 0s -parallel")
         row["ec_encode_parallel"] = {
             "seconds": sec, "GBps": w_bytes / sec / 1e9,
             "volumes": len(bulk),
-            **delta(before, "ec.encode -parallel", "rs10x4")}
+            **step_delta(link, counters, before, "ec.encode -parallel",
+                         "rs10x4")}
         check(len(bulk) > 1 and "batch-generated shards on" in out
               and all(f"volume {v}: ec.encode done" in out for v in bulk),
               f"ec.encode -parallel: {out}")
@@ -2443,7 +2506,7 @@ def phase_cluster(args, smi, kept, reset_counts, counters):
         # 6. ec.decode of volume 1 back to a normal volume
         extent = decoder.find_dat_file_size(files_of(".ec00")[0][:-5],
                                             files_of(".ecx")[0][:-4])
-        before = state()
+        before = step_start(link, counters)
         out, sec = shell("ec.decode -volumeId 1")
         now = swar_state(counters)
         row["ec_decode"] = {"seconds": sec,
@@ -2481,6 +2544,457 @@ def phase_cluster(args, smi, kept, reset_counts, counters):
         if env is not None:
             with contextlib.suppress(Exception):
                 env.unlock()
+        if c is not None:
+            c.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    return row, path
+
+
+def phase_maintenance(args, smi, kept, reset_counts, counters):
+    """Phase 15: the cluster maintains itself on the card — a port master
+    with its autonomous maintenance plane and four volume servers on
+    ``cuda`` in this process. The scenario is staged with the plane
+    paused; then the plane alone, with no shell command, EC-encodes two
+    full, quiet volumes — phase 10's volume and a copy of it with a few
+    needles rewritten — in one coalesced batch, vacuums a garbage-heavy
+    volume and copies back a lost replica; then rebuilds four lost
+    shards; then encodes a third copy on its own. Returns the phase's
+    row and the launch counts of its path."""
+    from seaweedfs_tpu_torch import operation
+    from seaweedfs_tpu_torch.maintenance import MaintenancePolicy
+    from seaweedfs_tpu_torch.operation import client as op_client
+    from seaweedfs_tpu_torch.ops import link
+    from seaweedfs_tpu_torch.server.harness import ClusterHarness
+    from seaweedfs_tpu_torch.shell import CommandEnv, run_command
+    from seaweedfs_tpu_torch.storage.erasure_coding import (
+        constants as C,
+        encoder,
+        rebuild as rebuild_mod,
+    )
+    from seaweedfs_tpu_torch.ops.codec import RSCodec
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+    from seaweedfs_tpu_torch.util import http, retry
+
+    phase_t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke-maintenance-",
+                            dir=args.workdir)
+    src, live = kept["dir"], kept["live"]
+    dat_bytes = os.path.getsize(os.path.join(src, "1.dat"))
+    lost = [0, 5, 11, 13]
+    row: dict = {"card": smi}
+    c = None
+    # volume 2 before the plane encodes it
+    ref2 = os.path.join(root, "ref", "warm_2")
+    # every rebuild_ec_files a server runs: (seconds, rebuilt bytes).
+    # The server answers a rebuild with no timing, so the phase wraps the
+    # function; this sees the calls because server/volume.py calls it
+    # through the module attribute (rebuild_mod.rebuild_ec_files).
+    rebuilds: list[tuple[float, int]] = []
+    real_rebuild = rebuild_mod.rebuild_ec_files
+
+    def timed_rebuild(base, *a, **kw):
+        t0 = time.perf_counter()
+        out = real_rebuild(base, *a, **kw)
+        sec = time.perf_counter() - t0
+        rebuilds.append((sec, sum(os.path.getsize(base + C.to_ext(s))
+                                  for s in out)))
+        return out
+
+    def on_card(text):
+        say(f"[{smi}] {text}")
+
+    def plane(action):
+        http.post_json(f"{m}/cluster/maintenance", {"action": action})
+
+    def tasks(kind=None, vid=None):
+        return [t for t in http.get_json(f"{m}/cluster/maintenance")[
+            "history"] if (kind is None or t["type"] == kind)
+            and (vid is None or t["volume_id"] == vid)]
+
+    def completed(kind, vid):
+        return any(t["state"] == "completed" for t in tasks(kind, vid))
+
+    def ec_map(vid):
+        try:
+            info = http.get_json(f"{m}/ec/lookup?volumeId={vid}")
+        except http.HttpError:
+            return {}
+        return {int(s): [loc["url"] for loc in locs]
+                for s, locs in info["shards"].items()}
+
+    def wait_for(pred, what, timeout=120.0):
+        deadline = time.time() + timeout
+        while not pred():
+            check(time.time() < deadline,
+                  f"{what}: not within {timeout:.0f} s; the plane's "
+                  f"history {tasks()}")
+            time.sleep(0.05)
+
+    def volume_sizes():
+        sizes: dict[int, list] = {}
+        for dn in c.master.topo.data_nodes():
+            for v in list(dn.volumes.values()):
+                sizes.setdefault(v.id, []).append(v)
+        return sizes
+
+    def mount(vid, dat=None):
+        """Volume ``vid`` of collection ``warm`` on the first server:
+        ``dat`` (phase 10's ``.dat`` by default) linked, phase 10's
+        ``.idx`` copied, then mounted."""
+        base = os.path.join(root, "vs0", f"warm_{vid}")
+        os.link(dat or os.path.join(src, "1.dat"), base + ".dat")
+        shutil.copyfile(os.path.join(src, "1.idx"), base + ".idx")
+        http.post_json(f"{c.volume_servers[0].url}/admin/volume_mount",
+                       {"volume": vid, "collection": "warm"})
+
+    def check_shards(vid, sids, what, want=None):
+        """Every copy of each shard in ``sids`` of volume ``vid`` in the
+        servers' directories hashes equal to ``want`` (ext -> sha256;
+        phase 10's hashes by default)."""
+        want = want or kept["encoded"]
+        for ext in [C.to_ext(s) for s in sids] + [".ecx"]:
+            paths = [p for p in (os.path.join(root, f"vs{i}",
+                                              f"warm_{vid}{ext}")
+                                 for i in range(4)) if os.path.exists(p)]
+            check(paths and all(sha256_file(p) == want[ext]
+                                for p in paths),
+                  f"{what}: {ext} of volume {vid} at {paths} differs from "
+                  "its own encode")
+
+    def encoded_by_plane(vids, t_start):
+        """Seconds from ``t_start`` to each volume's 14 shards mapped,
+        polled together; returns once every ec_encode task of ``vids``
+        completed."""
+        mapped: dict[int, float] = {}
+
+        def poll():
+            for vid in vids:
+                if vid not in mapped and len(ec_map(vid)) == C.TOTAL_SHARDS:
+                    mapped[vid] = time.perf_counter() - t_start
+            return len(mapped) == len(vids) and all(
+                completed("ec_encode", vid) for vid in vids)
+
+        wait_for(poll, f"the plane's ec_encode of volumes {vids}")
+        return mapped
+
+    def task_s(t):
+        return t["finished"] - t["started"]
+
+    try:
+        reset_counts()
+        route0 = link.ROUTE_TOTAL.values()
+        retry.BREAKERS.reset()
+        op_client._lookup_cache.clear()
+        rebuild_mod.rebuild_ec_files = timed_rebuild
+        # the reference's tests' accelerated policy
+        # (tests/test_maintenance.py ACCEL), batching as it ships
+        policy = MaintenancePolicy(
+            enabled=True, interval=0.4, workers=2, quiet_seconds=1.5,
+            full_percent=90.0, garbage_threshold=0.3, cooldown_seconds=3.0,
+            ec_batch_max=8, task_types=("vacuum", "ec_encode", "ec_rebuild",
+                                        "fix_replication"))
+        t0 = time.perf_counter()
+        c = ClusterHarness(n_volume_servers=4, volumes_per_server=8,
+                           pulse_seconds=0.2, root=root, device="cuda",
+                           telemetry_interval=0,
+                           volume_size_limit_mb=args.volume_mib,
+                           maintenance_policy=policy)
+        c.wait_for_nodes(4)
+        m = c.master.url
+        plane("pause")
+        row["start_s"] = time.perf_counter() - t0
+        urls = [vs.url for vs in c.volume_servers]
+        on_card(f"cluster: master {m} with its maintenance plane "
+                f"({policy.interval} s rounds, quiet {policy.quiet_seconds}"
+                f" s, full at {policy.full_percent} % of "
+                f"{args.volume_mib} MiB, {policy.workers} workers, batches "
+                f"of up to {policy.ec_batch_max}) and volume servers "
+                f"{urls} on {c.device}, up in {row['start_s']:.3f} s; "
+                "plane paused to stage")
+
+        # -- staging, the plane paused ----------------------------------
+        # two full volumes on the first server: phase 10's, and a copy
+        # with eight needles' data rewritten in place; of one size, they
+        # are two lanes of one lockstep group in the batch encode, and
+        # their bytes differ
+        rng = np.random.default_rng([args.seed, 16])
+        os.makedirs(os.path.dirname(ref2))
+        shutil.copyfile(os.path.join(src, "1.dat"), ref2 + ".dat")
+        shutil.copyfile(os.path.join(src, "1.idx"), ref2 + ".idx")
+        rewritten = rewrite_needles(
+            ref2 + ".dat", ref2 + ".idx",
+            [int(k) for k in rng.choice(sorted(live), 8, replace=False)],
+            rng)
+        mount(1)
+        mount(2, ref2 + ".dat")
+        # a garbage-heavy volume, written and deleted through the client
+        grown = http.post_json(
+            f"{m}/vol/grow?count=1&collection=trash&replication=000", {})
+        trash = {}
+        for i in range(40):
+            data = rng.bytes(int(rng.integers(16 * 1024, 128 * 1024)))
+            trash[operation.upload_data(m, data, collection="trash")[0]] = (
+                data)
+        trash_vid = int(next(iter(trash)).split(",")[0])
+        check({int(f.split(",")[0]) for f in trash} == {trash_vid},
+              f"trash writes landed on one volume: {sorted(trash)[:3]} "
+              f"({grown})")
+        gone = list(trash)[:28]
+        for fid in gone:
+            operation.delete_file(m, fid)
+        # a 001 volume that loses one of its two replicas
+        http.post_json(
+            f"{m}/vol/grow?count=1&collection=repl&replication=001", {})
+        rdata = rng.bytes(300_000)
+        rfid, _ = operation.upload_data(m, rdata, replication="001",
+                                        collection="repl")
+        rvid = int(rfid.split(",")[0])
+        rlocs = operation.lookup(m, rfid, refresh=True)
+        check(len(rlocs) == 2, f"the 001 write reached {rlocs}")
+        rdat = http.request(
+            "GET", f"{rlocs[1]['url']}/admin/ec/download?volume={rvid}"
+            "&collection=repl&ext=.dat")
+        http.post_json(f"{rlocs[0]['url']}/admin/delete_volume",
+                       {"volume": rvid})
+        full = 0.9 * c.master.topo.volume_size_limit
+
+        def staged():
+            """The master's view holds the whole scenario, so the first
+            round after resume queues every task: both warm volumes
+            full and quiet, the trash volume's garbage and one replica
+            left."""
+            sizes = volume_sizes()
+            return (all(v.size >= full and time.time() - v.modified_at_second
+                        >= policy.quiet_seconds
+                        for vid in (1, 2) for v in sizes.get(vid, []))
+                    and all(len(sizes.get(vid, [])) == 1
+                            for vid in (1, 2, rvid))
+                    and sizes[trash_vid][0].deleted_byte_count
+                    >= 0.3 * sizes[trash_vid][0].size)
+
+        wait_for(staged, "the master's view of the staged scenario", 30)
+        on_card(f"staged: volumes 1 and 2 ({dat_bytes} bytes each, "
+                f"{len(rewritten)} needles of volume 2 rewritten, "
+                f"collection warm) on {urls[0]}; volume {trash_vid} with "
+                f"{len(gone)} of {len(trash)} client writes deleted; volume "
+                f"{rvid} (001) down to one replica")
+
+        # -- 1. the warm tier: resume, and the plane encodes both --------
+        before = step_start(link, counters)
+        t_resume = time.perf_counter()
+        plane("resume")
+        to_warm = encoded_by_plane((1, 2), t_resume)
+        batch = c.volume_servers[0]._telemetry.ec.snapshot()
+        enc = {t["volume_id"]: t for t in tasks("ec_encode")}
+        row["encode"] = {
+            "seconds_to_14_shards": to_warm,
+            "task_s": {vid: task_s(t) for vid, t in enc.items()},
+            "generate": batch,
+            "generate_GBps": batch["bytes"] / batch["busy_seconds"] / 1e9,
+            **step_delta(link, counters, before,
+                         "the plane's ec_encode batch", "rs10x4")}
+        check(enc[1]["detail"].get("batched_with") == [2]
+              and enc[2]["detail"].get("batched_with") == [1],
+              f"one coalesced batch: {enc}")
+        check(batch["bytes"] == 2 * dat_bytes and batch["volumes"] == 2
+              and batch["encodes"] == 1,
+              f"one batch generate of both on {urls[0]}: {batch}")
+        check_shards(1, range(C.TOTAL_SHARDS), "the plane's encode")
+        for vid in (1, 2):
+            check(not os.path.exists(os.path.join(root, "vs0",
+                                                  f"warm_{vid}.dat")),
+                  f"the encode left warm_{vid}.dat")
+        on_card(f"the plane encoded volumes 1 and 2 in one batch: 14 "
+                f"shards mapped {to_warm[1]:.3f} / {to_warm[2]:.3f} s after "
+                f"resume (tasks {row['encode']['task_s']}); the batch "
+                f"generate {row['encode']['generate_GBps']:.3f} GB/s of "
+                f".dat by its timing ({batch}); gf_swar "
+                f"{row['encode']['launches']} launches, all compile-time, "
+                f"routes {row['encode']['routes']}; volume 1's shards "
+                "and .ecx hash equal to phase 10's")
+
+        # -- 2. repair: the lost replica and the garbage -------------------
+        wait_for(lambda: completed("fix_replication", rvid)
+                 and completed("vacuum", trash_vid), "the plane's repairs")
+        fix = tasks("fix_replication", rvid)[-1]
+        vac = tasks("vacuum", trash_vid)[-1]
+        op_client._lookup_cache.clear()
+        wait_for(lambda: len(operation.lookup(m, rfid, refresh=True)) == 2,
+                 "the copied replica registered", 30)
+        for loc in operation.lookup(m, rfid, refresh=True):
+            check(http.request(
+                "GET", f"{loc['url']}/admin/ec/download?volume={rvid}"
+                "&collection=repl&ext=.dat") == rdat,
+                f"the replica of volume {rvid} on {loc['url']} differs")
+            check(http.request("GET", f"{loc['url']}/{rfid}") == rdata,
+                  f"{rfid} on {loc['url']} differs")
+        tloc = operation.lookup(m, next(iter(trash)), refresh=True)[0]
+        garbage = http.post_json(f"{tloc['url']}/admin/vacuum/check",
+                                 {"volume": trash_vid})["garbage_ratio"]
+        check(garbage < 0.01, f"vacuum left garbage {garbage}")
+        for fid, data in list(trash.items())[len(gone):]:
+            check(operation.read_file(m, fid) == data,
+                  f"{fid} after the vacuum differs")
+        row["repair"] = {"fix_replication_s": task_s(fix),
+                         "fixed": fix["detail"].get("fixed"),
+                         "vacuum_s": task_s(vac), "garbage_after": garbage}
+        on_card(f"the plane copied volume {rvid}'s replica back over "
+                f"/admin/volume_copy in {task_s(fix):.3f} s (byte-equal) "
+                f"and vacuumed volume {trash_vid} in {task_s(vac):.3f} s "
+                f"(garbage {garbage}, {len(trash) - len(gone)} needles "
+                "read back)")
+
+        # -- 3. four shards lost: the plane rebuilds them ------------------
+        before = step_start(link, counters)
+        shards = ec_map(1)
+        plane("pause")
+        t_loss = time.perf_counter()
+        for sid in lost:
+            for url in shards[sid]:
+                http.post_json(f"{url}/admin/ec/delete_shards",
+                               {"volume": 1, "collection": "warm",
+                                "shard_ids": [sid]})
+        wait_for(lambda: sorted(set(range(C.TOTAL_SHARDS))
+                                - set(ec_map(1))) == lost,
+                 "the master's view of the lost shards", 30)
+        t_resume = time.perf_counter()
+        plane("resume")
+        wait_for(lambda: completed("ec_rebuild", 1)
+                 and len(ec_map(1)) == C.TOTAL_SHARDS,
+                 "the plane's ec_rebuild of volume 1")
+        t_done = time.perf_counter()
+        [rb] = tasks("ec_rebuild", 1)
+        check(rb["detail"].get("rebuilt") == lost and len(rebuilds) == 1,
+              f"one rebuild of {lost}: {rb}, {rebuilds}")
+        row["rebuild"] = {
+            "seconds_from_loss": t_done - t_loss,
+            "seconds_from_resume": t_done - t_resume,
+            "task_s": task_s(rb), "rebuild_s": rebuilds[0][0],
+            "rebuilt_bytes": rebuilds[0][1],
+            "GBps": rebuilds[0][1] / rebuilds[0][0] / 1e9,
+            **step_delta(link, counters, before, "the plane's ec_rebuild",
+                         "run-time")}
+        check_shards(1, lost, "the plane's rebuild")
+        on_card(f"shards {lost} of volume 1 lost: 14 live shards again "
+                f"{row['rebuild']['seconds_from_loss']:.3f} s after the loss "
+                f"({row['rebuild']['seconds_from_resume']:.3f} s after "
+                f"resume; task {task_s(rb):.3f} s); rebuild_ec_files "
+                f"{rebuilds[0][0]:.3f} s = {row['rebuild']['GBps']:.3f} "
+                f"GB/s of rebuilt shards; gf_swar "
+                f"{row['rebuild']['launches']} launches, all run-time, "
+                f"routes {row['rebuild']['routes']}; rebuilt shards hash "
+                "equal")
+
+        # -- 4. a third copy, encoded on its own ---------------------------
+        before = step_start(link, counters)
+        t0 = time.perf_counter()
+        mount(5)
+        to_warm5 = encoded_by_plane((5,), t0)[5]
+        [enc5] = tasks("ec_encode", 5)
+        row["encode_single"] = {
+            "seconds_to_14_shards": to_warm5, "task_s": task_s(enc5),
+            **step_delta(link, counters, before,
+                         "the plane's ec_encode of volume 5", "rs10x4")}
+        check("batched_with" not in enc5["detail"],
+              f"volume 5 alone: {enc5}")
+        check_shards(5, range(C.TOTAL_SHARDS), "the plane's single encode")
+        on_card(f"volume 5 mounted: 14 shards mapped {to_warm5:.3f} s "
+                f"later (task {task_s(enc5):.3f} s), gf_swar "
+                f"{row['encode_single']['launches']} launches, all "
+                f"compile-time, routes {row['encode_single']['routes']}")
+
+        # -- 5. reads from the encoded and rebuilt volume ------------------
+        keys = sorted(live)
+        rng = np.random.default_rng([args.seed, 15])
+        sample = [keys[j] for j in sorted(rng.choice(
+            len(keys), min(200, len(keys)), replace=False))]
+        cookies = needle_cookies(os.path.join(src, "1.dat"),
+                                 os.path.join(src, "1.idx"), sample)
+        op_client._lookup_cache.clear()
+        t0 = time.perf_counter()
+        for k in sample:
+            i, n_bytes, _, _ = live[k]
+            fid = str(FileId(1, k, cookies[k]))
+            check(operation.read_file(m, fid)
+                  == needle_payload(args.seed, i, n_bytes),
+                  f"read {fid} from the encoded volume differs")
+        row["reads"] = {"needles": len(sample),
+                        "per_s": len(sample) / (time.perf_counter() - t0)}
+        for k, (cookie, data) in rewritten.items():
+            fid = str(FileId(2, k, cookie))
+            check(operation.read_file(m, fid) == data,
+                  f"read {fid}, rewritten in volume 2 before its encode, "
+                  "differs")
+
+        # -- 6. what the operator sees -------------------------------------
+        def fleet():
+            view = http.get_json(f"{m}/cluster/telemetry")
+            return view if view["ec"]["fleet_GBps"] > 0 else None
+
+        wait_for(lambda: fleet() is not None,
+                 "a fleet EC rate in /cluster/telemetry", 30)
+        view = fleet()
+        ec_rows = {s["url"]: s["ec"] for s in view["servers"]
+                   if s["component"] == "volume" and s.get("ec")}
+        check(sum(e["bytes"] for e in ec_rows.values()) == 3 * dat_bytes
+              and ec_rows[urls[0]]["volumes"] == 3
+              and view["ec"]["bytes_total"] == 3 * dat_bytes,
+              f"the servers' ec sections account for the three volumes: "
+              f"{ec_rows}, {view['ec']}")
+        env = CommandEnv(m)
+        status = run_command(env, "maintenance.status")
+        health = run_command(env, "cluster.health")
+        for line in (status + health).splitlines():
+            on_card(f"  | {line}")
+        check("maintenance: running" in status
+              and "maintenance: queued=" in health
+              and "fleet EC:" in health, "the operator's view")
+        metrics = http.request("GET", f"{m}/metrics").decode()
+        counted = {
+            kind: int(float(n)) for kind, n in re.findall(
+                r'seaweedfs_maintenance_tasks_total\{type="(\w+)",'
+                r'outcome="completed"\} (\S+)', metrics)}
+        history = tasks()
+        done = {}
+        for t in history:
+            if t["state"] == "completed":
+                done[t["type"]] = done.get(t["type"], 0) + 1
+        check(counted == done and done.get("ec_encode") == 3
+              and all(done.get(k) for k in ("vacuum", "fix_replication",
+                                            "ec_rebuild"))
+              and all(t["state"] in ("completed", "skipped")
+                      for t in history),
+              f"seaweedfs_maintenance_tasks_total {counted} against the "
+              f"history {history}")
+        row["telemetry"] = {"fleet_GBps": view["ec"]["fleet_GBps"],
+                            "ec": view["ec"], "servers_ec": ec_rows,
+                            "tasks_completed": done,
+                            "tasks_skipped": sum(t["state"] == "skipped"
+                                                 for t in history)}
+        on_card(f"/cluster/telemetry: fleet EC {view['ec']['fleet_GBps']} "
+                f"GB/s windowed ({view['ec']}); "
+                f"seaweedfs_maintenance_tasks_total completed {counted}; "
+                f"{row['reads']['needles']} needles of volume 1 read "
+                f"byte-exact, {row['reads']['per_s']:.1f} a second")
+
+        path = {name: counter.value for name, counter in counters.items()}
+        row["route_total"] = route_delta(link, route0)
+
+        # outside the path's count: volume 2's shards and .ecx against
+        # write_ec_files of its copy from before the plane encoded it
+        encoder.write_ec_files(ref2, rs=RSCodec(
+            C.DATA_SHARDS, C.PARITY_SHARDS, device="cuda"))
+        encoder.write_sorted_file_from_idx(ref2)
+        check_shards(2, range(C.TOTAL_SHARDS), "the plane's encode", {
+            ext: sha256_file(ref2 + ext) for ext in
+            [C.to_ext(s) for s in range(C.TOTAL_SHARDS)] + [".ecx"]})
+        row["phase_s"] = time.perf_counter() - phase_t0
+        on_card(f"volume 2's shards and .ecx hash equal to write_ec_files "
+                f"of its copy, and its {len(rewritten)} rewritten needles "
+                f"read back; phase 15 took {row['phase_s']:.1f} s; routes "
+                f"{row['route_total']}")
+    finally:
+        rebuild_mod.rebuild_ec_files = real_rebuild
         if c is not None:
             c.stop()
         shutil.rmtree(root, ignore_errors=True)
@@ -2564,6 +3078,7 @@ PATH_KERNELS = {
     "multigpu": ("gf_swar_u8",),
     "volume_server": ("gf_swar",),
     "cluster": ("gf_swar",),
+    "maintenance": ("gf_swar",),
 }
 
 
@@ -3721,7 +4236,7 @@ def run(args, torch, here: str) -> int:
         raise
 
     # phase 12 encodes phase 9's volumes again, so they stay until then;
-    # phases 13 and 14 serve phase 10's needle volume again
+    # phases 13 to 15 serve phase 10's needle volume again
     keep_dir = tempfile.mkdtemp(prefix="chip_smoke-needles-",
                                 dir=args.workdir)
     try:
@@ -3755,6 +4270,12 @@ def run(args, torch, here: str) -> int:
             args, smi, kept, reset_counts, counters)
         check_path("cluster")
         say(json.dumps({"cluster": cluster_row}))
+
+        # -- 15. the cluster maintains itself on the card ------------------
+        maint_row, path_launches["maintenance"] = phase_maintenance(
+            args, smi, kept, reset_counts, counters)
+        check_path("maintenance")
+        say(json.dumps({"maintenance": maint_row}))
     finally:
         shutil.rmtree(batch_dir, ignore_errors=True)
         shutil.rmtree(keep_dir, ignore_errors=True)

@@ -10,9 +10,10 @@ failover is as scriptable as volume churn.
 The port's copy of ``seaweedfs_tpu/server/harness.py``, on the port's
 master and volume servers. ``device`` goes to every ``VolumeServer``:
 ``None`` is the card (and raises without one, as ``VolumeServer`` does),
-``"cpu"`` the kernels' plain versions. The filer and S3 tiers are not
-ported yet: ``with_filer``, ``with_s3`` and ``n_filer_shards`` raise
-``NotImplementedError``, and so does a ``telemetry_interval``.
+``"cpu"`` the kernels' plain versions; ``telemetry_interval`` to every
+one, and ``maintenance_policy`` and the SLO objectives to every master.
+The filer and S3 tiers are not ported yet: ``with_filer``, ``with_s3``
+and ``n_filer_shards`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -54,11 +55,6 @@ class ClusterHarness:
         if with_filer or with_s3 or n_filer_shards:
             raise NotImplementedError(
                 "the filer and S3 tiers are not ported yet"
-            )
-        if telemetry_interval is not None:
-            raise NotImplementedError(
-                "the telemetry snapshot is not ported yet; pass "
-                "telemetry_interval=None"
             )
         # resolved before any server starts: no card and no
         # device="cpu" raises here, with nothing left running
@@ -133,6 +129,11 @@ class ClusterHarness:
                 # new leader via response hints, and rotate through
                 # this list when the home master is plain dead
                 cfg["master_peers"] = list(self.master_peers)
+            if telemetry_interval is not None:
+                # throttle per-server snapshot collection (the scale
+                # harness passes this; default keeps per-pulse
+                # snapshots for the small-cluster tests)
+                cfg["telemetry_interval"] = telemetry_interval
             self._vs_config.append(cfg)
             self.volume_servers.append(self._spawn(cfg))
 
@@ -241,6 +242,17 @@ class ClusterHarness:
         # server stops are independent (each closes its own listener
         # and store); at fleet scale a sequential walk dominates test
         # teardown, so fan out
+        # quiesce the masters' autonomous planes first: draining a big
+        # fleet takes a while, and a live maintenance loop would spend
+        # the whole teardown queueing repairs against half-stopped
+        # servers and retrying doomed RPCs
+        for i, m in enumerate(self.masters):
+            if i in self.masters_down:
+                continue
+            try:
+                m.maintenance.stop()
+            except Exception:
+                pass
         with ThreadPoolExecutor(
             max_workers=min(16, max(1, len(self.volume_servers)))
         ) as pool:

@@ -10,19 +10,21 @@ than a bidi gRPC stream; liveness = missed pulses).
 
 The port's copy of ``seaweedfs_tpu/server/master.py``: the same routes,
 statuses and bodies for heartbeats (pulse and stream), assign, lookup,
-``/ec/lookup``, grow, the synchronous vacuum, the cluster lock, raft,
-``/topology``, ``/cluster/status`` and ``/cluster/watch``, with the
-scheduled ``maintenance_scripts`` run through the port's shell.
+``/ec/lookup``, grow, vacuum (the async batch while the maintenance
+plane runs, the synchronous walk otherwise or with ``?sync=1``), the
+cluster lock, raft, ``/topology``, ``/cluster/status`` (with
+``FilerShards`` once a filer shard reports), ``/cluster/watch``, the
+autonomous maintenance plane (``/cluster/maintenance``) and the cluster
+telemetry plane (``/cluster/telemetry``, the SLO objectives, heartbeat
+snapshots), with the scheduled ``maintenance_scripts`` run through the
+port's shell.
 
-Not ported yet: the autonomous maintenance plane (a
-``maintenance_policy`` raises ``NotImplementedError`` and
-``/cluster/maintenance`` answers 501) and the cluster telemetry plane
-(``/cluster/telemetry`` and ``/cluster/benchmark`` answer 501, the SLO
-arguments raise, a heartbeat's ``telemetry`` is ignored, and
-``/cluster/status`` carries no ``FilerShards``, as the reference's does
-when no filer reports), the flight-recorder probes, ``/ui`` (501) and
-the request-tracing middleware (the master routes through the plain
-``Router``, as the port's volume server does).
+Not ported yet: ``/cluster/benchmark`` (with ``util/benchgate``; 501),
+so the master's own snapshot carries no ``benchmark``; the flight
+recorder, so it carries no ``contention`` and the master registers no
+recorder probes; ``/ui`` (501); and the request-tracing middleware (the
+master routes through the plain ``Router``, as the port's volume server
+does).
 """
 
 from __future__ import annotations
@@ -32,9 +34,16 @@ import threading
 import time
 
 from .. import fault, tracing
-from ..maintenance import MaintenancePolicy
+from ..maintenance import MaintenancePlane, MaintenancePolicy
 from ..pb.messages import Heartbeat
 from ..stats.metrics import REGISTRY
+from ..telemetry import devices as devices_mod
+from ..telemetry.aggregator import ClusterTelemetry
+from ..telemetry.snapshot import (
+    TelemetryCollector,
+    mark_started,
+    metrics_response,
+)
 from ..storage import types as t
 from ..storage.file_id import FileId
 from ..topology import Topology, VolumeGrowth, VolumeGrowOption
@@ -88,16 +97,6 @@ class MasterServer:
         slo_error_rate: float | None = None,
         slo_p99_seconds: float | None = None,
     ):
-        if maintenance_policy is not None:
-            raise NotImplementedError(
-                "the autonomous maintenance plane is not ported yet; "
-                "pass maintenance_policy=None"
-            )
-        if slo_error_rate is not None or slo_p99_seconds is not None:
-            raise NotImplementedError(
-                "the cluster telemetry plane (SLO burn) is not ported "
-                "yet; pass slo_error_rate=None and slo_p99_seconds=None"
-            )
         # Multi-master HA (raft_server.go analog): raft-lite with terms,
         # majority election, leader lease, and a replicated monotonic
         # state machine (max volume id + file-key ceiling) — see
@@ -132,12 +131,47 @@ class MasterServer:
         # KeepConnected analog: replayable location event log pushed to
         # /cluster/watch subscribers (master_grpc_server.go:173-228)
         self.locations = location_watch.LocationBroadcaster()
+        # cluster telemetry plane: volume snapshots arrive inside
+        # heartbeats, filer/S3 push to /cluster/telemetry, the master
+        # folds its own in at read time (telemetry/aggregator.py);
+        # staleness threshold scales with the pulse so a fast in-proc
+        # harness flags a dead reporter quickly
+        self.telemetry = ClusterTelemetry(
+            slo_error_rate=slo_error_rate,
+            slo_p99_seconds=slo_p99_seconds,
+            stale_after=max(10 * pulse_seconds, 15.0),
+            # one roll-up render per pulse serves every concurrent
+            # poller; fresher reads would only re-read the same
+            # heartbeat interval anyway
+            view_cache_ttl=pulse_seconds,
+        )
+        self._telemetry_collector = TelemetryCollector("master")
+        # autonomous maintenance plane (maintenance/): detector →
+        # scheduler → executors, leader-resident; policy from the arg
+        # or SEAWEEDFS_MAINT_* env (disabled unless opted in)
+        self.maintenance = MaintenancePlane(
+            self, policy=maintenance_policy
+        )
 
         router = Router()
         fault.install_routes(router)
         router.add("GET", r"/metrics", self._handle_metrics)
+        router.add(
+            "GET", r"/cluster/telemetry", self._handle_cluster_telemetry
+        )
+        router.add(
+            "POST", r"/cluster/telemetry", self._handle_cluster_telemetry
+        )
         for method, path in _NOT_PORTED:
             router.add(method, path, _not_ported)
+        router.add(
+            "GET", r"/cluster/maintenance",
+            self._handle_cluster_maintenance,
+        )
+        router.add(
+            "POST", r"/cluster/maintenance",
+            self._handle_cluster_maintenance,
+        )
         router.add("POST", r"/heartbeat", self._handle_heartbeat)
         router.add(
             "POST", r"/heartbeat/stream", self._handle_heartbeat_stream
@@ -180,6 +214,8 @@ class MasterServer:
 
         self._running = True
         self.server.start()
+        mark_started("master")
+        self._telemetry_collector.url = self.url
         self.raft = RaftLite(
             self.url, self.peers, pulse_seconds=self.pulse_seconds,
             state_dir=self.state_dir,
@@ -189,9 +225,11 @@ class MasterServer:
             self.topo.vid_committer = self._commit_vid
         self.raft.start()
         self._reaper.start()
+        self.maintenance.start()
 
     def stop(self) -> None:
         self._running = False
+        self.maintenance.stop()
         if self.raft is not None:
             self.raft.stop()
         self.server.stop()
@@ -206,6 +244,7 @@ class MasterServer:
             for dn in self.topo.data_nodes():
                 if dn.last_seen < deadline:
                     self.topo.unregister_data_node(dn)
+                    self.telemetry.forget(dn.url)
                     # a dead reporter can't re-push its degraded fids
                     # — keeping its report would hammer the dead URL
                     # every round and hold the backlog open forever;
@@ -216,6 +255,10 @@ class MasterServer:
                     self.locations.publish(
                         location_watch.node_down_event(dn)
                     )
+            # bounded telemetry memory: pushed reporters (filer/S3)
+            # have no heartbeat to reap, so the store evicts on a
+            # staleness horizon every pulse
+            self.telemetry.evict_stale()
             self._run_repair_round()
             self._maybe_run_maintenance()
 
@@ -371,11 +414,66 @@ class MasterServer:
     # -- handlers --------------------------------------------------------
 
     def _handle_metrics(self, req: Request) -> Response:
-        return Response(
-            status=200,
-            body=REGISTRY.expose().encode(),
-            headers={"Content-Type": "text/plain; version=0.0.4"},
+        return metrics_response()
+
+    def _handle_cluster_telemetry(self, req: Request) -> Response:
+        """GET: the aggregated cluster view (per-server snapshots +
+        SLO burn; `?sloErrorRate=`/`?sloP99=` override the objectives
+        for this read). POST: the snapshot intake for servers without
+        a heartbeat (filer, S3)."""
+        tracing.set_op("cluster.telemetry")
+        if req.method == "POST":
+            snap = req.json()
+            if not isinstance(snap, dict) or not snap.get("component"):
+                return Response.error(
+                    "telemetry snapshot must carry 'component'", 400
+                )
+            self.telemetry.ingest(snap)
+            return Response.json({"ok": True})
+
+        def _param_float(name: str) -> float | None:
+            raw = req.param(name)
+            try:
+                return float(raw) if raw else None
+            except ValueError:
+                return None
+
+        return Response.json(
+            self.telemetry.view_cached(
+                self._build_own_snapshot,
+                slo_error_rate=_param_float("sloErrorRate"),
+                slo_p99_seconds=_param_float("sloP99"),
+            )
         )
+
+    def _build_own_snapshot(self) -> dict:
+        """The master's own telemetry row, built per view render (the
+        view cache calls this only on a miss)."""
+        own = self._telemetry_collector.collect()
+        # maintenance state rides the master's own snapshot so
+        # cluster.health can print the queue/backlog picture without
+        # another endpoint round-trip
+        own["maintenance"] = self.maintenance.telemetry()
+        # degraded-write repair backlog: the scale plane's convergence
+        # checker polls this to zero before calling the cluster healed
+        with self._lock:
+            own["repair_backlog"] = {
+                "reporters": len(self._repair_reports),
+                "fids": sum(
+                    len(v) for v in self._repair_reports.values()
+                ),
+            }
+        # the per-chip dispatch ledger's compact summary rides the
+        # snapshot like maintenance: cluster.health prints a devices:
+        # line when busy imbalance crosses the threshold
+        dev = devices_mod.LEDGER.summary()
+        if dev is not None:
+            own["devices"] = dev
+        # no `benchmark` (the last load round, with /cluster/benchmark
+        # and util/benchgate) and no `contention` (the flight
+        # recorder's lock witness) yet: the reference's own snapshot
+        # with no round file and no witness installed
+        return own
 
     def _not_leader_response(self) -> dict:
         # tell the volume server where the leader is; it re-homes
@@ -407,7 +505,12 @@ class MasterServer:
             for m in hb.deleted_ec_shards:
                 self.topo.unregister_ec_shards(m, dn)
         self.sequencer.set_max(hb.max_file_key)
-        # hb.telemetry is ignored: the telemetry plane is not ported
+        # telemetry piggyback: the volume server's snapshot rides the
+        # pulse it already pays for (telemetry/snapshot.py)
+        if hb.telemetry:
+            snap = dict(hb.telemetry)
+            snap.setdefault("url", dn.url)
+            self.telemetry.ingest(snap)
         # degraded-write intake: the reporter re-announces its full
         # under-replicated set every pulse, so this map self-corrects
         with self._lock:
@@ -755,7 +858,12 @@ class MasterServer:
             "Leader": self.leader(),
             "Peers": self.peers,
         }
-        # no FilerShards: no filer reports to the port's master yet
+        # sharded filer tier, when one reports: the ordered shard URL
+        # list clients (FilerRing) re-resolve from — the filer analog
+        # of the leader pointer above
+        shards = self.telemetry.filer_shards()
+        if shards:
+            out["FilerShards"] = shards
         return Response.json(out)
 
     def _handle_col_delete(self, req: Request) -> Response:
@@ -777,6 +885,59 @@ class MasterServer:
         self.topo.delete_collection(name)
         return Response.json({"deleted": name})
 
+    # -- maintenance plane control surface -------------------------------
+
+    def _handle_cluster_maintenance(self, req: Request) -> Response:
+        """GET: the plane's live view (queue, running, history ring,
+        policy, gate state; `?batch=` filters to one async-vacuum
+        batch). POST: control actions — pause / resume / run [type] /
+        policy {updates}."""
+        tracing.set_op("cluster.maintenance")
+        if not self.is_leader:
+            return self._proxy_to_leader(req)
+        plane = self.maintenance
+        if req.method == "GET":
+            return Response.json(
+                plane.view(batch=req.param("batch") or None)
+            )
+        body = req.json()
+        action = body.get("action", "")
+        if action == "pause":
+            plane.pause()
+            return Response.json({"ok": True, "paused": True})
+        if action == "resume":
+            plane.resume()
+            return Response.json({"ok": True, "paused": False})
+        if action == "run":
+            # forced detector round, optionally one task type; works
+            # even while the plane is disabled (operator-driven)
+            task_type = body.get("type") or None
+            from ..maintenance.tasks import TASK_TYPES
+
+            if task_type is not None and task_type not in TASK_TYPES:
+                return Response.error(
+                    f"unknown task type {task_type!r} "
+                    f"(want one of {list(TASK_TYPES)})", 400
+                )
+            types = (task_type,) if task_type else None
+            plane.ensure_workers()
+            accepted = plane.run_round(types=types)
+            plane.scheduler.wake()
+            return Response.json(
+                {"ok": True,
+                 "enqueued": [t.to_dict() for t in accepted]}
+            )
+        if action == "policy":
+            updates = body.get("policy") or {}
+            try:
+                policy = plane.update_policy(updates)
+            except ValueError as e:
+                return Response.error(str(e), 400)
+            return Response.json(
+                {"ok": True, "policy": policy.to_dict()}
+            )
+        return Response.error(f"unknown action {action!r}", 400)
+
     # -- vacuum orchestration (topology_vacuum.go) -----------------------
 
     def _handle_vacuum(self, req: Request) -> Response:
@@ -789,8 +950,20 @@ class MasterServer:
         # throttle, volume_vacuum.go) so cluster-wide vacuum can be
         # rate-capped from one place
         byte_rate = int(req.param("compactionBytePerSecond") or "0")
-        # the synchronous walk of the cluster: the reference's path
-        # whenever its maintenance plane is off, which the port's is
+        # async by default when the plane is running: enqueue
+        # per-volume maintenance tasks and answer immediately with a
+        # batch id (`maintenance.status` / GET /cluster/maintenance
+        # show progress); `?sync=1` keeps the walk-the-cluster
+        # behavior for tests and operators who want to block
+        if self.maintenance.active and req.param("sync") != "1":
+            batch, accepted = self.maintenance.enqueue_vacuum_batch(
+                threshold, byte_rate
+            )
+            return Response.json({
+                "async": True,
+                "batch": batch,
+                "enqueued": [t.volume_id for t in accepted],
+            })
         vacuumed = []
         for col in list(self.topo.collections.values()):
             for layout in col.layouts():
@@ -864,12 +1037,8 @@ class MasterServer:
 # routes whose planes are not ported yet: a clear 501, never another
 # answer
 _NOT_PORTED = (
-    ("GET", r"/cluster/telemetry"),
-    ("POST", r"/cluster/telemetry"),
     ("GET", r"/cluster/benchmark"),
     ("POST", r"/cluster/benchmark"),
-    ("GET", r"/cluster/maintenance"),
-    ("POST", r"/cluster/maintenance"),
 )
 
 

@@ -17,14 +17,16 @@ and lane-packed ``write_ec_files_batch`` call, and one an ``EcVolume``
 its store mounts — takes that device with the server's
 ``device_min_bytes`` and ``link_aware``.
 
-Not ported yet, each answered with a 501: ``/admin/volume_copy`` and
+Its heartbeats carry the telemetry snapshot (``telemetry/snapshot.py``),
+with the EC-encode ledger each generate folds its ``timing`` into, and
+``/admin/volume_copy`` pulls a volume from a peer over
+``/admin/ec/download``. Not ported yet, each answered with a 501:
 ``/admin/tail`` (with ``storage/volume_backup.py``), ``/admin/fsck``,
 ``/admin/query``, ``/admin/tier/{upload,download}`` (with the S3
 backend) and ``/ui``. A chunk-manifest needle resolves through the
 port's ``operation/`` client, as the reference's does. The
-request-tracing middleware and the telemetry
-snapshot are not ported either: the server routes through the plain
-``Router``, and its heartbeats carry ``telemetry: None``.
+request-tracing middleware is not ported either: the server routes
+through the plain ``Router``.
 """
 
 from __future__ import annotations
@@ -55,6 +57,11 @@ from ..storage.volume import (
     NotFoundError,
     VolumeReadOnlyError,
 )
+from ..telemetry.snapshot import (
+    TelemetryCollector,
+    mark_started,
+    metrics_response,
+)
 from ..util import glog, http
 from ..util import retry as retry_mod
 from ..util.http import Request, Response, Router
@@ -79,6 +86,7 @@ class VolumeServer:
         ssl_context=None,
         replicate_quorum: int | None = None,
         replicate_pool: ThreadPoolExecutor | None = None,
+        telemetry_interval: float = 0.0,
         device: str | torch.device | None = None,
         device_min_bytes: int = DEVICE_MIN_BYTES,
         link_aware: bool = True,
@@ -143,6 +151,7 @@ class VolumeServer:
         )
         router.add("POST", r"/admin/ec/to_volume", self._h_ec_to_volume)
         router.add("POST", r"/admin/ec/blob_delete", self._h_ec_blob_delete)
+        router.add("POST", r"/admin/volume_copy", self._h_volume_copy)
         router.add("POST", r"/admin/volume_mount", self._h_volume_mount)
         router.add(
             "POST", r"/admin/volume_unmount", self._h_volume_unmount
@@ -178,6 +187,13 @@ class VolumeServer:
             device_min_bytes=device_min_bytes,
             link_aware=link_aware,
         )
+        # minimum seconds between telemetry collections (0 = every
+        # pulse): at 100 servers × 2 Hz pulses, per-pulse histogram
+        # scans contend on the shared stats registry — the aggregator
+        # keeps the last snapshot, so riding only some pulses is safe
+        # as long as the interval stays well under its staleness horizon
+        self.telemetry_interval = telemetry_interval
+        self._last_telemetry = 0.0  # monotonic; 0 = never collected
         self._running = False
         self._hb_stream = None  # bidi stream conn (SendHeartbeat analog)
         # one heartbeat at a time: the pulse loop and the admin handlers
@@ -190,6 +206,9 @@ class VolumeServer:
             target=self._heartbeat_loop, daemon=True
         )
         self._ec_loc_cache: dict[int, tuple[float, dict]] = {}
+        # telemetry snapshot piggybacked on every heartbeat; the url
+        # is filled in at start() once the listener port is bound
+        self._telemetry = TelemetryCollector("volume")
 
     # -- lifecycle -------------------------------------------------------
 
@@ -200,6 +219,8 @@ class VolumeServer:
     def start(self) -> None:
         self._running = True
         self.server.start()
+        mark_started("volume")
+        self._telemetry.url = self.url
         self.heartbeat_once()  # register before serving traffic
         self._hb_thread.start()
 
@@ -221,6 +242,19 @@ class VolumeServer:
         # re-replication once the missing peer returns
         with self._ur_lock:
             hb.under_replicated = sorted(self._under_replicated)
+        # telemetry piggyback: the periodic snapshot rides the pulse
+        # (telemetry/snapshot.py) — the master aggregates it into the
+        # /cluster/telemetry view. With telemetry_interval set, only
+        # some pulses carry a snapshot (hb.telemetry stays None and
+        # the aggregator keeps the last one) — collection scans the
+        # process-global histograms, which contends at 100 servers
+        now = time.monotonic()
+        if (
+            self.telemetry_interval <= 0
+            or now - self._last_telemetry >= self.telemetry_interval
+        ):
+            self._last_telemetry = now  # weedcheck: ignore[unguarded-shared-write]: snapshot throttle stamp: a torn read worst-case costs one extra (or one skipped) telemetry snapshot on a racing pulse
+            hb.telemetry = self._telemetry.collect()
         # preferred transport: the long-lived bidi stream
         # (volume_grpc_client_to_master.go:50-97) — one connection per
         # master, a pulse per send; any failure falls back to the
@@ -313,11 +347,7 @@ class VolumeServer:
     # -- data plane ------------------------------------------------------
 
     def _h_metrics(self, req: Request) -> Response:
-        return Response(
-            status=200,
-            body=self.stats.REGISTRY.expose().encode(),
-            headers={"Content-Type": "text/plain; version=0.0.4"},
-        )
+        return metrics_response()
 
     def _jwt_of(self, req: Request) -> str:
         auth = req.headers.get("Authorization", "")
@@ -1012,6 +1042,9 @@ class VolumeServer:
             # needles correctly.
             self._write_vif(base)
         timing = pt.finish()
+        # fleet EC observatory: fold the encode into this server's
+        # telemetry ledger so the next heartbeat carries it
+        self._telemetry.ec.record(timing, volumes=1)
         return Response.json({"ok": True, "timing": timing})
 
     def _codec(self) -> RSCodec:
@@ -1071,6 +1104,7 @@ class VolumeServer:
                 encoder.write_sorted_file_from_idx(base)
                 self._write_vif(base)
         timing = pt.finish()
+        self._telemetry.ec.record(timing, volumes=len(vids))
         return Response.json(
             {"ok": True, "volumes": vids, "timing": timing}
         )
@@ -1263,6 +1297,37 @@ class VolumeServer:
         self._close_hb_stream()
         return Response.json({"ok": True})
 
+    def _h_volume_copy(self, req: Request) -> Response:
+        """VolumeCopy: pull a whole volume (.dat + .idx) from a source
+        server and load it (volume_grpc_copy.go analog)."""
+        body = req.json()
+        vid = int(body["volume"])
+        collection = body.get("collection", "")
+        source = body["source"]
+        if self.store.find_volume(vid) is not None:
+            return Response.error(f"volume {vid} already here", 409)
+        loc = self.store.find_free_location()
+        if loc is None:
+            return Response.error("no free slots", 500)
+        base = loc.base_file_name(collection, vid)
+        for ext in (".dat", ".idx"):
+            data = http.request(
+                "GET",
+                f"{source}/admin/ec/download?volume={vid}"
+                f"&collection={collection}&ext={ext}",
+                timeout=3600,
+            )
+            with open(base + ext, "wb") as f:
+                f.write(data)
+        from ..storage.volume import Volume
+
+        loc.volumes[vid] = Volume(loc.directory, collection, vid)
+        self.store.new_volumes.append(
+            self.store._volume_message(loc.volumes[vid])
+        )
+        self.heartbeat_once()
+        return Response.json({"ok": True})
+
     def _h_ec_blob_delete(self, req: Request) -> Response:
         body = req.json()
         vid = int(body["volume"])
@@ -1279,7 +1344,6 @@ class VolumeServer:
 # endpoints whose modules are not ported yet: a clear 501, never the
 # data plane's catch-all (which would read the path as a fid)
 _NOT_PORTED = (
-    ("POST", r"/admin/volume_copy"),
     ("POST", r"/admin/fsck"),
     ("POST", r"/admin/query"),
     ("POST", r"/admin/tier/upload"),

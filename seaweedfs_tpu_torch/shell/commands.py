@@ -4,9 +4,9 @@ Behavioral model: weed/shell/commands.go:26-80 (command interface,
 confirmIsLocked), weed/wdclient/exclusive_locks (lease via master).
 
 The port's copy of ``seaweedfs_tpu/shell/commands.py``. It registers
-only the ported command modules (``command_ec``); any other name raises
-the same ``unknown command`` error the reference raises for a name it
-does not know.
+only the ported command modules (``command_cluster``, ``command_ec``,
+``command_maintenance``); any other name raises the same ``unknown
+command`` error the reference raises for a name it does not know.
 """
 
 from __future__ import annotations
@@ -78,7 +78,11 @@ class CommandEnv:
 
 def all_commands() -> dict[str, str]:
     # import side-effect registration
-    from . import command_ec  # noqa: F401
+    from . import (  # noqa: F401
+        command_cluster,
+        command_ec,
+        command_maintenance,
+    )
 
     return dict(COMMAND_HELP)
 

@@ -6,9 +6,10 @@ histograms, exposed as text/plain in the same format, so a family keeps
 its name and its dashboards whichever package fed it. :data:`REGISTRY`
 is the port's own: the modules that define families (``ops/link.py``,
 ``ops/profiler.py``, ``telemetry/devices.py``, ``telemetry/phases.py``,
-``tracing/recorder.py``, ``fault``) register them here, and the volume
-server's three families are defined below. The reference's other server
-families (filer, S3, master ring, broker) come with the port of those
+``tracing/recorder.py``, ``fault``, ``maintenance/scheduler.py``)
+register them here, and the volume server's three families, the fleet
+EC pair and the client master ring's are defined below. The reference's
+other server families (filer, S3, broker) come with the port of those
 servers.
 """
 
@@ -269,6 +270,22 @@ VOLUME_SERVER_VOLUME_COUNT = REGISTRY.gauge(
     "SeaweedFS_volumeServer_volumes",
     "Number of volumes or EC shards.",
     ("collection", "type"),
+)
+
+# fleet EC observatory families (bounded: zero labels). The counter is
+# process-global — in-proc clusters sum every server's encodes into
+# it, which is exactly the fleet total the flight recorder's registry
+# sweep turns into an m.* rate; per-server attribution lives in the
+# telemetry snapshots, not in a per-url label (unbounded at fleet
+# scale). The gauge mirrors the master aggregator's windowed rate.
+EC_ENCODED_BYTES = REGISTRY.counter(
+    "seaweedfs_ec_encoded_bytes_total",
+    "Source bytes EC-encoded by volume servers in this process.",
+)
+FLEET_EC_GBPS = REGISTRY.gauge(
+    "seaweedfs_fleet_ec_GBps",
+    "Windowed fleet-aggregate EC encode throughput (GB/s), as "
+    "computed by the master telemetry aggregator.",
 )
 
 # failover arc families: leader re-resolution in the client master

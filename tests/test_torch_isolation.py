@@ -122,7 +122,15 @@ def test_port_files_exist():
                    ("maintenance", "ops.py"),
                    ("shell", "__init__.py"),
                    ("shell", "commands.py"),
-                   ("shell", "command_ec.py")):
+                   ("shell", "command_ec.py"),
+                   ("maintenance", "detector.py"),
+                   ("maintenance", "scheduler.py"),
+                   ("maintenance", "plane.py"),
+                   ("telemetry", "slow.py"),
+                   ("telemetry", "snapshot.py"),
+                   ("telemetry", "aggregator.py"),
+                   ("shell", "command_cluster.py"),
+                   ("shell", "command_maintenance.py")):
         assert os.path.join("seaweedfs_tpu_torch", *module) in names
     assert len(files) > 10
 
@@ -183,6 +191,14 @@ def test_importing_the_port_loads_no_jax():
         "import seaweedfs_tpu_torch.maintenance.ops\n"
         "import seaweedfs_tpu_torch.shell\n"
         "import seaweedfs_tpu_torch.shell.commands\n"
+        "import seaweedfs_tpu_torch.maintenance.detector\n"
+        "import seaweedfs_tpu_torch.maintenance.scheduler\n"
+        "import seaweedfs_tpu_torch.maintenance.plane\n"
+        "import seaweedfs_tpu_torch.telemetry.slow\n"
+        "import seaweedfs_tpu_torch.telemetry.snapshot\n"
+        "import seaweedfs_tpu_torch.telemetry.aggregator\n"
+        "import seaweedfs_tpu_torch.shell.command_cluster\n"
+        "import seaweedfs_tpu_torch.shell.command_maintenance\n"
         "seaweedfs_tpu_torch.shell.commands.all_commands()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'seaweedfs_tpu', 'bench', 'tools')]\n"

@@ -13,7 +13,8 @@ held against the reference on the CPU.
     the assign cookies and the write pick draw from one seeded
     ``random.Random`` for each run, in place of the ``random`` module
     of each package's master and volume layout.
-(b) What the port does not serve yet answers 501 or raises, and
+(b) What the port does not serve yet answers 501 or raises; the
+    maintenance and telemetry planes answer as the reference's do; and
     ``ClusterHarness()`` and volume servers under a port master raise
     without a card.
 (c) The master cases of ``tests/test_cluster.py`` that need no harness:
@@ -247,49 +248,88 @@ def test_request_sequence_matches_reference(monkeypatch):
 
 def test_what_waits_answers_501_or_raises(tmp_path):
     m = port_master.MasterServer(pulse_seconds=0.2)
+    ref = ref_master.MasterServer(pulse_seconds=0.2)
     m.start()
+    ref.start()
     try:
         for method in ("GET", "POST"):
-            for path in ("/cluster/telemetry", "/cluster/benchmark",
-                         "/cluster/maintenance"):
-                status, _, body = call(m.url, method, path, b"{}")
-                assert status == 501, (method, path)
-                assert b"not ported" in body
+            status, _, body = call(m.url, method, "/cluster/benchmark",
+                                   b"{}")
+            assert status == 501, method
+            assert b"not ported" in body
         for path in ("/", "/ui"):
             assert call(m.url, "GET", path)[0] == 501
-        # a heartbeat's telemetry is ignored, not refused
+        # the maintenance plane answers as the reference's does: off
+        # without a policy, its control actions checked the same way
+        for method, path, body in (
+                ("GET", "/cluster/maintenance", None),
+                ("POST", "/cluster/maintenance", b'{"action": "warp"}'),
+                ("POST", "/cluster/maintenance",
+                 b'{"action": "run", "type": "frobnicate"}'),
+                ("POST", "/cluster/telemetry", b'{"url": "x"}')):
+            got, want = call(m.url, method, path, body), call(
+                ref.url, method, path, body)
+            assert got[0] == want[0] and got[0] in (200, 400), path
+            assert json.loads(got[2]) == json.loads(want[2]), path
+        # a heartbeat's telemetry is ingested into the cluster view
         hb = {"ip": "127.0.0.1", "port": 9, "max_volume_count": 1,
-              "telemetry": {"component": "volume", "url": "x"}}
+              "telemetry": {"component": "volume", "url": "x",
+                            "ec": {"bytes": 5, "busy_seconds": 0.5,
+                                   "volumes": 1, "encodes": 1}}}
         status, _, body = call(m.url, "POST", "/heartbeat",
                                json.dumps(hb).encode())
         assert status == 200 and json.loads(body)["leader"] == m.url
+        view = port_http.get_json(f"{m.url}/cluster/telemetry")
+        assert view["components"] == ["master", "volume"]
+        [row] = [s for s in view["servers"] if s["component"] == "volume"]
+        assert row["url"] == "x" and row["degraded"] == []
+        assert view["ec"]["bytes_total"] == 5
+        [own] = [s for s in view["servers"] if s["component"] == "master"]
+        assert own["url"] == m.url
+        assert own["maintenance"]["enabled"] is False
+        assert own["repair_backlog"] == {"reporters": 0, "fids": 0}
+        assert "benchmark" not in own and "contention" not in own
         st = port_http.get_json(f"{m.url}/cluster/status")
         assert st == {"IsLeader": True, "Leader": m.url, "Peers": []}
         text = port_http.request("GET", f"{m.url}/metrics").decode()
         assert "# TYPE seaweedfs_master_heartbeat_total counter" in text
+        assert ('seaweedfs_server_uptime_seconds{component="master"}'
+                in text)
         # commands that are not ported raise as any unknown name does
         env = CommandEnv(m.url)
-        for line in ("volume.list", "collection.list", "fs.ls /"):
+        for line in ("volume.list", "collection.list", "fs.ls /",
+                     "cluster.profile", "cluster.devices",
+                     "cluster.timeline", "cluster.contention"):
             with pytest.raises(ValueError, match="unknown command"):
                 run_command(env, line)
         with pytest.raises(ValueError, match="unknown command"):
             ref_run_command(RefCommandEnv(m.url), "no.such.command")
-        assert sorted(all_commands()) == ["ec.balance", "ec.decode",
-                                          "ec.encode", "ec.rebuild"]
+        assert sorted(all_commands()) == [
+            "cluster.health", "cluster.stats", "ec.balance", "ec.decode",
+            "ec.encode", "ec.rebuild", "maintenance.pause",
+            "maintenance.policy", "maintenance.resume", "maintenance.run",
+            "maintenance.status"]
     finally:
         m.stop()
-    with pytest.raises(NotImplementedError):
-        port_master.MasterServer(maintenance_policy=MaintenancePolicy())
-    with pytest.raises(NotImplementedError):
-        port_master.MasterServer(slo_error_rate=0.01)
+        ref.stop()
+    # the plane's policy and the SLO objectives are taken, not refused
+    m = port_master.MasterServer(maintenance_policy=MaintenancePolicy(),
+                                 slo_error_rate=0.05, slo_p99_seconds=0.5)
+    assert m.maintenance.policy == MaintenancePolicy()
+    assert (m.telemetry.slo_error_rate,
+            m.telemetry.slo_p99_seconds) == (0.05, 0.5)
     for kw in ({"with_filer": True}, {"with_s3": True},
-               {"n_filer_shards": 2}, {"telemetry_interval": 1.0}):
+               {"n_filer_shards": 2}):
         with pytest.raises(NotImplementedError):
             ClusterHarness(n_volume_servers=1, root=str(tmp_path),
                            device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        ClusterHarness(n_volume_servers=1, root=str(tmp_path),
-                       device="cpu", maintenance_policy=MaintenancePolicy())
+    with ClusterHarness(n_volume_servers=1, root=str(tmp_path),
+                        device="cpu", telemetry_interval=1.0,
+                        slo_error_rate=0.05,
+                        maintenance_policy=MaintenancePolicy()) as c:
+        assert c.volume_servers[0].telemetry_interval == 1.0
+        assert c.master.maintenance.policy == MaintenancePolicy()
+        assert c.master.telemetry.slo_error_rate == 0.05
 
 
 @pytest.mark.skipif("torch.cuda.is_available()")

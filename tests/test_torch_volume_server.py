@@ -425,8 +425,7 @@ def test_what_waits_answers_501(tmp_path):
                       pulse_seconds=60)
     vs.start()
     try:
-        for method, path in (("POST", "/admin/volume_copy"),
-                             ("POST", "/admin/fsck"),
+        for method, path in (("POST", "/admin/fsck"),
                              ("POST", "/admin/query"),
                              ("POST", "/admin/tier/upload"),
                              ("POST", "/admin/tier/download"),
@@ -445,6 +444,64 @@ def test_what_waits_answers_501(tmp_path):
         assert call(vs.url, "DELETE", "/1,0101020304?cm=false")[0] == 200
     finally:
         vs.stop()
+
+
+def _copy_run(src_cls, dst_cls, root):
+    """One volume of seeded needles on a source server, pulled whole by
+    a target over ``/admin/volume_copy``: the copy's status and body, a
+    second copy's (409), a read through the target, and the files."""
+    servers = []
+    for name, cls in (("src", src_cls), ("dst", dst_cls)):
+        kw = {"device": "cpu"} if cls is VolumeServer else {}
+        os.makedirs(os.path.join(root, name))
+        servers.append(cls(NO_MASTER, [os.path.join(root, name)],
+                           pulse_seconds=60, max_volume_counts=[4], **kw))
+        servers[-1].start()
+    src, dst = servers
+    try:
+        post_json(src.url, "/admin/assign_volume",
+                  {"volume": 3, "collection": "c"})
+        fids = [f"3,{i + 1:x}{0x1234abcd + i:08x}" for i in range(12)]
+        for i, fid in enumerate(fids):
+            assert call(src.url, "POST", f"/{fid}?ts={TS}",
+                        _payload(100 + 997 * i, i))[0] == 200
+        assert call(src.url, "DELETE", f"/{fids[0]}")[0] == 200
+        body = {"volume": 3, "collection": "c", "source": src.url}
+        out = [post_json(dst.url, "/admin/volume_copy", body),
+               post_json(dst.url, "/admin/volume_copy", body)]
+        out.append(call(dst.url, "GET", f"/{fids[5]}")[::2])
+        files = {}
+        for name, vs in (("src", src), ("dst", dst)):
+            for ext in (".dat", ".idx"):
+                files[name, ext] = call(
+                    vs.url, "GET", "/admin/ec/download?volume=3"
+                    f"&collection=c&ext={ext}")[2]
+        return out, files
+    finally:
+        for vs in servers:
+            vs.stop()
+        port_retry.BREAKERS.reset()
+
+
+@pytest.mark.parametrize("src,dst", [("port", "port"), ("ref", "port"),
+                                     ("port", "ref")])
+def test_volume_copy_matches_reference(tmp_path, monkeypatch, src, dst):
+    """``/admin/volume_copy`` between port servers, and each way between
+    a port and a reference server, answers as two reference servers do
+    and leaves the target the source's ``.dat`` and ``.idx``."""
+    monkeypatch.setattr(time, "time_ns", lambda: STAMP_NS)
+    cls = {"port": VolumeServer, "ref": RefVolumeServer}
+    want, want_files = _copy_run(RefVolumeServer, RefVolumeServer,
+                                 str(tmp_path / "ref"))
+    got, files = _copy_run(cls[src], cls[dst], str(tmp_path / "got"))
+    assert got == want
+    assert (want[0][0], want[0][2]) == (200, b'{"ok": true}')
+    assert want[1][0] == 409
+    assert want[2] == (200, _payload(100 + 997 * 5, 5))
+    assert files == want_files
+    for ext in (".dat", ".idx"):
+        assert files["dst", ext] == files["src", ext]
+        assert len(files["dst", ext]) > 8
 
 
 def test_metrics_count_the_requests(tmp_path, monkeypatch):
