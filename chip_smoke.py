@@ -221,6 +221,27 @@ Run from the root of the repository, on a machine with a CUDA card and
     14 live shards again, the batch generate's GB/s by its timing and
     the rebuild's are printed with the card. Its ``maintenance`` JSON
     line.
+16. the warm fleet round on the card (``seaweedfs_tpu_torch/scale``,
+    the load generator ``command/benchmark.py``, the flight recorder
+    and the request-tracing middleware): the reference's recorded warm
+    round (``SCALE_r05.json``: spec 5x4x5, seed 5) through
+    ``run_scale_round(device="cuda")`` — 100 volume servers and one
+    master in this process, eight ``warm`` volumes seeded past a 64 MiB
+    limit (seven rows of ``[10, 1 MiB]`` each) that the maintenance
+    plane EC-encodes on its own while 8 s of zipfian load (write 50,
+    read 40, delete 10; 512–4096 B; 8 workers) run and ten servers die
+    and stay dead, on a fresh, probed link state. The round must
+    converge with ``fleet_ec_GBps`` above zero, at least one warm volume
+    encoded and the master's requests counted; the harness is kept up
+    after it, and every seeded needle of every encoded warm volume is
+    read back byte-exact through the client (regenerated from the seed,
+    shards on killed servers rebuilt), one volume's ``.ec10–.ec13``
+    equal the plain version's parity of its ten data shards, gf_swar
+    launched (split by form), and ``run_check`` of the round against its
+    own record returns 0. The round's lines, the fleet EC section, load,
+    request and heartbeat rates, the timeline's probes and sample cost,
+    the top contention sites and the route split are printed with the
+    card. Its ``fleet`` JSON line.
 
 Phases 4, 5 (with 6), 9 and 10 pin their codecs to
 ``link_aware=False`` (the size floor alone decides their routes), so
@@ -228,7 +249,7 @@ their expected launches and host dispatches follow from the widths;
 phase 11 runs the link-aware default.
 
 It prints ``read_decode``, ``routing``, ``multigpu``, ``volume_server``,
-``cluster`` and ``maintenance`` JSON lines, one JSON line describing
+``cluster``, ``maintenance`` and ``fleet`` JSON lines, one JSON line describing
 every kernel,
 then, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -3001,6 +3022,249 @@ def phase_maintenance(args, smi, kept, reset_counts, counters):
     return row, path
 
 
+def warm_needles(volumes, limit: int, seed: int):
+    """The needles ``scale/round.seed_warm_volumes`` wrote, regenerated
+    from its seed: ``{vid: [(fid, data), ...]}`` over ``volumes`` in the
+    order it seeded them (sorted), keys counting up across volumes."""
+    import random
+
+    rnd = random.Random(seed)
+    target = int(limit * 1.05)
+    chunk = 128 * 1024
+    key = 1
+    out: dict[int, list] = {}
+    for vid in volumes:
+        written = 0
+        rows = out.setdefault(vid, [])
+        while written < target:
+            data = rnd.randbytes(chunk)
+            rows.append((f"{vid},{key:x}00000001", data))
+            key += 1
+            written += len(data)
+    return out
+
+
+def phase_fleet(args, torch, smi, reset_counts, counters):
+    """Phase 16: the warm fleet round on the card — the reference's
+    recorded warm round (``SCALE_r05.json``: spec 5x4x5, seed 5) through
+    ``scale/round.run_scale_round(device="cuda")``: 100 volume servers
+    and one master in this process, eight warm volumes seeded past a
+    64 MiB limit and EC-encoded by the maintenance plane while ten
+    servers die under zipfian load. The cluster is kept up after the
+    round (its harness's stop is deferred) to read every seeded needle
+    of every encoded warm volume back and to hold one volume's parity
+    shards to the plain version. Returns the phase's row and the launch
+    counts of its path."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from seaweedfs_tpu_torch import operation
+    from seaweedfs_tpu_torch.operation import client as op_client
+    from seaweedfs_tpu_torch.ops import gf256, link
+    from seaweedfs_tpu_torch.ops.kernels import gf_swar
+    from seaweedfs_tpu_torch.scale import TopologySpec
+    from seaweedfs_tpu_torch.scale import round as round_mod
+    from seaweedfs_tpu_torch.scale.harness import ScaleHarness
+    from seaweedfs_tpu_torch.storage.erasure_coding import constants as C
+    from seaweedfs_tpu_torch.util import retry
+
+    phase_t0 = time.perf_counter()
+    spec = TopologySpec(5, 4, 5, volumes_per_server=8)
+    settings = dict(seed=5, pulse_seconds=0.5, churn_kind="warm",
+                    kill_fraction=0.1, load_seconds=8.0,
+                    load_concurrency=8,
+                    load_mix="write:50,read:40,delete:10",
+                    replication="000", record_hz=2.0, warm_volumes=8,
+                    volume_size_limit_mb=64)
+    kept: list = []
+
+    class KeptHarness(ScaleHarness):
+        """The round's harness, whose stop waits for the phase's reads."""
+
+        def stop(self):
+            kept.append(self)
+
+    def on_card(text):
+        say(f"[{smi}] {text}")
+
+    root = tempfile.mkdtemp(prefix="chip_smoke-fleet-", dir=args.workdir)
+    json_path = os.path.join(root, "SCALE_fleet.json")
+    row: dict = {"card": smi, "spec": str(spec), **{
+        k: v for k, v in settings.items() if k != "load_mix"},
+        "mix": settings["load_mix"],
+        "reduced": ["one process", "one card shared by 100 servers",
+                    "volume_size_limit_mb 64 (upstream 30,000)"]}
+    lines: list[str] = []
+    try:
+        reset_counts()
+        retry.BREAKERS.reset()
+        op_client._lookup_cache.clear()
+        # the round's dispatches probe a fresh link state
+        link.STATE = link.LinkState()
+        link.probe()
+        route0 = link.ROUTE_TOTAL.values()
+        round_mod.ScaleHarness = KeptHarness
+        t0 = time.perf_counter()
+        try:
+            result = round_mod.run_scale_round(
+                spec=spec, device="cuda", json_path=json_path,
+                out=lines.append, **settings)
+        finally:
+            round_mod.ScaleHarness = ScaleHarness
+        round_s = time.perf_counter() - t0
+        path = {name: counter.value for name, counter in counters.items()}
+        for line in lines:
+            on_card(f"  | {line}")
+        check(len(kept) == 1, f"the round's harness: {kept}")
+        h = kept[0]
+        d = result["detail"]
+        check(d["converged"], f"the round converged: {d['last_reasons']}")
+        check(d.get("fleet_ec_GBps", 0) > 0,
+              f"fleet_ec_GBps > 0: {d.get('fleet_ec')}")
+        seeded = d["fleet_ec"]["seeded"]["volumes"]
+        encoded = set(h.master.topo.ec_shard_map)
+        warm = sorted(vid for col, vid in encoded if col == "warm")
+        check(d["ec_encoded_warm_volumes"] >= 1 and len(warm) >= 1,
+              f"at least one warm volume encoded: {warm}")
+        lost = [vid for vid in seeded if vid not in warm]
+        check(d["master_requests_per_second"] > 0,
+              "the master counts its requests")
+        swar = {"launches": path["gf_swar"],
+                "compile_time": path["gf_swar_rs10x4"],
+                "run_time": path["gf_swar"] - path["gf_swar_rs10x4"],
+                "host_dispatches": path["codec_host"]}
+        check(swar["launches"] > 0, f"the round launched gf_swar: {swar}")
+        row.update(round_s=round_s, converged=d["converged"],
+                   converge_seconds=d["converge_seconds"],
+                   fleet_ec_GBps=d["fleet_ec_GBps"], fleet_ec=d["fleet_ec"],
+                   ec_encoded_volumes=d["ec_encoded_volumes"],
+                   ec_encoded_warm_volumes=d["ec_encoded_warm_volumes"],
+                   warm_encoded=warm, warm_lost=lost,
+                   load_ops_per_second=d["load_ops_per_second"],
+                   load_failure_rate=d["load_failure_rate"],
+                   master_requests_per_second=d[
+                       "master_requests_per_second"],
+                   heartbeat_fanin_hz=d["heartbeat_fanin_hz"],
+                   telemetry_poll_p50_ms=d["telemetry_poll_p50_ms"],
+                   telemetry_poll_p99_ms=d["telemetry_poll_p99_ms"],
+                   killed=d["churn"]["killed"], gf_swar=swar,
+                   routes=route_delta(link, route0),
+                   maintenance=d["maintenance"])
+        tl = d["timeline"]
+        row["timeline"] = {"frames": tl["frames"], "hz": tl["hz"],
+                           "span_seconds": tl["span_seconds"],
+                           "peaks": tl["peaks"],
+                           "sample_cost_ms": tl["sample_cost_ms"]}
+        row["contention"] = {k: d["contention"][k]
+                             for k in ("sites", "total_wait_s",
+                                       "p99_wait_s")}
+        row["contention_top"] = [
+            {k: r[k] for k in ("site", "kind", "blocked", "total_wait_s",
+                               "p99_wait_s", "max_wait_s")}
+            for r in d["contention"]["top"][:5]]
+        check("fleet_ec_gbps" in tl["probes"],
+              f"the master's fleet_ec_gbps probe: {sorted(tl['probes'])}")
+        on_card(f"fleet round {spec} seed {settings['seed']}: converged "
+                f"in {d['converge_seconds']:.3f} s ({d['converge_polls']} "
+                f"polls) after {len(d['churn']['killed'])} kills "
+                f"{d['churn']['killed']}; round {round_s:.1f} s")
+        on_card(f"fleet_ec_GBps {d['fleet_ec_GBps']} (source bytes over "
+                f"busy seconds, summed over the fleet); fleet_ec "
+                f"{json.dumps(d['fleet_ec'])}")
+        on_card(f"warm volumes {seeded}: {len(warm)} of {len(seeded)} "
+                f"EC-encoded {warm}; lost with their only server before "
+                f"the encode: {lost}")
+        on_card(f"load {d['load_ops_per_second']} ops/s, failure rate "
+                f"{d['load_failure_rate']}; master_requests_per_second "
+                f"{d['master_requests_per_second']}; heartbeat_fanin_hz "
+                f"{d['heartbeat_fanin_hz']}; telemetry poll p50/p99 "
+                f"{d['telemetry_poll_p50_ms']}/{d['telemetry_poll_p99_ms']}"
+                " ms")
+        on_card(f"timeline: {tl['frames']} frames at {tl['hz']} Hz over "
+                f"{tl['span_seconds']} s, sample_cost_ms "
+                f"{tl['sample_cost_ms']}; probes "
+                + ", ".join(f"{n}={p['peak']}" for n, p in
+                            sorted(tl["probes"].items())))
+        for r in row["contention_top"]:
+            on_card(f"contention: {r['site']} ({r['kind']}) blocked "
+                    f"{r['blocked']}, total wait {r['total_wait_s']} s, "
+                    f"p99 {r['p99_wait_s']} s, max {r['max_wait_s']} s")
+        on_card(f"gf_swar {swar['launches']} launches "
+                f"({swar['compile_time']} compile-time, "
+                f"{swar['run_time']} run-time), {swar['host_dispatches']} "
+                f"host dispatches; routes {row['routes']}")
+
+        # every seeded needle of every encoded warm volume, byte-exact
+        limit = h.master.topo.volume_size_limit
+        needles = warm_needles(seeded, limit, settings["seed"])
+        op_client._lookup_cache.clear()
+        retry.BREAKERS.reset()
+        m = h.master.url
+        work = [(fid, data) for vid in warm for fid, data in needles[vid]]
+
+        def read_one(item):
+            fid, data = item
+            return fid if operation.read_file(m, fid) != data else None
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            bad = [f for f in pool.map(read_one, work) if f]
+        read_s = time.perf_counter() - t0
+        check(not bad, f"{len(bad)} warm needles differ: {bad[:5]}")
+        read_bytes = sum(len(data) for _fid, data in work)
+        row["reads"] = {"needles": len(work), "bytes": read_bytes,
+                        "seconds": read_s,
+                        "MBps": read_bytes / read_s / 1e6}
+        on_card(f"read back {len(work)} seeded needles ({read_bytes} "
+                f"bytes) of warm volumes {warm} byte-exact through the "
+                f"client in {read_s:.3f} s = {row['reads']['MBps']:.1f} "
+                "MB/s on 8 threads")
+
+        # one encoded volume's parity against the plain version
+        vid = warm[0]
+        live = [vs for i, vs in enumerate(h.volume_servers)
+                if i not in h.down]
+        shard_paths: dict[int, str] = {}
+        for vs in live:
+            for loc in vs.store.locations:
+                base = loc.base_file_name("warm", vid)
+                for sid in range(C.TOTAL_SHARDS):
+                    p = base + C.to_ext(sid)
+                    if sid not in shard_paths and os.path.exists(p):
+                        shard_paths[sid] = p
+        check(sorted(shard_paths) == list(range(C.TOTAL_SHARDS)),
+              f"volume {vid}'s 14 shards on live servers: "
+              f"{sorted(shard_paths)}")
+        shards = [np.fromfile(shard_paths[s], dtype=np.uint8)
+                  for s in range(C.TOTAL_SHARDS)]
+        x = torch.from_numpy(np.stack(shards[:C.DATA_SHARDS])).cuda()
+        want = gf_swar.gf_matmul_plain(
+            gf256.parity_matrix(C.DATA_SHARDS, C.PARITY_SHARDS), x).cpu()
+        got = torch.from_numpy(np.stack(shards[C.DATA_SHARDS:]))
+        differing = int((want != got).sum())
+        check(differing == 0, f"volume {vid}'s parity differs from the "
+              f"plain version in {differing} bytes")
+        row["parity"] = {"volume": vid, "shard_bytes": int(x.shape[1]),
+                         "rows_of_1MiB": int(x.shape[1]) // MIB,
+                         "bytes_differing_vs_plain": differing}
+        on_card(f"volume {vid}'s .ec10-.ec13 ({x.shape[1]} bytes each, "
+                f"{x.shape[1] // MIB} rows of [10, 1 MiB]) equal the plain "
+                "version's parity of its ten data shards")
+
+        row["check_rc"] = round_mod.run_check(result, json_path,
+                                              out=lines.append)
+        check(row["check_rc"] == 0,
+              f"run_check of the round against its own record: "
+              f"{lines[-3:]}")
+        row["phase_s"] = time.perf_counter() - phase_t0
+        on_card(f"run_check against its own record: 0; phase 16 took "
+                f"{row['phase_s']:.1f} s")
+    finally:
+        for h in kept:
+            ScaleHarness.stop(h)
+        shutil.rmtree(root, ignore_errors=True)
+    return row, path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3079,6 +3343,7 @@ PATH_KERNELS = {
     "volume_server": ("gf_swar",),
     "cluster": ("gf_swar",),
     "maintenance": ("gf_swar",),
+    "fleet": ("gf_swar",),
 }
 
 
@@ -4276,6 +4541,12 @@ def run(args, torch, here: str) -> int:
             args, smi, kept, reset_counts, counters)
         check_path("maintenance")
         say(json.dumps({"maintenance": maint_row}))
+
+        # -- 16. the warm fleet round on the card --------------------------
+        fleet_row, path_launches["fleet"] = phase_fleet(
+            args, torch, smi, reset_counts, counters)
+        check_path("fleet")
+        say(json.dumps({"fleet": fleet_row}))
     finally:
         shutil.rmtree(batch_dir, ignore_errors=True)
         shutil.rmtree(keep_dir, ignore_errors=True)

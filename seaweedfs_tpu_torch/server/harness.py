@@ -198,6 +198,14 @@ class ClusterHarness:
             return
         self.masters_down.add(i)
         self.masters[i].stop()
+        # the flight recorder keys probes by NAME (last registration
+        # wins) and the dying master just removed its own by identity
+        # — re-home the master-tier probes onto a survivor so the
+        # failover timeline keeps raft_term / repair_backlog frames
+        for j, m in enumerate(self.masters):
+            if j not in self.masters_down:
+                m._register_recorder_probes()
+                break
 
     def restart_master(self, i: int) -> None:
         """Respawn master `i` at its original (pinned) port; it rejoins

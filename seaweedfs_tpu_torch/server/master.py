@@ -16,15 +16,12 @@ cluster lock, raft, ``/topology``, ``/cluster/status`` (with
 ``FilerShards`` once a filer shard reports), ``/cluster/watch``, the
 autonomous maintenance plane (``/cluster/maintenance``) and the cluster
 telemetry plane (``/cluster/telemetry``, the SLO objectives, heartbeat
-snapshots), with the scheduled ``maintenance_scripts`` run through the
-port's shell.
+snapshots), the last load round (``/cluster/benchmark``), with the
+scheduled ``maintenance_scripts`` run through the port's shell.
 
-Not ported yet: ``/cluster/benchmark`` (with ``util/benchgate``; 501),
-so the master's own snapshot carries no ``benchmark``; the flight
-recorder, so it carries no ``contention`` and the master registers no
-recorder probes; ``/ui`` (501); and the request-tracing middleware (the
-master routes through the plain ``Router``, as the port's volume server
-does).
+The master registers its flight-recorder probes at start, its own
+snapshot carries ``benchmark`` and ``contention``, and it routes through
+the request-tracing middleware. Not ported yet: ``/ui`` (501).
 """
 
 from __future__ import annotations
@@ -38,6 +35,7 @@ from ..maintenance import MaintenancePlane, MaintenancePolicy
 from ..pb.messages import Heartbeat
 from ..stats.metrics import REGISTRY
 from ..telemetry import devices as devices_mod
+from ..telemetry import recorder as flight
 from ..telemetry.aggregator import ClusterTelemetry
 from ..telemetry.snapshot import (
     TelemetryCollector,
@@ -49,6 +47,7 @@ from ..storage.file_id import FileId
 from ..topology import Topology, VolumeGrowth, VolumeGrowOption
 from ..topology.volume_layout import NoWritableVolumeError
 from ..util import http
+from ..tracing import middleware as trace_mw
 from ..util import retry as retry_mod
 from ..util.http import Request, Response, Router
 from . import location_watch
@@ -146,6 +145,15 @@ class MasterServer:
             view_cache_ttl=pulse_seconds,
         )
         self._telemetry_collector = TelemetryCollector("master")
+        # (name, fn, kind) probes registered on the flight recorder in
+        # start() and removed (by identity) in stop()
+        self._recorder_probes: list[tuple] = []
+        # last `weed benchmark` round: pushed via POST
+        # /cluster/benchmark by the load generator, or loaded from a
+        # LOAD_rNN.json on disk (SEAWEEDFS_LOAD_JSON / newest
+        # LOAD_r*.json in cwd) — surfaced in the master's telemetry
+        # snapshot so cluster.health shows load next to SLO burn
+        self._last_benchmark: dict | None = None
         # autonomous maintenance plane (maintenance/): detector →
         # scheduler → executors, leader-resident; policy from the arg
         # or SEAWEEDFS_MAINT_* env (disabled unless opted in)
@@ -162,8 +170,14 @@ class MasterServer:
         router.add(
             "POST", r"/cluster/telemetry", self._handle_cluster_telemetry
         )
-        for method, path in _NOT_PORTED:
-            router.add(method, path, _not_ported)
+        router.add(
+            "GET", r"/cluster/benchmark",
+            self._handle_cluster_benchmark,
+        )
+        router.add(
+            "POST", r"/cluster/benchmark",
+            self._handle_cluster_benchmark,
+        )
         router.add(
             "GET", r"/cluster/maintenance",
             self._handle_cluster_maintenance,
@@ -196,7 +210,8 @@ class MasterServer:
         router.add("GET", r"/topology", self._handle_topology)
         router.add("GET", r"/(ui)?", _not_ported)
         self.server = http.HttpServer(
-            router, host, port, ssl_context=ssl_context,
+            trace_mw.instrument(router, "master"),
+            host, port, ssl_context=ssl_context,
         )
         self._reaper = threading.Thread(
             target=self._reap_dead_nodes, daemon=True
@@ -226,9 +241,67 @@ class MasterServer:
         self.raft.start()
         self._reaper.start()
         self.maintenance.start()
+        self._register_recorder_probes()
+
+    def _register_recorder_probes(self) -> None:
+        """Attach the master's fleet-critical signals to the flight
+        recorder: each is a cheap closure the sampler thread calls
+        with no recorder lock held."""
+
+        def agg_lock_wait_ms() -> float:
+            return 1e3 * self.telemetry.probe_lock_wait_seconds()
+
+        def heartbeats() -> float:
+            return sum(MASTER_HEARTBEATS.values().values())
+
+        def broadcast_log() -> float:
+            return float(self.locations.size())
+
+        def maint_queue() -> float:
+            m = self.maintenance.telemetry()
+            return float(m.get("queued", 0) + m.get("running", 0))
+
+        def repair_backlog() -> float:
+            with self._lock:
+                return float(sum(
+                    len(v) for v in self._repair_reports.values()
+                ))
+
+        def breakers_open() -> float:
+            return float(sum(
+                1 for b in retry_mod.BREAKERS.snapshot().values()
+                if b.get("state") != "closed"
+            ))
+
+        def fleet_ec_gbps() -> float:
+            return self.telemetry.fleet_ec_gbps()
+
+        def raft_term() -> float:
+            # term bumps ARE the election timeline: a leader-kill
+            # round's flight record shows the step the moment a
+            # candidate campaigns (0.0 = single-master, no raft)
+            return float(self.raft.term) if self.raft else 0.0
+
+        self._recorder_probes = [
+            ("master_agg_lock_wait_ms", agg_lock_wait_ms, "gauge"),
+            ("heartbeat_hz", heartbeats, "counter"),
+            ("broadcast_log", broadcast_log, "gauge"),
+            ("maint_queue", maint_queue, "gauge"),
+            ("repair_backlog", repair_backlog, "gauge"),
+            ("breakers_open", breakers_open, "gauge"),
+            ("fleet_ec_gbps", fleet_ec_gbps, "gauge"),
+            ("raft_term", raft_term, "gauge"),
+        ]
+        for name, fn, kind in self._recorder_probes:
+            flight.RECORDER.register_probe(name, fn, kind)
 
     def stop(self) -> None:
         self._running = False
+        # detach by identity: a NEW master's probe under the same name
+        # must survive this (old) instance's teardown
+        for name, fn, _kind in self._recorder_probes:
+            flight.RECORDER.remove_probe(name, fn)
+        self._recorder_probes = []
         self.maintenance.stop()
         if self.raft is not None:
             self.raft.stop()
@@ -463,17 +536,114 @@ class MasterServer:
                     len(v) for v in self._repair_reports.values()
                 ),
             }
+        bench = self._benchmark_summary()
+        if bench is not None:
+            own["benchmark"] = bench
         # the per-chip dispatch ledger's compact summary rides the
-        # snapshot like maintenance: cluster.health prints a devices:
-        # line when busy imbalance crosses the threshold
+        # snapshot like maintenance/benchmark: cluster.health prints a
+        # devices: line when busy imbalance crosses the threshold
         dev = devices_mod.LEDGER.summary()
         if dev is not None:
             own["devices"] = dev
-        # no `benchmark` (the last load round, with /cluster/benchmark
-        # and util/benchgate) and no `contention` (the flight
-        # recorder's lock witness) yet: the reference's own snapshot
-        # with no round file and no witness installed
+        # top contended lock sites ride the snapshot so cluster.health
+        # can flag a melting lock without another endpoint round-trip
+        top = flight.contention_table(top=3)
+        if top:
+            own["contention"] = [
+                {
+                    "site": r["site"],
+                    "blocked": r["blocked"],
+                    "p99_wait_s": r["p99_wait_s"],
+                    "total_wait_s": r["total_wait_s"],
+                }
+                for r in top
+            ]
         return own
+
+    def _handle_cluster_benchmark(self, req: Request) -> Response:
+        """POST: `weed benchmark` pushes its round summary here after a
+        run; GET: the last known round (pushed or file-loaded)."""
+        tracing.set_op("cluster.benchmark")
+        if req.method == "POST":
+            result = req.json()
+            if not isinstance(result, dict) or not isinstance(
+                result.get("value"), (int, float)
+            ):
+                return Response.error(
+                    "benchmark summary must carry a numeric 'value'",
+                    400,
+                )
+            entry = dict(result)
+            entry["received_at"] = time.time()
+            entry["source"] = "push"
+            self._last_benchmark = entry
+            return Response.json({"ok": True})
+        return Response.json(
+            {"benchmark": self._benchmark_summary()}
+        )
+
+    def _benchmark_summary(self) -> dict | None:
+        """The last load round's headline numbers: the pushed result
+        when a `weed benchmark` reported in, else the newest
+        LOAD_r*.json beside the process (SEAWEEDFS_LOAD_JSON
+        overrides), else None."""
+        result = self._last_benchmark
+        source = "push"
+        if result is None:
+            import glob
+            import os
+
+            path = os.environ.get("SEAWEEDFS_LOAD_JSON", "")
+            if not path:
+                rounds = sorted(glob.glob("LOAD_r*.json"))
+                path = rounds[-1] if rounds else ""
+            if not path:
+                return None
+            from ..util import benchgate
+
+            try:
+                result = benchgate.load_round(path)
+            except (OSError, ValueError):
+                return None
+            source = os.path.basename(path)
+        phases = (result.get("detail") or {}).get("phases") or {}
+        p99 = max(
+            (
+                s.get("p99_ms", 0.0)
+                for s in phases.values()
+                if isinstance(s, dict)
+            ),
+            default=0.0,
+        )
+        failures = sum(
+            s.get("failures", 0)
+            for s in phases.values()
+            if isinstance(s, dict)
+        )
+        summary = {
+            "ops_per_second": result.get("value", 0.0),
+            "p99_ms": p99,
+            "failures": failures,
+            "phases": sorted(phases),
+            "source": result.get("source", source),
+            "received_at": result.get("received_at"),
+        }
+        # persona rounds push per-protocol golden signals; a compact
+        # block rides the summary so cluster.health can show every
+        # front door even when the load ran in another process (the
+        # LIVE view.protocols section only sees in-proc personas)
+        protocols = (result.get("detail") or {}).get("protocols")
+        if isinstance(protocols, dict) and protocols:
+            summary["protocols"] = {
+                name: {
+                    "ops_s": sec.get("ops_s", 0.0),
+                    "p99_s": sec.get("p99_s", 0.0),
+                    "error_rate": sec.get("error_rate", 0.0),
+                }
+                for name, sec in sorted(protocols.items())
+                if isinstance(sec, dict)
+            }
+        return summary
 
     def _not_leader_response(self) -> dict:
         # tell the volume server where the leader is; it re-homes
@@ -1034,13 +1204,7 @@ class MasterServer:
             return Response.json({"holder": None})
 
 
-# routes whose planes are not ported yet: a clear 501, never another
-# answer
-_NOT_PORTED = (
-    ("GET", r"/cluster/benchmark"),
-    ("POST", r"/cluster/benchmark"),
-)
-
-
+# the route whose plane is not ported yet (/ui): a clear 501, never
+# another answer
 def _not_ported(req: Request) -> Response:
     return Response.error(f"{req.path} is not ported yet", 501)

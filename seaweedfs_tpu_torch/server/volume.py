@@ -24,9 +24,8 @@ with the EC-encode ledger each generate folds its ``timing`` into, and
 ``/admin/tail`` (with ``storage/volume_backup.py``), ``/admin/fsck``,
 ``/admin/query``, ``/admin/tier/{upload,download}`` (with the S3
 backend) and ``/ui``. A chunk-manifest needle resolves through the
-port's ``operation/`` client, as the reference's does. The
-request-tracing middleware is not ported either: the server routes
-through the plain ``Router``.
+port's ``operation/`` client, as the reference's does. The server routes
+through the request-tracing middleware, which serves ``/debug/*``.
 """
 
 from __future__ import annotations
@@ -62,6 +61,7 @@ from ..telemetry.snapshot import (
     mark_started,
     metrics_response,
 )
+from ..tracing import middleware as trace_mw
 from ..util import glog, http
 from ..util import retry as retry_mod
 from ..util.http import Request, Response, Router
@@ -172,7 +172,8 @@ class VolumeServer:
         router.add("PUT", r"/.*", self._h_write)
         router.add("DELETE", r"/.*", self._h_delete)
         self.server = http.HttpServer(
-            router, host, port, ssl_context=ssl_context
+            trace_mw.instrument(router, "volume"),
+            host, port, ssl_context=ssl_context,
         )
         self.store = Store(
             dirs,

@@ -10,8 +10,9 @@ hot-volume heatmap from the topology.
 
 The port's copy of ``seaweedfs_tpu/shell/command_cluster.py`` with
 ``cluster.health`` and ``cluster.stats``. ``cluster.profile``,
-``cluster.devices``, ``cluster.timeline`` and ``cluster.contention`` read
-the ``/debug/*`` plane, which comes with the port's tracing middleware.
+``cluster.devices``, ``cluster.timeline`` and ``cluster.contention``, the
+shell's readers of the ``/debug/*`` plane the servers now serve, are not
+ported yet.
 """
 
 from __future__ import annotations

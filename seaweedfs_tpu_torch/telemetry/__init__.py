@@ -3,7 +3,8 @@ and ``seaweedfs_phase_seconds`` histogram (``phases.py``), the
 per-device dispatch ledger (``devices.py``), and the cluster telemetry
 plane — per-server snapshots (``snapshot.py``), the master's aggregate
 behind ``/cluster/telemetry`` (``aggregator.py``) and the slow-request
-ledger (``slow.py``).
+ledger (``slow.py``) — and the flight recorder (``recorder.py``) with
+the ``/debug/*`` plane (``debug.py``, ``profile.py``).
 
 This package init stays import-light (the stdlib-only ``slow``): the
 heavier modules (``snapshot`` pulls in the stats, tracing and retry

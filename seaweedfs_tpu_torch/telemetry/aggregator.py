@@ -10,8 +10,7 @@ objectives (error rate and p99 latency). `weed shell cluster.health`
 and `cluster.stats` render this view.
 
 The port's copy of ``seaweedfs_tpu/telemetry/aggregator.py``: the same
-views and JSON bodies. Its flight-recorder probe of the aggregator lock
-comes with the port's recorder.
+views and JSON bodies.
 """
 
 from __future__ import annotations

@@ -28,8 +28,10 @@ by ``ec_sharded.stage_lanes`` (one lane ``d<position>`` per position).
 H2D/D2H seconds are *estimates* from the byte counts and the
 ``ops/link.py`` probe bandwidths. Everything is exposed as bounded-label
 metrics of the port's registry (``seaweedfs_device_busy_seconds{device}``
-and four more families; lane labels are clamped) and as
-:meth:`DeviceLedger.snapshot` / :meth:`DeviceLedger.summary`.
+and four more families; lane labels are clamped), as
+:meth:`DeviceLedger.snapshot` / :meth:`DeviceLedger.summary` (served at
+``/debug/devices``) and as identity-matched flight-recorder probes
+(:func:`install_probes`).
 
 On top of the ledger, :func:`decompose_scaling` turns the 1→N scaling
 gap into named fractions (serial host, launch serialization, transfer,
@@ -372,6 +374,58 @@ def _diff_state(cur: dict, base: dict) -> dict:
 
 
 LEDGER = DeviceLedger()
+
+
+# -- flight-recorder probes ------------------------------------------------
+
+
+def install_probes(n_devices: int | None = None, recorder=None,
+                   device=None) -> list:
+    """Attach the ledger's probes to the flight recorder and return
+    the ``(name, fn, kind)`` list the caller must hand back to
+    :func:`remove_probes` — the same identity-matched contract the
+    master's own probes use, so a bench-driven install/teardown can
+    never strand (or tear down) another owner's probes.
+
+    Per-position busy counters (``dev<N>_busy_s``, differenced by the
+    recorder into busy-rate ≈ duty) are created for positions
+    ``0..n_devices-1`` when given, else for the positions the ledger
+    has already seen. ``device`` is the port's: ``None`` is the card
+    and raises without one, ``"cpu"`` lets a CPU run watch the ledger."""
+    from .. import resolve_device
+    from .recorder import RECORDER
+
+    resolve_device(device)
+    rec = recorder if recorder is not None else RECORDER
+    if n_devices is not None:
+        labels = [str(i) for i in range(n_devices)]
+    else:
+        labels = [r["device"] for r in LEDGER.snapshot()["devices"]]
+    probes: list[tuple] = []
+    for label in labels:
+        def busy(label=label) -> float:
+            return LEDGER.busy_seconds(label)
+
+        probes.append((f"dev{label}_busy_s", busy, "counter"))
+    probes.append(
+        ("device_imbalance", LEDGER.imbalance_frac, "gauge")
+    )
+    probes.append(
+        ("staging_lanes_busy_s", LEDGER.lane_busy_seconds, "counter")
+    )
+    for name, fn, kind in probes:
+        rec.register_probe(name, fn, kind)
+    return probes
+
+
+def remove_probes(probes: list, recorder=None) -> None:
+    """Detach by identity: a newer owner's probe under the same name
+    survives this (older) owner's teardown."""
+    from .recorder import RECORDER
+
+    rec = recorder if recorder is not None else RECORDER
+    for name, fn, _kind in probes:
+        rec.remove_probe(name, fn)
 
 
 # -- scaling decomposition -------------------------------------------------

@@ -12,9 +12,7 @@ commands.
 Leaf module (stdlib only): imported by the tracing middleware, which
 sits under every server's router.
 
-The port's copy of ``seaweedfs_tpu/telemetry/slow.py``. Until the port's
-tracing middleware and ``/debug/slow`` land, the ledger is read by the
-telemetry snapshot (``slow_worst_seconds``) and fed by direct offers.
+The port's copy of ``seaweedfs_tpu/telemetry/slow.py``.
 """
 
 from __future__ import annotations

@@ -19,9 +19,7 @@ The port's copy of ``seaweedfs_tpu/telemetry/snapshot.py``, on the
 port's registry, span recorder, breakers, fault switchboard and
 ``ops/link.py``. ``seaweedfs_build_info`` keeps its three label names;
 its third, ``jax_backend``, carries the port's platform (``cuda`` or
-``cpu``, :func:`backend`). The flight recorder is not ported yet, so
-:func:`mark_started` attaches no recorder component and the persona
-ledger registers no recorder probe.
+``cpu``, :func:`backend`).
 """
 
 from __future__ import annotations
@@ -79,8 +77,11 @@ def mark_started(component: str) -> None:
         _started.setdefault(component, time.time())
         _started_mono.setdefault(component, time.monotonic())
     BUILD_INFO.set(1.0, __version__, sys.platform, backend())
-    # no flight-recorder component: the recorder (and its request-rate
-    # probe per role) is not ported yet
+    # every started role shows up in the flight recorder's timeline
+    # with a request-rate probe (lazy import: recorder imports us)
+    from . import recorder as flight
+
+    flight.attach_component(component)
 
 
 def started_components() -> dict[str, float]:
@@ -269,6 +270,7 @@ class ProtocolAccounting:
     summing (the same reason fault counters aggregate by max)."""
 
     NAMES = ("native", "s3", "fuse", "broker")
+    PROBE_PREFIX = "proto"
     WINDOW_SECONDS = 30.0
     MAX_SAMPLES = 2048  # per protocol; bounds memory at high ops/s
 
@@ -279,6 +281,10 @@ class ProtocolAccounting:
         self._ops: dict[str, int] = {}  # guarded-by: self._lock
         self._errors: dict[str, int] = {}  # guarded-by: self._lock
 
+    def lifetime_ops(self, protocol: str) -> float:
+        with self._lock:
+            return float(self._ops.get(protocol, 0))
+
     def record(self, protocol: str, seconds: float,
                ok: bool = True) -> None:
         """Fold one persona operation in. Unknown protocol names are
@@ -287,20 +293,32 @@ class ProtocolAccounting:
         if protocol not in self.NAMES:
             return
         now = time.monotonic()
+        register = False
         with self._lock:
             dq = self._samples.get(protocol)
             if dq is None:
                 dq = self._samples[protocol] = deque(
                     maxlen=self.MAX_SAMPLES
                 )
+                register = True
             dq.append((now, float(seconds), bool(ok)))
             self._ops[protocol] = self._ops.get(protocol, 0) + 1
             if not ok:
                 self._errors[protocol] = (
                     self._errors.get(protocol, 0) + 1
                 )
-        # no flight-recorder ops probe on first sight of a protocol:
-        # the recorder is not ported yet
+        if register:
+            # first sight of a protocol: give it a flight-recorder
+            # ops probe. Registration grabs the recorder's lock, so
+            # it must happen OUTSIDE ours (lock-order). Bounded: at
+            # most len(NAMES) probes per process, ever.
+            from . import recorder as flight
+
+            flight.RECORDER.register_probe(
+                f"{self.PROBE_PREFIX}_{protocol}_ops",
+                lambda p=protocol: self.lifetime_ops(p),
+                kind="counter",
+            )
 
     @staticmethod
     def _pct(sorted_vals: list[float], q: float) -> float:
@@ -362,6 +380,7 @@ class FilerShardAccounting(ProtocolAccounting):
     reason as PROTOCOLS."""
 
     NAMES = tuple(f"shard{i}" for i in range(64))
+    PROBE_PREFIX = "filer"
 
 
 # the process-wide per-shard metadata-op ledger every filer shard in

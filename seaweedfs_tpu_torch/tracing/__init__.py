@@ -3,8 +3,9 @@
 in-process span recorder with the ``seaweedfs_trace_span_seconds``
 histogram, and span-tree rendering.
 
-The port's copy of ``seaweedfs_tpu/tracing`` without its server
-middleware, which comes with the port of the servers. Codec dispatches
+The port's copy of ``seaweedfs_tpu/tracing``; the server middleware is
+``tracing/middleware.py``, which the port's master and volume server
+route through. Codec dispatches
 (``ops/profiler.py``) and pipeline phases (``telemetry/phases.py``)
 record here as children of the span that launched them.
 """

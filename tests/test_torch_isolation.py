@@ -130,7 +130,21 @@ def test_port_files_exist():
                    ("telemetry", "snapshot.py"),
                    ("telemetry", "aggregator.py"),
                    ("shell", "command_cluster.py"),
-                   ("shell", "command_maintenance.py")):
+                   ("shell", "command_maintenance.py"),
+                   ("util", "lockwitness.py"),
+                   ("telemetry", "recorder.py"),
+                   ("telemetry", "debug.py"),
+                   ("telemetry", "profile.py"),
+                   ("tracing", "middleware.py"),
+                   ("util", "benchgate.py"),
+                   ("command", "__init__.py"),
+                   ("command", "benchmark.py"),
+                   ("scale", "__init__.py"),
+                   ("scale", "spec.py"),
+                   ("scale", "harness.py"),
+                   ("scale", "churn.py"),
+                   ("scale", "converge.py"),
+                   ("scale", "round.py")):
         assert os.path.join("seaweedfs_tpu_torch", *module) in names
     assert len(files) > 10
 
@@ -199,6 +213,20 @@ def test_importing_the_port_loads_no_jax():
         "import seaweedfs_tpu_torch.telemetry.aggregator\n"
         "import seaweedfs_tpu_torch.shell.command_cluster\n"
         "import seaweedfs_tpu_torch.shell.command_maintenance\n"
+        "import seaweedfs_tpu_torch.util.lockwitness\n"
+        "import seaweedfs_tpu_torch.telemetry.recorder\n"
+        "import seaweedfs_tpu_torch.telemetry.debug\n"
+        "import seaweedfs_tpu_torch.telemetry.profile\n"
+        "import seaweedfs_tpu_torch.tracing.middleware\n"
+        "import seaweedfs_tpu_torch.util.benchgate\n"
+        "import seaweedfs_tpu_torch.command\n"
+        "import seaweedfs_tpu_torch.command.benchmark\n"
+        "import seaweedfs_tpu_torch.scale\n"
+        "import seaweedfs_tpu_torch.scale.spec\n"
+        "import seaweedfs_tpu_torch.scale.harness\n"
+        "import seaweedfs_tpu_torch.scale.churn\n"
+        "import seaweedfs_tpu_torch.scale.converge\n"
+        "import seaweedfs_tpu_torch.scale.round\n"
         "seaweedfs_tpu_torch.shell.commands.all_commands()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'seaweedfs_tpu', 'bench', 'tools')]\n"

@@ -13,8 +13,9 @@ held against the reference on the CPU.
     the assign cookies and the write pick draw from one seeded
     ``random.Random`` for each run, in place of the ``random`` module
     of each package's master and volume layout.
-(b) What the port does not serve yet answers 501 or raises; the
-    maintenance and telemetry planes answer as the reference's do; and
+(b) What the port does not serve yet (``/``, ``/ui``) answers 501 or
+    raises; ``/cluster/benchmark`` and the maintenance and telemetry
+    planes answer as the reference's do; and
     ``ClusterHarness()`` and volume servers under a port master raise
     without a card.
 (c) The master cases of ``tests/test_cluster.py`` that need no harness:
@@ -252,11 +253,17 @@ def test_what_waits_answers_501_or_raises(tmp_path):
     m.start()
     ref.start()
     try:
-        for method in ("GET", "POST"):
-            status, _, body = call(m.url, method, "/cluster/benchmark",
-                                   b"{}")
-            assert status == 501, method
-            assert b"not ported" in body
+        # /cluster/benchmark answers as the reference's does: a push
+        # without a numeric value is refused, then the last round
+        for method, body in (("POST", b"{}"), ("GET", None),
+                             ("POST", b'{"value": 2.5}'), ("GET", None)):
+            got, want = call(m.url, method, "/cluster/benchmark", body), \
+                call(ref.url, method, "/cluster/benchmark", body)
+            assert got[0] == want[0], method
+            got_doc, want_doc = json.loads(got[2]), json.loads(want[2])
+            for doc in (got_doc, want_doc):
+                (doc.get("benchmark") or {}).pop("received_at", None)
+            assert got_doc == want_doc, method
         for path in ("/", "/ui"):
             assert call(m.url, "GET", path)[0] == 501
         # the maintenance plane answers as the reference's does: off
@@ -288,7 +295,14 @@ def test_what_waits_answers_501_or_raises(tmp_path):
         assert own["url"] == m.url
         assert own["maintenance"]["enabled"] is False
         assert own["repair_backlog"] == {"reporters": 0, "fids": 0}
-        assert "benchmark" not in own and "contention" not in own
+        [ref_own] = [
+            s for s in port_http.get_json(
+                f"{ref.url}/cluster/telemetry")["servers"]
+            if s["component"] == "master"]
+        for row in (own, ref_own):
+            row["benchmark"].pop("received_at")
+        assert own["benchmark"] == ref_own["benchmark"]
+        assert own["benchmark"]["ops_per_second"] == 2.5
         st = port_http.get_json(f"{m.url}/cluster/status")
         assert st == {"IsLeader": True, "Leader": m.url, "Peers": []}
         text = port_http.request("GET", f"{m.url}/metrics").decode()
