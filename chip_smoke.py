@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--volume-mib 1024] [--workdir DIR]
         [--batch-volumes 4] [--batch-volume-mib 256]
+    python3 chip_smoke.py --counted-weed PORT <weed subcommand> ...
 
 Run from the root of the repository, on a machine with a CUDA card and
 ``nvcc``. Phases, each of which must pass:
@@ -248,8 +249,35 @@ Phases 4, 5 (with 6), 9 and 10 pin their codecs to
 their expected launches and host dispatches follow from the widths;
 phase 11 runs the link-aware default.
 
+17. the CLI cluster: the port's ``weed`` (``python -m
+    seaweedfs_tpu_torch``) as separate processes, children of this
+    script — one ``master -volumeSizeLimitMB <--volume-mib>`` and four
+    ``volume -device cuda``, each on its own ``-dir`` — driven only
+    through the CLI and HTTP: one grown volume filled by four ``weed
+    upload`` processes with files made from ``--seed`` until its
+    ``.dat`` holds at least 95 % of the limit (``volume.fsck`` clean),
+    ``weed shell -c "lock; ec.encode -volumeId <v> -quietFor 0s;
+    volume.list; unlock"`` (every ``.ec00–.ec13`` and ``.ecx`` hashing
+    equal to ``write_ec_files`` of the same ``.dat`` in this process),
+    shards {0, 5, 11, 13} deleted from their holders and 300 degraded
+    reads from this process on 8 threads (byte-exact, p50/p99),
+    ``ec.rebuild`` and ``volume.fsck`` through ``weed shell`` (rebuilt
+    shards hashing equal; fsck reads normal volumes only, so this one
+    checks no needle), and every file back through ``weed
+    download``, byte-exact. gf_swar launches in the server processes,
+    which ``--counted-weed`` starts so that each serves its own launch
+    counters: set to 0 before the path and read around each step (the
+    encode's launches all compile-time, the rebuild's all run-time, one
+    launch a ``device`` route in the server's ``/metrics``); the
+    ``device`` routes and the ``/debug/devices`` rows must grow, and
+    ``cluster.devices``, ``cluster.timeline``,
+    ``trace.dump`` and ``trace.slow`` must answer through ``weed
+    shell``. Each child's log tail is printed. Its ``cli_cluster`` JSON
+    line.
+
 It prints ``read_decode``, ``routing``, ``multigpu``, ``volume_server``,
-``cluster``, ``maintenance`` and ``fleet`` JSON lines, one JSON line describing
+``cluster``, ``maintenance``, ``fleet`` and ``cli_cluster`` JSON lines,
+one JSON line describing
 every kernel,
 then, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -1835,9 +1863,7 @@ def phase_volume_server(args, torch, smi, kept, reset_counts, counters):
     row: dict = {"card": smi}
     vs = None
     # an unbound local port: every heartbeat and lookup fails
-    with socket.socket() as probe:
-        probe.bind(("127.0.0.1", 0))
-        no_master = f"http://127.0.0.1:{probe.getsockname()[1]}"
+    no_master = f"http://127.0.0.1:{free_port()}"
 
     def admin(path, body):
         return http.post_json(f"{vs.url}{path}", body, timeout=600)
@@ -3265,6 +3291,447 @@ def phase_fleet(args, torch, smi, reset_counts, counters):
     return row, path
 
 
+
+ROUTE_RE = re.compile(
+    r'^seaweedfs_codec_route_total\{path="(\w+)",reason="(\w+)"\} (\S+)$',
+    re.M)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def server_routes(url: str) -> dict[tuple[str, str], int]:
+    """``seaweedfs_codec_route_total`` of one server process, by
+    (path, reason), from its ``/metrics``."""
+    from seaweedfs_tpu_torch.util import http
+
+    text = http.request("GET", f"{url}/metrics").decode()
+    return {(p, r): int(float(v)) for p, r, v in ROUTE_RE.findall(text)}
+
+
+def device_dispatches(url: str) -> int:
+    """Dispatches in one server process's ``/debug/devices`` rows."""
+    from seaweedfs_tpu_torch.util import http
+
+    doc = http.get_json(f"{url}/debug/devices")
+    return sum(int(row["dispatches"]) for row in doc["devices"])
+
+
+def phase_cli_cluster(args, smi):
+    """Phase 17: the CLI cluster — the port's ``weed`` (``python -m
+    seaweedfs_tpu_torch``) as separate processes: one ``master`` and four
+    ``volume -device cuda``, each on its own ``-dir``, driven only
+    through the CLI (``upload``, ``shell -c``, ``download``) and HTTP.
+    gf_swar launches in the servers' processes, which ``counted_weed``
+    starts: each serves its own launch counters, set to 0 just before
+    the path and read around each step and just after it. The servers'
+    ``device`` routes (``/metrics``) are kept beside them. Returns the
+    phase's row and the launch counts of its path, summed over the
+    servers."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from seaweedfs_tpu_torch import operation
+    from seaweedfs_tpu_torch.storage.erasure_coding import (
+        constants as C,
+        write_ec_files,
+        write_sorted_file_from_idx,
+    )
+    from seaweedfs_tpu_torch.util import http
+
+    phase_t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke-cli-", dir=args.workdir)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here, PYTHONUNBUFFERED="1")
+    weed = [sys.executable, "-m", "seaweedfs_tpu_torch"]
+    limit = args.volume_mib * MIB
+    lost = [0, 5, 11, 13]
+    row: dict = {"card": smi, "volume_size_limit_mb": args.volume_mib,
+                 "processes": "1 master + 4 volume servers"}
+    children: list = []
+
+    def on_card(text):
+        say(f"[{smi}] {text}")
+
+    def spawn(name, argv, prefix=weed):
+        log = open(os.path.join(root, f"{name}.log"), "wb")
+        try:
+            proc = subprocess.Popen(prefix + argv, cwd=root, env=env,
+                                    stdout=log, stderr=subprocess.STDOUT)
+        finally:
+            log.close()
+        children.append((name, proc))
+        return proc
+
+    def cli(*argv, timeout=600):
+        """One ``weed`` subcommand: its stdout and wall seconds."""
+        t0 = time.perf_counter()
+        p = subprocess.run(weed + list(argv), cwd=root, env=env,
+                           capture_output=True, text=True, timeout=timeout)
+        sec = time.perf_counter() - t0
+        check(p.returncode == 0, f"weed {' '.join(argv[:3])}: rc "
+              f"{p.returncode}: {p.stderr[-3000:]}")
+        return p.stdout, sec
+
+    def ec_map(vid):
+        try:
+            info = http.get_json(f"{m}/ec/lookup?volumeId={vid}")
+        except http.HttpError:
+            return {}
+        return {int(s): [loc["url"] for loc in locs]
+                for s, locs in info["shards"].items()}
+
+    def wait_shards(vid, want):
+        deadline = time.time() + 60
+        while set(ec_map(vid)) != want:
+            check(time.time() < deadline, f"the master's EC map "
+                  f"{sorted(ec_map(vid))} never became {sorted(want)}")
+            time.sleep(0.05)
+
+    def shard_files(vid, ext):
+        return [p for p in (os.path.join(root, f"vs{i}", f"{vid}{ext}")
+                            for i in range(4)) if os.path.exists(p)]
+
+    def counts_now(method="GET"):
+        """Each server's launch counters ("POST" sets them to 0) and
+        its codec routes."""
+        return {u: (json.loads(http.request(method, counts_url[u])),
+                    server_routes(u)) for u in urls}
+
+    def step_begin():
+        """The counts before a step, which each server starts on a
+        fresh, probed link state, as the in-process phases' steps do:
+        otherwise one step's contended dispatches set the estimate the
+        next one routes by (in one run the degraded reads' sent all 13
+        of the rebuild's dispatches to the host)."""
+        for u in urls:
+            http.request("POST", counts_url[u] + "link")
+        return counts_now()
+
+    def launched(before, after, name):
+        return sum(after[u][0][name] - before[u][0][name] for u in urls)
+
+    def routed(before, after, path):
+        return sum(n - before[u][1].get((p, r), 0)
+                   for u in urls for (p, r), n in after[u][1].items()
+                   if p == path and r != "error")
+
+    def step(before, after, what, form=None):
+        """gf_swar's launches in a step, in the compile-time RS(10,4)
+        form, the codec's host dispatches and its device routes; an
+        encode (``form="rs10x4"``) or rebuild (``"run-time"``) launched,
+        one launch a device route, every launch in that form."""
+        out = {"launches": launched(before, after, "gf_swar"),
+               "rs10x4": launched(before, after, "gf_swar_rs10x4"),
+               "host_dispatches": launched(before, after, "codec_host"),
+               "device_routes": routed(before, after, "device"),
+               "host_routes": routed(before, after, "host")}
+        if form is not None:
+            check(out["launches"] > 0
+                  and out["launches"] == out["device_routes"]
+                  and out["rs10x4"] == (out["launches"]
+                                        if form == "rs10x4" else 0),
+                  f"{what}: {out}: launches on the card, one gf_swar "
+                  f"launch a device route, every launch {form}")
+        return out
+
+    try:
+        # the cluster: five processes of the port's weed
+        mport = free_port()
+        m = f"127.0.0.1:{mport}"
+        t0 = time.perf_counter()
+        spawn("master", ["master", "-ip", "127.0.0.1", "-port", str(mport),
+                         "-volumeSizeLimitMB", str(args.volume_mib)])
+        ports = [free_port() for _ in range(4)]
+        counts_url = {}
+        for i, port in enumerate(ports):
+            os.makedirs(os.path.join(root, f"vs{i}"))
+            cport = free_port()
+            counts_url[f"127.0.0.1:{port}"] = f"127.0.0.1:{cport}/"
+            spawn(f"volume{i}", [
+                "volume", "-ip", "127.0.0.1", "-port", str(port),
+                "-mserver", m, "-dir", os.path.join(root, f"vs{i}"),
+                "-max", "8", "-device", "cuda"],
+                [sys.executable, os.path.abspath(__file__), "--counted-weed",
+                 str(cport)])
+        urls = [f"127.0.0.1:{port}" for port in ports]
+        deadline = time.time() + 120
+        while True:
+            for name, proc in children:
+                check(proc.poll() is None,
+                      f"weed {name} exited {proc.returncode}")
+            try:
+                status = http.get_json(f"{m}/dir/status")
+                nodes = [dn["url"] for dc in status["data_centers"]
+                         for rack in dc["racks"]
+                         for dn in rack["data_nodes"]]
+                if sorted(nodes) == sorted(urls):
+                    break
+            except (http.HttpError, OSError):
+                pass
+            check(time.time() < deadline, "the weed cluster never came up")
+            time.sleep(0.1)
+        row["start_s"] = time.perf_counter() - t0
+        counts0 = counts_now("POST")
+        ledger0 = {u: device_dispatches(u) for u in urls}
+        on_card(f"weed master {m} and four weed volume -device cuda "
+                f"{urls}, each its own process, up in "
+                f"{row['start_s']:.1f} s")
+
+        # one volume, filled to at least 95 % of its limit by weed upload
+        check(http.get_json(f"{m}/vol/grow?count=1") == {"count": 1},
+              "grow one volume")
+        files_dir = os.path.join(root, "files")
+        os.makedirs(files_dir)
+        rng = np.random.default_rng([args.seed, 17])
+        # 1 MiB to 4,000,000 bytes a file (under the 4 MiB auto-split),
+        # to 97.5 % of the limit in data; records add under 100 bytes each
+        paths, total, target = [], 0, int(0.975 * limit)
+        while total < target:
+            n = min(int(rng.integers(MIB, 4_000_000)), target - total)
+            path = os.path.join(files_dir, f"f{len(paths):04d}.bin")
+            with open(path, "wb") as f:
+                f.write(np.random.default_rng(
+                    [args.seed, 17, len(paths)]).bytes(n))
+            paths.append(path)
+            total += n
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(weed + ["upload", "-master", m]
+                                  + paths[j::4], cwd=root, env=env,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for j in range(4)]
+        uploaded = []
+        for proc in procs:
+            out, err = proc.communicate(timeout=600)
+            check(proc.returncode == 0, f"weed upload: {err[-3000:]}")
+            uploaded += [json.loads(line) for line in out.splitlines()]
+        upload_s = time.perf_counter() - t0
+        check(len(uploaded) == len(paths), f"{len(uploaded)} of "
+              f"{len(paths)} files uploaded")
+        vids = {int(u["fid"].split(",")[0]) for u in uploaded}
+        check(len(vids) == 1, f"the uploads went to one volume: {vids}")
+        vid = vids.pop()
+        [dat] = shard_files(vid, ".dat")
+        dat_bytes = os.path.getsize(dat)
+        check(dat_bytes >= 0.95 * limit, f"volume {vid}'s .dat is "
+              f"{dat_bytes} bytes, under 95 % of {limit}")
+        row["upload"] = {"files": len(paths), "bytes": total,
+                         "seconds": upload_s,
+                         "MBps": total / upload_s / 1e6,
+                         "volume": vid, "dat_bytes": dat_bytes,
+                         "full_percent": 100 * dat_bytes / limit}
+        out, _ = cli("shell", "-master", m, "-c", "volume.fsck")
+        check(out.strip() == f"checked {len(paths)} needles, 0 issues",
+              f"volume.fsck before the encode: {out}")
+        on_card(f"weed upload of {len(paths)} files ({total} bytes, four "
+                f"processes) into volume {vid}: {upload_s:.1f} s = "
+                f"{row['upload']['MBps']:.1f} MB/s; .dat {dat_bytes} bytes "
+                f"= {row['upload']['full_percent']:.2f} % of "
+                f"{args.volume_mib} MiB; volume.fsck: {out.strip()}")
+
+        # what the shards must be: write_ec_files in this process on a
+        # hard link of the same .dat (the encode deletes the volume)
+        expect_dir = os.path.join(root, "expect")
+        os.makedirs(expect_dir)
+        base = os.path.join(expect_dir, str(vid))
+        os.link(dat, base + ".dat")
+        shutil.copyfile(dat[:-4] + ".idx", base + ".idx")
+        write_ec_files(base, device="cuda")
+        write_sorted_file_from_idx(base)
+        want = {ext: sha256_file(base + ext) for ext in
+                [C.to_ext(s) for s in range(C.TOTAL_SHARDS)] + [".ecx"]}
+        for ext in want:
+            os.remove(base + ext)
+
+        # ec.encode through weed shell
+        _, shell_start = cli("shell", "-master", m, "-c", "lock; unlock")
+        before = step_begin()
+        out, sec = cli("shell", "-master", m, "-c",
+                       f"lock; ec.encode -volumeId {vid} -quietFor 0s; "
+                       "volume.list; unlock")
+        after = counts_now()
+        check(f"volume {vid}: ec.encode done" in out, f"ec.encode: {out}")
+        wait_shards(vid, set(range(C.TOTAL_SHARDS)))
+        for ext, digest in want.items():
+            paths_ext = shard_files(vid, ext)
+            check(paths_ext and all(sha256_file(p) == digest
+                                    for p in paths_ext),
+                  f"{ext} at {paths_ext} differs from write_ec_files'")
+        check(not shard_files(vid, ".dat"), "ec.encode left the .dat")
+        enc = step(before, after, "ec.encode", "rs10x4")
+        # the shell's wall time holds its interpreter's start, which a
+        # bare lock/unlock shell measures
+        row["ec_encode"] = {
+            "shell_seconds": sec, "shell_start_seconds": shell_start,
+            "shell_GBps_incl_start": dat_bytes / sec / 1e9,
+            "GBps_less_start": dat_bytes / (sec - shell_start) / 1e9,
+            **enc}
+        holders = {u: sorted(s for s, us in ec_map(vid).items() if u in us)
+                   for u in urls}
+        on_card(f"weed shell ec.encode -volumeId {vid}: {sec:.3f} s of "
+                f"shell = {row['ec_encode']['shell_GBps_incl_start']:.3f} "
+                f"GB/s of .dat; less a bare lock/unlock shell's "
+                f"{shell_start:.3f} s, "
+                f"{row['ec_encode']['GBps_less_start']:.3f} GB/s; gf_swar "
+                f"{enc['launches']} launches in the servers "
+                f"({enc['rs10x4']} compile-time), {enc['host_dispatches']} "
+                "host dispatches; "
+                f"shards by server {holders}; every .ec00-.ec13 and "
+                f".ecx hash equal to write_ec_files in this process")
+
+        # four shards lost, then degraded reads from this process
+        for sid in lost:
+            for u in ec_map(vid)[sid]:
+                http.post_json(f"{u}/admin/ec/delete_shards",
+                               {"volume": vid, "shard_ids": [sid]})
+        wait_shards(vid, set(range(C.TOTAL_SHARDS)) - set(lost))
+        pick = np.random.default_rng([args.seed, 171]).choice(
+            len(uploaded), min(300, len(uploaded)), replace=False)
+        sample = [uploaded[int(i)] for i in pick]
+
+        def read(u):
+            with open(u["fileName"], "rb") as f:
+                want_data = f.read()
+            t0 = time.perf_counter()
+            data = operation.read_file(m, u["fid"])
+            sec = time.perf_counter() - t0
+            check(data == want_data, f"degraded read of {u['fid']} "
+                  "differs from the uploaded file")
+            return sec
+
+        before = step_begin()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            lat = list(pool.map(read, sample))
+        wall = time.perf_counter() - t0
+        after = counts_now()
+        row["degraded"] = {
+            "reads": len(lat), "threads": 8, "wall_s": wall,
+            "per_s": len(lat) / wall, "p50_ms": percentile_ms(lat, 50),
+            "p99_ms": percentile_ms(lat, 99),
+            **step(before, after, "degraded reads")}
+        on_card(f"{len(lat)} degraded reads with shards {lost} lost, 8 "
+                f"threads in this process against the server processes: "
+                f"p50 {row['degraded']['p50_ms']:.2f} ms, p99 "
+                f"{row['degraded']['p99_ms']:.2f} ms, "
+                f"{row['degraded']['per_s']:.1f} reads/s; gf_swar "
+                f"{row['degraded']['launches']} launches, "
+                f"{row['degraded']['host_dispatches']} host dispatches; "
+                "every read byte-exact")
+
+        # ec.rebuild and volume.fsck through weed shell; fsck checks
+        # normal volumes only, so after the encode it checks no needle:
+        # the rebuilt shards' hashes and the downloads are the checks
+        before = step_begin()
+        out, sec = cli("shell", "-master", m, "-c",
+                       f"lock; ec.rebuild -volumeId {vid}; volume.fsck; "
+                       "unlock")
+        after = counts_now()
+        check(f"rebuilt shards {lost}" in out, f"ec.rebuild: {out}")
+        check("checked 0 needles, 0 issues" in out,
+              f"volume.fsck after the rebuild: {out}")
+        wait_shards(vid, set(range(C.TOTAL_SHARDS)))
+        for sid in lost:
+            ext = C.to_ext(sid)
+            paths_ext = shard_files(vid, ext)
+            check(paths_ext and all(sha256_file(p) == want[ext]
+                                    for p in paths_ext),
+                  f"rebuilt {ext} at {paths_ext} differs")
+        reb = step(before, after, "ec.rebuild", "run-time")
+        row["ec_rebuild"] = {"shell_seconds": sec, **reb}
+        on_card(f"weed shell ec.rebuild -volumeId {vid} of {lost} and "
+                f"volume.fsck: {sec:.3f} s of shell; gf_swar "
+                f"{reb['launches']} launches, {reb['host_dispatches']} "
+                "host dispatches; rebuilt shards hash equal")
+
+        # every uploaded file back through weed download, byte-exact
+        dl = os.path.join(root, "dl")
+        os.makedirs(dl)
+        fids = [u["fid"] for u in uploaded]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(weed + ["download", "-master", m, "-dir",
+                                          dl] + fids[j::4], cwd=root,
+                                  env=env, stdout=subprocess.DEVNULL,
+                                  stderr=subprocess.PIPE, text=True)
+                 for j in range(4)]
+        for proc in procs:
+            _, err = proc.communicate(timeout=600)
+            check(proc.returncode == 0, f"weed download: {err[-3000:]}")
+        download_s = time.perf_counter() - t0
+        for u in uploaded:
+            got = os.path.join(dl, u["fid"].replace(",", "_"))
+            with open(u["fileName"], "rb") as a, open(got, "rb") as b:
+                check(a.read() == b.read(),
+                      f"weed download of {u['fid']} differs")
+        row["download"] = {"files": len(fids), "seconds": download_s,
+                           "MBps": total / download_s / 1e6}
+        on_card(f"weed download of all {len(fids)} files (four processes): "
+                f"{download_s:.1f} s = {row['download']['MBps']:.1f} MB/s, "
+                "every file byte-exact")
+
+        # the card did the work: the servers' own counters
+        counts1 = counts_now()
+        ledger1 = {u: device_dispatches(u) for u in urls}
+        path = {name: launched(counts0, counts1, name)
+                for name in counts1[urls[0]][0]}
+        row["launches"] = step(counts0, counts1, "the phase")
+        row["routes"] = {u: {f"{p}/{r}": n - counts0[u][1].get((p, r), 0)
+                             for (p, r), n in sorted(counts1[u][1].items())}
+                         for u in urls}
+        row["ledger_dispatches"] = {u: ledger1[u] - ledger0[u]
+                                    for u in urls}
+        check(row["launches"]["device_routes"] > 0,
+              "the servers' device routes did not grow")
+        check(sum(row["ledger_dispatches"].values()) > 0,
+              "/debug/devices rows did not grow")
+        # the readers, in one shell process (each takes seconds to
+        # start); an ``unlock`` after each prints "unlocked", which splits
+        # their outputs
+        busiest = max(urls, key=row["ledger_dispatches"].get)
+        readers = [f"cluster.devices -server {busiest}", "cluster.timeline"]
+        for u in urls:
+            readers += [f"trace.dump -server {u}", f"trace.slow -server {u}"]
+        out, _ = cli("shell", "-master", m, "-c", "; ".join(
+            f"{r}; unlock" for r in readers))
+        texts = out.split("unlocked")[:-1]
+        check(len(texts) == len(readers), f"the readers' output: {out}")
+        for name, text in zip(readers, texts):
+            check(text.strip(), f"{name} printed nothing")
+        row["readers_bytes"] = {name: len(text)
+                                for name, text in zip(readers, texts)}
+        on_card("cluster.devices, cluster.timeline, trace.dump and "
+                "trace.slow answered through weed shell; the path's "
+                f"launch counts in the servers {path}; routes by server "
+                f"{row['routes']}; /debug/devices dispatches "
+                f"{row['ledger_dispatches']}")
+        for line in "".join(texts[:2]).splitlines()[:12]:
+            on_card(f"  | {line}")
+        row["phase_s"] = time.perf_counter() - phase_t0
+        on_card(f"phase 17 took {row['phase_s']:.1f} s")
+    finally:
+        for name, proc in children:
+            if proc.poll() is None:
+                proc.terminate()
+        for name, proc in children:
+            try:
+                proc.wait(30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        for name, _proc in children:
+            log = os.path.join(root, f"{name}.log")
+            if os.path.exists(log):
+                with open(log, "rb") as f:
+                    tail = f.read()[-1500:].decode("utf-8", "replace")
+                if tail.strip():
+                    say(f"weed {name} log (tail): {tail!r}")
+        shutil.rmtree(root, ignore_errors=True)
+    return row, path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3344,7 +3811,84 @@ PATH_KERNELS = {
     "cluster": ("gf_swar",),
     "maintenance": ("gf_swar",),
     "fleet": ("gf_swar",),
+    "cli_cluster": ("gf_swar",),
 }
+
+
+def launch_counters() -> dict:
+    """The port's launch counters of this process, by the names of the
+    ``kernels`` line."""
+    from seaweedfs_tpu_torch.ops import codec as codec_mod
+    from seaweedfs_tpu_torch.ops.kernels import (
+        gf_bitplane,
+        gf_fused_u8,
+        gf_repack,
+        gf_swar,
+        gf_swar_u8,
+        gf_vpu,
+    )
+
+    return {
+        "gf_swar": gf_swar.LAUNCHES,
+        "gf_repack": gf_repack.REPACK_LAUNCHES,
+        "gf_unpack": gf_repack.UNPACK_LAUNCHES,
+        "gf_swar_u8": gf_swar_u8.LAUNCHES,
+        "gf_bitplane": gf_bitplane.LAUNCHES,
+        "gf_vpu": gf_vpu.LAUNCHES,
+        "gf_fused_u8": gf_fused_u8.LAUNCHES,
+        "gf_swar_fusedv": gf_swar.FUSEDV_LAUNCHES,
+        "gf_swar_batch_fastest": gf_swar.BATCH_FASTEST_LAUNCHES,
+        # the launches of gf_swar's three forms that took the compile-time
+        # RS(10,4) parity instantiation
+        "gf_swar_rs10x4": gf_swar.RS10X4_LAUNCHES,
+        # and gf_swar_u8's launches in that form
+        "gf_swar_u8_rs10x4": gf_swar_u8.RS10X4_LAUNCHES,
+        # the codec's dispatches that took the native host route
+        "codec_host": codec_mod.HOST_DISPATCHES,
+    }
+
+
+def counted_weed(count_port: int, argv: list[str]) -> int:
+    """The port's ``weed`` (``cli.main(argv)``) in a process that also
+    serves its launch counters on ``127.0.0.1:count_port``: a GET answers
+    them as JSON, a POST sets them to 0 first, and a POST to ``/link``
+    gives the process a fresh, probed link state, as ``step_start`` does
+    in this one. Phase 17 starts its volume servers through it, so the
+    path's launches are the servers' own counts. ``python3 chip_smoke.py
+    --counted-weed PORT volume ...``"""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from seaweedfs_tpu_torch.command import cli
+    from seaweedfs_tpu_torch.ops import link
+
+    counters = launch_counters()
+
+    class Counts(BaseHTTPRequestHandler):
+        def do_GET(self):
+            body = json.dumps({name: c.value
+                               for name, c in counters.items()}).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_POST(self):
+            self.rfile.read(int(self.headers.get("Content-Length") or 0))
+            if self.path == "/link":
+                link.STATE = link.LinkState()
+                link.probe()
+            else:
+                for c in counters.values():
+                    c.reset()
+            self.do_GET()
+
+        def log_message(self, *_args):
+            pass
+
+    server = ThreadingHTTPServer(("127.0.0.1", count_port), Counts)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return cli.main(argv)
 
 
 def run(args, torch, here: str) -> int:
@@ -3371,24 +3915,7 @@ def run(args, torch, here: str) -> int:
     )
     from seaweedfs_tpu_torch.telemetry.phases import PhaseTimer
 
-    counters = {
-        "gf_swar": gf_swar.LAUNCHES,
-        "gf_repack": gf_repack.REPACK_LAUNCHES,
-        "gf_unpack": gf_repack.UNPACK_LAUNCHES,
-        "gf_swar_u8": gf_swar_u8.LAUNCHES,
-        "gf_bitplane": gf_bitplane.LAUNCHES,
-        "gf_vpu": gf_vpu.LAUNCHES,
-        "gf_fused_u8": gf_fused_u8.LAUNCHES,
-        "gf_swar_fusedv": gf_swar.FUSEDV_LAUNCHES,
-        "gf_swar_batch_fastest": gf_swar.BATCH_FASTEST_LAUNCHES,
-        # the launches of gf_swar's three forms that took the compile-time
-        # RS(10,4) parity instantiation
-        "gf_swar_rs10x4": gf_swar.RS10X4_LAUNCHES,
-        # and gf_swar_u8's launches in that form
-        "gf_swar_u8_rs10x4": gf_swar_u8.RS10X4_LAUNCHES,
-        # the codec's dispatches that took the native host route
-        "codec_host": codec_mod.HOST_DISPATCHES,
-    }
+    counters = launch_counters()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     path_launches: dict[str, dict[str, int]] = {}
@@ -4547,6 +5074,11 @@ def run(args, torch, here: str) -> int:
             args, torch, smi, reset_counts, counters)
         check_path("fleet")
         say(json.dumps({"fleet": fleet_row}))
+
+        # -- 17. the CLI cluster: the port's weed as separate processes -----
+        cli_row, path_launches["cli_cluster"] = phase_cli_cluster(args, smi)
+        check_path("cli_cluster")
+        say(json.dumps({"cli_cluster": cli_row}))
     finally:
         shutil.rmtree(batch_dir, ignore_errors=True)
         shutil.rmtree(keep_dir, ignore_errors=True)
@@ -4601,4 +5133,6 @@ def run(args, torch, here: str) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--counted-weed"]:
+        sys.exit(counted_weed(int(sys.argv[2]), sys.argv[3:]))
     sys.exit(main())

@@ -1,6 +1,8 @@
 """Command-line subcommands.
 
-The port's counterpart of ``seaweedfs_tpu/command``: the load generator
-(``benchmark.py``). The ``weed`` CLI (``command/cli.py``) is not ported
-yet, so this package exports no ``main``.
+The port's counterpart of ``seaweedfs_tpu/command``: the ``weed`` CLI
+(``cli.py``, run as ``python -m seaweedfs_tpu_torch``) and the load
+generator (``benchmark.py``).
 """
+
+from .cli import main  # noqa: F401

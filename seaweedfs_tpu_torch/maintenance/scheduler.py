@@ -124,6 +124,12 @@ class MaintenanceScheduler:
                 key = task.key()
                 if key in live:
                     continue
+                # an encode spreads its shards one node group at a time,
+                # so the master's map shows the volume short of shards
+                # until the encode ends: that is no loss to rebuild
+                if (task.type == T.EC_REBUILD
+                        and (T.EC_ENCODE, task.volume_id) in live):
+                    continue
                 # cooldown stamps are task.finished wall epochs — the
                 # same values /cluster/maintenance displays — so the
                 # compare stays on the wall clock with them

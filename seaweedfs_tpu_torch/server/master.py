@@ -21,7 +21,8 @@ scheduled ``maintenance_scripts`` run through the port's shell.
 
 The master registers its flight-recorder probes at start, its own
 snapshot carries ``benchmark`` and ``contention``, and it routes through
-the request-tracing middleware. Not ported yet: ``/ui`` (501).
+the request-tracing middleware. ``/`` and ``/ui`` serve the status page
+of ``server/ui.py``.
 """
 
 from __future__ import annotations
@@ -208,7 +209,7 @@ class MasterServer:
         router.add("POST", r"/raft/vote", self._handle_raft_vote)
         router.add("POST", r"/raft/append", self._handle_raft_append)
         router.add("GET", r"/topology", self._handle_topology)
-        router.add("GET", r"/(ui)?", _not_ported)
+        router.add("GET", r"/(ui)?", self._handle_ui)
         self.server = http.HttpServer(
             trace_mw.instrument(router, "master"),
             host, port, ssl_context=ssl_context,
@@ -950,6 +951,17 @@ class MasterServer:
     def _handle_topology(self, req: Request) -> Response:
         return self._topology_read(req, self.topo.to_topology_info())
 
+    def _handle_ui(self, req: Request) -> Response:
+        from . import ui
+
+        return Response(
+            status=200,
+            body=ui.master_ui(
+                self.topo.to_topology_info(), self.url
+            ).encode(),
+            headers={"Content-Type": "text/html"},
+        )
+
     def _handle_cluster_watch(self, req: Request) -> Response:
         """Streaming location push (KeepConnected over HTTP): one JSON
         event per line, blank-line keepalives every pulse. `since=N`
@@ -1202,9 +1214,3 @@ class MasterServer:
             if self._admin_lock_holder == client:
                 self._admin_lock_holder = None
             return Response.json({"holder": None})
-
-
-# the route whose plane is not ported yet (/ui): a clear 501, never
-# another answer
-def _not_ported(req: Request) -> Response:
-    return Response.error(f"{req.path} is not ported yet", 501)

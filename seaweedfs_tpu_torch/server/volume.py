@@ -20,10 +20,11 @@ its store mounts — takes that device with the server's
 Its heartbeats carry the telemetry snapshot (``telemetry/snapshot.py``),
 with the EC-encode ledger each generate folds its ``timing`` into, and
 ``/admin/volume_copy`` pulls a volume from a peer over
-``/admin/ec/download``. Not ported yet, each answered with a 501:
-``/admin/tail`` (with ``storage/volume_backup.py``), ``/admin/fsck``,
-``/admin/query``, ``/admin/tier/{upload,download}`` (with the S3
-backend) and ``/ui``. A chunk-manifest needle resolves through the
+``/admin/ec/download``; ``/admin/fsck`` checks every live needle,
+``/admin/tail`` serves the records ``storage/volume_backup.py`` replays,
+and ``/ui`` the status page of ``server/ui.py``. Not ported yet, each
+answered with a 501: ``/admin/query`` and ``/admin/tier/{upload,download}``
+(with the S3 backend). A chunk-manifest needle resolves through the
 port's ``operation/`` client, as the reference's does. The server routes
 through the request-tracing middleware, which serves ``/debug/*``.
 """
@@ -161,9 +162,12 @@ class VolumeServer:
             self._h_volume_configure_replication,
         )
         router.add("POST", r"/admin/leave", self._h_leave)
+        router.add("POST", r"/admin/fsck", self._h_fsck)
         for method, path in _NOT_PORTED:
             router.add(method, path, _not_ported)
+        router.add("GET", r"/admin/tail", self._h_tail)
         router.add("GET", r"/status", self._h_status)
+        router.add("GET", r"/ui", self._h_ui)
         router.add("GET", r"/healthz", lambda r: Response.json({"ok": 1}))
         # data plane
         router.add("GET", r"/.*", self._h_read)
@@ -925,6 +929,16 @@ class VolumeServer:
             }
         )
 
+    def _h_ui(self, req: Request) -> Response:
+        from . import ui
+
+        status = json.loads(self._h_status(req).body)
+        return Response(
+            status=200,
+            body=ui.volume_ui(status, self.url).encode(),
+            headers={"Content-Type": "text/html"},
+        )
+
     def _h_assign_volume(self, req: Request) -> Response:
         body = req.json()
         self.store.add_volume(
@@ -1298,6 +1312,23 @@ class VolumeServer:
         self._close_hb_stream()
         return Response.json({"ok": True})
 
+    def _h_fsck(self, req: Request) -> Response:
+        """Verify every live needle's checksum (volume.fsck support)."""
+        checked, issues = 0, []
+        for loc in self.store.locations:
+            for vol in loc.volumes.values():
+                for key, nv in vol.nm.ascending_visit():
+                    if not t.size_is_valid(nv.size):
+                        continue
+                    checked += 1
+                    try:
+                        vol.read_needle(key)
+                    except Exception as e:
+                        issues.append(
+                            f"volume {vol.id} needle {key:x}: {e}"
+                        )
+        return Response.json({"checked": checked, "issues": issues})
+
     def _h_volume_copy(self, req: Request) -> Response:
         """VolumeCopy: pull a whole volume (.dat + .idx) from a source
         server and load it (volume_grpc_copy.go analog)."""
@@ -1329,6 +1360,26 @@ class VolumeServer:
         self.heartbeat_once()
         return Response.json({"ok": True})
 
+    def _h_tail(self, req: Request) -> Response:
+        """VolumeTailSender: raw .dat bytes appended at/after since_ns
+        (volume_grpc_tail.go + volume_backup.go:170)."""
+        vid = int(req.param("volume"))
+        since_ns = int(req.param("since_ns", "0"))
+        vol = self._require_volume(vid)
+        start = (
+            vol.binary_search_by_append_at_ns(since_ns)
+            if since_ns
+            else vol.super_block.block_size
+        )
+        end = vol.data_file_size()
+        if start >= end:
+            return Response(status=200, body=b"")
+        return Response(
+            status=200,
+            body=vol._pread(start, end - start),
+            headers={"X-Tail-Offset": str(start)},
+        )
+
     def _h_ec_blob_delete(self, req: Request) -> Response:
         body = req.json()
         vid = int(body["volume"])
@@ -1345,12 +1396,9 @@ class VolumeServer:
 # endpoints whose modules are not ported yet: a clear 501, never the
 # data plane's catch-all (which would read the path as a fid)
 _NOT_PORTED = (
-    ("POST", r"/admin/fsck"),
     ("POST", r"/admin/query"),
     ("POST", r"/admin/tier/upload"),
     ("POST", r"/admin/tier/download"),
-    ("GET", r"/admin/tail"),
-    ("GET", r"/ui"),
 )
 
 

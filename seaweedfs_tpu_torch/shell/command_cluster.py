@@ -8,11 +8,10 @@ master's `/cluster/telemetry` aggregate (telemetry/aggregator.py):
 burning", `cluster.stats` adds the per-server table detail and a
 hot-volume heatmap from the topology.
 
-The port's copy of ``seaweedfs_tpu/shell/command_cluster.py`` with
-``cluster.health`` and ``cluster.stats``. ``cluster.profile``,
-``cluster.devices``, ``cluster.timeline`` and ``cluster.contention``, the
-shell's readers of the ``/debug/*`` plane the servers now serve, are not
-ported yet.
+The port's copy of ``seaweedfs_tpu/shell/command_cluster.py``: the same
+commands (``cluster.health``, ``cluster.stats``, ``cluster.profile``,
+``cluster.devices``, ``cluster.timeline``, ``cluster.contention``) and
+the same output text, over the port's servers.
 """
 
 from __future__ import annotations
@@ -318,6 +317,139 @@ def cmd_cluster_health(env: CommandEnv, args: list[str], out) -> None:
 
 
 @command(
+    "cluster.profile",
+    "cluster.profile [-server url] [-seconds n] [-hz n] [-top n] "
+    "[-raw] # sample a server's thread stacks (folded flamegraph "
+    "input)",
+)
+def cmd_cluster_profile(env: CommandEnv, args: list[str], out) -> None:
+    """Pull a sampling profile from one server's `/debug/profile`
+    (default: the master) and print the hottest functions by self
+    samples plus the heaviest whole stacks; `-raw` dumps the full
+    folded-stack text for flamegraph.pl / speedscope."""
+    p = argparse.ArgumentParser(prog="cluster.profile")
+    p.add_argument("-server", default="")
+    p.add_argument("-seconds", type=float, default=2.0)
+    p.add_argument("-hz", type=int, default=100)
+    p.add_argument("-top", type=int, default=10)
+    p.add_argument("-raw", action="store_true")
+    opts = p.parse_args(args)
+    url = opts.server or env.master_url
+    body = http.request(
+        "GET",
+        f"{url}/debug/profile?seconds={opts.seconds}&hz={opts.hz}",
+        timeout=opts.seconds + 30,
+    ).decode("utf-8", "replace")
+    if opts.raw:
+        out.write(body)
+        return
+    from ..telemetry import profile as profile_mod
+
+    agg: dict[str, int] = {}
+    for line in body.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        stack, _, count = line.rpartition(" ")
+        try:
+            agg[stack] = int(count)
+        except ValueError:
+            continue
+    total = sum(agg.values())
+    out.write(
+        f"profile of {url}: {total} samples over {opts.seconds:g}s\n"
+    )
+    if not total:
+        out.write("no samples (idle server or window too short)\n")
+        return
+    out.write("hottest functions (self samples):\n")
+    for frame, count in profile_mod.top_functions(agg, opts.top):
+        out.write(
+            f"  {count:6d} {100 * count / total:5.1f}%  {frame}\n"
+        )
+    out.write("heaviest stacks:\n")
+    for stack, count in sorted(
+        agg.items(), key=lambda kv: -kv[1]
+    )[: max(1, opts.top // 2)]:
+        frames = stack.split(";")
+        tail = ";".join(frames[-4:]) if len(frames) > 4 else stack
+        out.write(
+            f"  {count:6d} {100 * count / total:5.1f}%  ...{tail}\n"
+        )
+
+
+@command(
+    "cluster.devices",
+    "cluster.devices [-server url] # per-chip dispatch ledger: "
+    "busy/launch/transfer per device + host staging lanes",
+)
+def cmd_cluster_devices(env: CommandEnv, args: list[str], out) -> None:
+    """Render one server's `/debug/devices` (default: the master):
+    the per-chip dispatch ledger — compute-busy seconds, dispatch and
+    launch-serialization counts, H2D/D2H bytes with link-estimated
+    seconds — plus the host staging lanes and the busy-imbalance
+    aggregate `cluster.health` alerts on."""
+    p = argparse.ArgumentParser(prog="cluster.devices")
+    p.add_argument("-server", default="")
+    opts = p.parse_args(args)
+    url = opts.server or env.master_url
+    snap = http.get_json(f"{url}/debug/devices")
+    rows = snap.get("devices") or []
+    if not rows:
+        out.write(f"{url}: no device dispatches recorded yet\n")
+        return
+    out.write(
+        f"{'dev':>4} {'plat':>6} {'busy_s':>10} {'disp':>6} "
+        f"{'launch_s':>9} {'h2d_MB':>9} {'d2h_MB':>9} "
+        f"{'xfer_s_est':>10}\n"
+    )
+    for r in rows:
+        xfer = r.get("h2d_s_est", 0.0) + r.get("d2h_s_est", 0.0)
+        out.write(
+            f"{r.get('device', '?'):>4} "
+            f"{r.get('platform', '?'):>6} "
+            f"{r.get('busy_s', 0.0):>10.3f} "
+            f"{r.get('dispatches', 0):>6d} "
+            f"{r.get('launch_s', 0.0):>9.4f} "
+            f"{r.get('h2d_bytes', 0) / 1e6:>9.1f} "
+            f"{r.get('d2h_bytes', 0) / 1e6:>9.1f} "
+            f"{xfer:>10.4f}\n"
+        )
+    imb = snap.get("imbalance") or {}
+    out.write(
+        f"imbalance: spread {imb.get('spread_s', 0.0):.3f}s "
+        f"({100 * imb.get('frac', 0.0):.1f}% of mean "
+        f"{imb.get('mean_s', 0.0):.3f}s)\n"
+    )
+    totals = snap.get("totals") or {}
+    out.write(
+        f"host: stage {totals.get('stage_s', 0.0):.3f}s, launch "
+        f"{totals.get('launch_s', 0.0):.3f}s over "
+        f"{int(totals.get('dispatches', 0))} dispatches\n"
+    )
+    # staged vs residual: how much of mean device busy is explicitly
+    # measured host-side (per-lane staging + launch enqueue) vs left
+    # unattributed — the split the staging lanes exist to expose;
+    # a residual-dominated line means waits are hiding in dispatch
+    staged = totals.get("stage_s", 0.0) + totals.get("launch_s", 0.0)
+    mean_busy = imb.get("mean_s", 0.0)
+    residual = max(0.0, mean_busy - staged)
+    denom = max(staged + residual, 1e-9)
+    out.write(
+        f"split: staged {staged:.3f}s "
+        f"({100 * staged / denom:.1f}%) vs residual "
+        f"{residual:.3f}s ({100 * residual / denom:.1f}%)\n"
+    )
+    lanes = snap.get("lanes") or []
+    for lr in lanes:
+        out.write(
+            f"lane {lr.get('lane', '?'):>3}: busy "
+            f"{lr.get('busy_s', 0.0):.3f}s, "
+            f"{lr.get('chunks', 0)} chunks, "
+            f"{lr.get('bytes', 0) / 1e6:.1f} MB staged\n"
+        )
+
+
+@command(
     "cluster.stats",
     "cluster.stats [-server url] [-top n] "
     "# per-server table + hot-volume heatmap",
@@ -368,3 +500,129 @@ def cmd_cluster_stats(env: CommandEnv, args: list[str], out) -> None:
             f"  volume {vid} @ {url}: {fc} files, {_fmt_bytes(size)}\n"
         )
 
+
+def _sparkline(vals: list[float], cells: int = 48) -> str:
+    """Max-downsampled ASCII ramp of a series, normalized to its own
+    peak (spikes must survive both the downsample and the render)."""
+    if not vals:
+        return ""
+    if len(vals) > cells:
+        n = len(vals)
+        vals = [
+            max(vals[i * n // cells:max(i * n // cells + 1,
+                                        (i + 1) * n // cells)])
+            for i in range(cells)
+        ]
+    peak = max(vals)
+    if peak <= 0:
+        return _RAMP[0] * len(vals)
+    return "".join(
+        _RAMP[round((len(_RAMP) - 1) * max(v, 0.0) / peak)]
+        for v in vals
+    )
+
+
+@command(
+    "cluster.timeline",
+    "cluster.timeline [-server url] [-seconds n] [-probe name] "
+    "# flight-recorder sparklines (one per probe)",
+)
+def cmd_cluster_timeline(env: CommandEnv, args: list[str], out) -> None:
+    """Render a server's flight-recorder frames (`/debug/timeline`)
+    as one sparkline per probe — heartbeat fan-in, aggregator lock
+    wait, repair backlog, RSS — each normalized to its own peak over
+    the window. `-probe` filters by substring."""
+    p = argparse.ArgumentParser(prog="cluster.timeline")
+    p.add_argument("-server", default="")
+    p.add_argument("-seconds", type=float, default=60.0)
+    p.add_argument("-probe", default="")
+    opts = p.parse_args(args)
+    url = opts.server or env.master_url
+    doc = http.get_json(
+        f"{url}/debug/timeline?seconds={opts.seconds:g}"
+    )
+    frames = doc.get("recent") or []
+    state = "recording" if doc.get("running") else "stopped"
+    out.write(
+        f"flight recorder @ {url}: {state} "
+        f"(hz={doc.get('hz', 0):g}, {len(frames)} frames in last "
+        f"{opts.seconds:g}s, ring {doc.get('frames', 0)}"
+        f"/{doc.get('capacity', 0)})\n"
+    )
+    if not frames:
+        out.write(
+            "no frames (recorder idle — scale rounds start it, or "
+            "attach via telemetry.recorder.RECORDER.start())\n"
+        )
+        return
+    names = sorted(
+        {k for f in frames for k in f if k != "t"}
+    )
+    if opts.probe:
+        names = [n for n in names if opts.probe in n]
+    span = frames[-1]["t"] - frames[0]["t"]
+    out.write(f"window: {span:.1f}s, peak-normalized per probe\n")
+    width = max((len(n) for n in names), default=0)
+    for name in names:
+        vals = [f[name] for f in frames if name in f]
+        if not vals:
+            continue
+        out.write(
+            f"  {name:<{width}} |{_sparkline(vals)}| "
+            f"peak {max(vals):g} last {vals[-1]:g}\n"
+        )
+    cost = doc.get("sample_cost_ms") or {}
+    if cost:
+        out.write(
+            f"sample cost: mean {cost.get('mean', 0):.2f}ms, "
+            f"max {cost.get('max', 0):.2f}ms\n"
+        )
+
+
+@command(
+    "cluster.contention",
+    "cluster.contention [-server url] [-top n] [-stacks] "
+    "# top-contended lock sites (wait p50/p99, hold totals)",
+)
+def cmd_cluster_contention(env: CommandEnv, args: list[str],
+                           out) -> None:
+    """The lock-contention profiler's table (`/debug/contention`):
+    per creation site, how often acquires blocked, total/max/p50/p99
+    wait, and hold totals; `-stacks` adds the first slow blocked
+    thread's stack fingerprint per site."""
+    p = argparse.ArgumentParser(prog="cluster.contention")
+    p.add_argument("-server", default="")
+    p.add_argument("-top", type=int, default=10)
+    p.add_argument("-stacks", action="store_true")
+    opts = p.parse_args(args)
+    url = opts.server or env.master_url
+    doc = http.get_json(f"{url}/debug/contention?top={opts.top}")
+    rows = doc.get("top") or []
+    if not doc.get("witness_installed"):
+        out.write(
+            "lock witness not installed in that process "
+            "(SEAWEEDFS_LOCKWITNESS=0, or a plain server start); "
+            "no contention data\n"
+        )
+        return
+    if not rows:
+        out.write("no contended lock sites observed\n")
+        return
+    out.write(
+        f"top {len(rows)} contended lock sites @ {url}:\n"
+    )
+    out.write(
+        f"{'site':42} {'kind':9} {'acq':>8} {'blocked':>8} "
+        f"{'wait':>9} {'p50':>8} {'p99':>8} {'maxhold':>8}\n"
+    )
+    for r in rows:
+        out.write(
+            f"{r.get('site', '?'):42} {r.get('kind', '?'):9} "
+            f"{r.get('acquires', 0):>8} {r.get('blocked', 0):>8} "
+            f"{r.get('total_wait_s', 0.0):>8.3f}s "
+            f"{_fmt_seconds(r.get('p50_wait_s', 0.0)):>8} "
+            f"{_fmt_seconds(r.get('p99_wait_s', 0.0)):>8} "
+            f"{_fmt_seconds(r.get('max_hold_s', 0.0)):>8}\n"
+        )
+        if opts.stacks and r.get("stack"):
+            out.write(f"    blocked at: {r['stack']}\n")

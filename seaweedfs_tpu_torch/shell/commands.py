@@ -4,9 +4,10 @@ Behavioral model: weed/shell/commands.go:26-80 (command interface,
 confirmIsLocked), weed/wdclient/exclusive_locks (lease via master).
 
 The port's copy of ``seaweedfs_tpu/shell/commands.py``. It registers
-only the ported command modules (``command_cluster``, ``command_ec``,
-``command_maintenance``); any other name raises the same ``unknown
-command`` error the reference raises for a name it does not know.
+every command module of the reference but ``command_fs`` and
+``command_s3``, which wait for the filer and S3 tiers; their names raise
+the same ``unknown command`` error the reference raises for a name it
+does not know.
 """
 
 from __future__ import annotations
@@ -80,8 +81,12 @@ def all_commands() -> dict[str, str]:
     # import side-effect registration
     from . import (  # noqa: F401
         command_cluster,
+        command_collection,
         command_ec,
+        command_fault,
         command_maintenance,
+        command_trace,
+        command_volume,
     )
 
     return dict(COMMAND_HELP)

@@ -11,9 +11,9 @@ big-endian):
 * TTL      — 2 bytes (count, unit)
 * ReplicaPlacement — one byte, decimal digits DC/rack/server
 
-The offset width follows ``WEED_LARGE_DISK`` as in the reference, read
-once at import; the reference's runtime ``set_offset_size`` is not
-ported (no caller of the port switches widths).
+The offset width follows ``WEED_LARGE_DISK`` at import, as in the
+reference, and ``set_offset_size`` switches it at run time (the CLI's
+``-largeDisk`` and its offline tools, which adopt a volume's width).
 """
 
 from __future__ import annotations
@@ -31,12 +31,29 @@ TIMESTAMP_SIZE = 8
 NEEDLE_PADDING_SIZE = 8
 TOMBSTONE_FILE_SIZE = -1
 
-OFFSET_SIZE = (
-    5 if os.environ.get("WEED_LARGE_DISK", "").lower()
-    in ("1", "true", "yes", "on") else 4
-)
+OFFSET_SIZE = 4
 NEEDLE_MAP_ENTRY_SIZE = NEEDLE_ID_SIZE + OFFSET_SIZE + SIZE_SIZE
 MAX_POSSIBLE_VOLUME_SIZE = (1 << (8 * OFFSET_SIZE)) * NEEDLE_PADDING_SIZE
+
+
+def set_offset_size(n: int) -> None:
+    """Switch the idx/ecx offset width (4 or 5 bytes). Must be set
+    before any volume is opened; mixing widths across files in one
+    data directory corrupts indexes, same as mixing weed binaries
+    built with and without 5BytesOffset."""
+    if n not in (4, 5):
+        raise ValueError(f"offset size must be 4 or 5, got {n}")
+    global OFFSET_SIZE, NEEDLE_MAP_ENTRY_SIZE
+    global MAX_POSSIBLE_VOLUME_SIZE
+    OFFSET_SIZE = n
+    NEEDLE_MAP_ENTRY_SIZE = NEEDLE_ID_SIZE + n + SIZE_SIZE
+    MAX_POSSIBLE_VOLUME_SIZE = (1 << (8 * n)) * NEEDLE_PADDING_SIZE
+
+
+if os.environ.get("WEED_LARGE_DISK", "").lower() in (
+    "1", "true", "yes", "on"
+):
+    set_offset_size(5)
 
 VERSION1 = 1
 VERSION2 = 2

@@ -144,7 +144,19 @@ def test_port_files_exist():
                    ("scale", "harness.py"),
                    ("scale", "churn.py"),
                    ("scale", "converge.py"),
-                   ("scale", "round.py")):
+                   ("scale", "round.py"),
+                   ("shell", "command_trace.py"),
+                   ("shell", "command_volume.py"),
+                   ("shell", "command_collection.py"),
+                   ("shell", "command_fault.py"),
+                   ("storage", "volume_backup.py"),
+                   ("server", "ui.py"),
+                   ("telemetry", "trajectory.py"),
+                   ("util", "reswitness.py"),
+                   ("util", "chunk_cache.py"),
+                   ("util", "cipher.py"),
+                   ("command", "cli.py"),
+                   ("__main__.py",)):
         assert os.path.join("seaweedfs_tpu_torch", *module) in names
     assert len(files) > 10
 
@@ -227,6 +239,16 @@ def test_importing_the_port_loads_no_jax():
         "import seaweedfs_tpu_torch.scale.churn\n"
         "import seaweedfs_tpu_torch.scale.converge\n"
         "import seaweedfs_tpu_torch.scale.round\n"
+        "import seaweedfs_tpu_torch.shell.command_trace\n"
+        "import seaweedfs_tpu_torch.shell.command_volume\n"
+        "import seaweedfs_tpu_torch.shell.command_collection\n"
+        "import seaweedfs_tpu_torch.shell.command_fault\n"
+        "import seaweedfs_tpu_torch.storage.volume_backup\n"
+        "import seaweedfs_tpu_torch.server.ui\n"
+        "import seaweedfs_tpu_torch.telemetry.trajectory\n"
+        "import seaweedfs_tpu_torch.util.reswitness\n"
+        "import seaweedfs_tpu_torch.util.chunk_cache\n"
+        "import seaweedfs_tpu_torch.command.cli\n"
         "seaweedfs_tpu_torch.shell.commands.all_commands()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'seaweedfs_tpu', 'bench', 'tools')]\n"
@@ -238,3 +260,27 @@ def test_importing_the_port_loads_no_jax():
         text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_weed_version_loads_neither_jax_nor_cryptography():
+    """``python -m seaweedfs_tpu_torch version`` in a fresh interpreter:
+    the port's ``weed`` starts without JAX, the reference, or the
+    ``cryptography`` package that only ``util/cipher.py`` needs."""
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['seaweedfs_tpu_torch', 'version']\n"
+        "try:\n"
+        "    runpy.run_module('seaweedfs_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'seaweedfs_tpu', 'cryptography')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("seaweedfs-tpu version "), proc.stdout

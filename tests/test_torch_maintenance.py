@@ -519,6 +519,34 @@ def test_scheduler_batch_matches_reference(case, monkeypatch):
     _both(case, monkeypatch)
 
 
+def test_rebuild_waits_for_the_volumes_live_encode():
+    """While a volume's ec_encode is queued or running, its shards are
+    still being spread and the master's map shows it short: the port's
+    scheduler holds an ec_rebuild of it back (the reference queues one
+    and rebuilds shards the encode is still placing). Other volumes'
+    rebuilds, and this one's once the encode has ended, are taken."""
+    sched = _plane(PKGS["port"]).scheduler
+    encode = {"type": "ec_encode", "volume_id": 7, "nodes": ["a:1"],
+              "reason": ""}
+
+    def rebuild(vid):
+        return {"type": "ec_rebuild", "volume_id": vid, "nodes": ["a:1"],
+                "reason": "4 of 14 shards missing",
+                "detail": {"present": list(range(10))}}
+
+    assert len(sched.submit([encode])) == 1
+    assert sched.submit([rebuild(7)]) == []          # queued encode
+    assert len(sched.submit([rebuild(8)])) == 1
+    with sched._lock:
+        task = next(t for t in sched._queue if t.type == "ec_encode")
+        sched._queue.remove(task)
+        sched._running[task.id] = task
+    assert sched.submit([rebuild(7)]) == []          # running encode
+    with sched._lock:
+        del sched._running[task.id]
+    assert [t.volume_id for t in sched.submit([rebuild(7)])] == [7]
+
+
 def test_quiet_for_parsed_and_passed(monkeypatch):
     def run(P):
         seen = []
