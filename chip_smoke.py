@@ -274,9 +274,43 @@ phase 11 runs the link-aware default.
     ``trace.dump`` and ``trace.slow`` must answer through ``weed
     shell``. Each child's log tail is printed. Its ``cli_cluster`` JSON
     line.
+18. the filer on the card: phase 17's cluster of ``weed`` processes
+    (``WeedCluster``) with one ``weed filer -store sqlite -collection
+    filerdata`` beside it: files of 1–24 MiB made from ``--seed``
+    written by four ``weed filer.copy`` processes into one grown volume
+    of the collection until its ``.dat`` holds at least 95 % of the
+    limit; every file back through ``weed filer.cat``, byte-exact;
+    ``fs.ls``, ``fs.du``, ``fs.cat`` and ``fs.meta.save`` through one
+    ``weed shell``, their totals equal to what was written; ``ec.encode``
+    through ``weed shell`` (every ``.ec00–.ec13`` and ``.ecx`` hashing
+    equal to ``write_ec_files`` of the same ``.dat``, every launch
+    compile-time, one a ``device`` route); shards {0, 5, 11, 13}
+    deleted, the filer restarted over its sqlite store and every file
+    read through its ``GET`` on 8 threads, byte-exact (p50/p99, MB/s;
+    gf_swar launched in its run-time form); ``ec.rebuild`` (rebuilt
+    shards hashing equal, every launch run-time) and the files read
+    again; ``weed filer.meta.tail`` seeing one create a file;
+    ``/admin/query`` over 1,000 JSON needles from ``weed upload``,
+    equal byte for byte to the same filter in plain Python; and two
+    ``weed filer -shard i/2`` written through the port's ``FilerRing``
+    (each shard holding exactly its ``ShardMap`` paths, the fan-out
+    listings sorted and complete, a cross-shard rename moving the
+    data). Launches are the server processes' own counters. Its
+    ``filer`` JSON line.
+19. the leader-failover round on the card: the reference's recorded
+    leader round (``SCALE_r06.json``: spec 5x4x5m3, seed 6, churn
+    ``leader``, 8 s of load) through ``run_scale_round(device="cuda")``:
+    it must converge with the kill landed on a new leader, a positive
+    ``failover_converge_s``, a ``midfailover_failure_rate`` in [0, 1],
+    the ``raft_term`` probe on its timeline and ``run_check`` against
+    its own record 0. The comparison with ``SCALE_r06.json`` (a CPU
+    host's record) is printed as a finding, not a gate; the round seeds
+    no warm volume, so its launches are printed, not required. Its
+    ``leader`` JSON line.
 
 It prints ``read_decode``, ``routing``, ``multigpu``, ``volume_server``,
-``cluster``, ``maintenance``, ``fleet`` and ``cli_cluster`` JSON lines,
+``cluster``, ``maintenance``, ``fleet``, ``cli_cluster``, ``filer`` and
+``leader`` JSON lines,
 one JSON line describing
 every kernel,
 then, last,
@@ -3320,6 +3354,187 @@ def device_dispatches(url: str) -> int:
     return sum(int(row["dispatches"]) for row in doc["devices"])
 
 
+class WeedCluster:
+    """The port's ``weed`` (``python -m seaweedfs_tpu_torch``) as child
+    processes of this script, each its own interpreter, logs in a
+    temporary directory: ``start`` brings up one ``master`` and four
+    ``volume -device cuda``, each on its own ``-dir`` and started
+    through ``--counted-weed`` so that it serves its own launch
+    counters; a phase spawns whatever else it needs beside them. The
+    step helpers read those counters and the servers' codec routes
+    around each step. ``close`` stops every child and prints each log's
+    tail. Phases 17 and 18 drive the main path through it."""
+
+    def __init__(self, args, smi, name: str):
+        self.smi = smi
+        self.root = tempfile.mkdtemp(prefix=f"chip_smoke-{name}-",
+                                     dir=args.workdir)
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.env = dict(os.environ, PYTHONPATH=here, PYTHONUNBUFFERED="1")
+        self.weed = [sys.executable, "-m", "seaweedfs_tpu_torch"]
+        self.children: list = []
+        self.m = ""
+        self.urls: list[str] = []
+        self.counts_url: dict[str, str] = {}
+
+    def on_card(self, text):
+        say(f"[{self.smi}] {text}")
+
+    def spawn(self, name, argv, prefix=None):
+        log = open(os.path.join(self.root, f"{name}.log"), "wb")
+        try:
+            proc = subprocess.Popen((prefix or self.weed) + argv,
+                                    cwd=self.root, env=self.env,
+                                    stdout=log, stderr=subprocess.STDOUT)
+        finally:
+            log.close()
+        self.children.append((name, proc))
+        return proc
+
+    def cli(self, *argv, timeout=600):
+        """One ``weed`` subcommand: its stdout and wall seconds."""
+        t0 = time.perf_counter()
+        p = subprocess.run(self.weed + list(argv), cwd=self.root,
+                           env=self.env, capture_output=True, text=True,
+                           timeout=timeout)
+        sec = time.perf_counter() - t0
+        check(p.returncode == 0, f"weed {' '.join(argv[:3])}: rc "
+              f"{p.returncode}: {p.stderr[-3000:]}")
+        return p.stdout, sec
+
+    def start(self, volume_mib: int) -> float:
+        """The master and the four volume servers; the seconds until the
+        master's topology holds every server."""
+        from seaweedfs_tpu_torch.util import http
+
+        mport = free_port()
+        self.m = f"127.0.0.1:{mport}"
+        t0 = time.perf_counter()
+        self.spawn("master", ["master", "-ip", "127.0.0.1", "-port",
+                              str(mport), "-volumeSizeLimitMB",
+                              str(volume_mib)])
+        ports = [free_port() for _ in range(4)]
+        for i, port in enumerate(ports):
+            os.makedirs(os.path.join(self.root, f"vs{i}"))
+            cport = free_port()
+            self.counts_url[f"127.0.0.1:{port}"] = f"127.0.0.1:{cport}/"
+            self.spawn(f"volume{i}", [
+                "volume", "-ip", "127.0.0.1", "-port", str(port),
+                "-mserver", self.m, "-dir",
+                os.path.join(self.root, f"vs{i}"), "-max", "8",
+                "-device", "cuda"],
+                [sys.executable, os.path.abspath(__file__), "--counted-weed",
+                 str(cport)])
+        self.urls = [f"127.0.0.1:{port}" for port in ports]
+        deadline = time.time() + 120
+        while True:
+            for name, proc in self.children:
+                check(proc.poll() is None,
+                      f"weed {name} exited {proc.returncode}")
+            try:
+                status = http.get_json(f"{self.m}/dir/status")
+                nodes = [dn["url"] for dc in status["data_centers"]
+                         for rack in dc["racks"]
+                         for dn in rack["data_nodes"]]
+                if sorted(nodes) == sorted(self.urls):
+                    break
+            except (http.HttpError, OSError):
+                pass
+            check(time.time() < deadline, "the weed cluster never came up")
+            time.sleep(0.1)
+        return time.perf_counter() - t0
+
+    def ec_map(self, vid):
+        from seaweedfs_tpu_torch.util import http
+
+        try:
+            info = http.get_json(f"{self.m}/ec/lookup?volumeId={vid}")
+        except http.HttpError:
+            return {}
+        return {int(s): [loc["url"] for loc in locs]
+                for s, locs in info["shards"].items()}
+
+    def wait_shards(self, vid, want):
+        deadline = time.time() + 60
+        while set(self.ec_map(vid)) != want:
+            check(time.time() < deadline, f"the master's EC map "
+                  f"{sorted(self.ec_map(vid))} never became {sorted(want)}")
+            time.sleep(0.05)
+
+    def shard_files(self, vid, ext, collection=""):
+        name = f"{collection}_{vid}" if collection else str(vid)
+        return [p for p in (os.path.join(self.root, f"vs{i}", name + ext)
+                            for i in range(4)) if os.path.exists(p)]
+
+    def counts_now(self, method="GET"):
+        """Each server's launch counters ("POST" sets them to 0) and
+        its codec routes."""
+        from seaweedfs_tpu_torch.util import http
+
+        return {u: (json.loads(http.request(method, self.counts_url[u])),
+                    server_routes(u)) for u in self.urls}
+
+    def step_begin(self):
+        """The counts before a step, which each server starts on a
+        fresh, probed link state, as the in-process phases' steps do:
+        otherwise one step's contended dispatches set the estimate the
+        next one routes by (in one run the degraded reads' sent all 13
+        of the rebuild's dispatches to the host)."""
+        from seaweedfs_tpu_torch.util import http
+
+        for u in self.urls:
+            http.request("POST", self.counts_url[u] + "link")
+        return self.counts_now()
+
+    def launched(self, before, after, name):
+        return sum(after[u][0][name] - before[u][0][name]
+                   for u in self.urls)
+
+    def routed(self, before, after, path):
+        return sum(n - before[u][1].get((p, r), 0)
+                   for u in self.urls for (p, r), n in after[u][1].items()
+                   if p == path and r != "error")
+
+    def step(self, before, after, what, form=None):
+        """gf_swar's launches in a step, in the compile-time RS(10,4)
+        form, the codec's host dispatches and its device routes; an
+        encode (``form="rs10x4"``) or rebuild (``"run-time"``) launched,
+        one launch a device route, every launch in that form."""
+        out = {"launches": self.launched(before, after, "gf_swar"),
+               "rs10x4": self.launched(before, after, "gf_swar_rs10x4"),
+               "host_dispatches": self.launched(before, after,
+                                                "codec_host"),
+               "device_routes": self.routed(before, after, "device"),
+               "host_routes": self.routed(before, after, "host")}
+        if form is not None:
+            check(out["launches"] > 0
+                  and out["launches"] == out["device_routes"]
+                  and out["rs10x4"] == (out["launches"]
+                                        if form == "rs10x4" else 0),
+                  f"{what}: {out}: launches on the card, one gf_swar "
+                  f"launch a device route, every launch {form}")
+        return out
+
+    def close(self):
+        for name, proc in self.children:
+            if proc.poll() is None:
+                proc.terminate()
+        for name, proc in self.children:
+            try:
+                proc.wait(30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        for name, _proc in self.children:
+            log = os.path.join(self.root, f"{name}.log")
+            if os.path.exists(log):
+                with open(log, "rb") as f:
+                    tail = f.read()[-1500:].decode("utf-8", "replace")
+                if tail.strip():
+                    say(f"weed {name} log (tail): {tail!r}")
+        shutil.rmtree(self.root, ignore_errors=True)
+
+
 def phase_cli_cluster(args, smi):
     """Phase 17: the CLI cluster — the port's ``weed`` (``python -m
     seaweedfs_tpu_torch``) as separate processes: one ``master`` and four
@@ -3342,138 +3557,21 @@ def phase_cli_cluster(args, smi):
     from seaweedfs_tpu_torch.util import http
 
     phase_t0 = time.perf_counter()
-    root = tempfile.mkdtemp(prefix="chip_smoke-cli-", dir=args.workdir)
-    here = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=here, PYTHONUNBUFFERED="1")
-    weed = [sys.executable, "-m", "seaweedfs_tpu_torch"]
+    wc = WeedCluster(args, smi, "cli")
+    root, env, weed = wc.root, wc.env, wc.weed
     limit = args.volume_mib * MIB
     lost = [0, 5, 11, 13]
     row: dict = {"card": smi, "volume_size_limit_mb": args.volume_mib,
                  "processes": "1 master + 4 volume servers"}
-    children: list = []
-
-    def on_card(text):
-        say(f"[{smi}] {text}")
-
-    def spawn(name, argv, prefix=weed):
-        log = open(os.path.join(root, f"{name}.log"), "wb")
-        try:
-            proc = subprocess.Popen(prefix + argv, cwd=root, env=env,
-                                    stdout=log, stderr=subprocess.STDOUT)
-        finally:
-            log.close()
-        children.append((name, proc))
-        return proc
-
-    def cli(*argv, timeout=600):
-        """One ``weed`` subcommand: its stdout and wall seconds."""
-        t0 = time.perf_counter()
-        p = subprocess.run(weed + list(argv), cwd=root, env=env,
-                           capture_output=True, text=True, timeout=timeout)
-        sec = time.perf_counter() - t0
-        check(p.returncode == 0, f"weed {' '.join(argv[:3])}: rc "
-              f"{p.returncode}: {p.stderr[-3000:]}")
-        return p.stdout, sec
-
-    def ec_map(vid):
-        try:
-            info = http.get_json(f"{m}/ec/lookup?volumeId={vid}")
-        except http.HttpError:
-            return {}
-        return {int(s): [loc["url"] for loc in locs]
-                for s, locs in info["shards"].items()}
-
-    def wait_shards(vid, want):
-        deadline = time.time() + 60
-        while set(ec_map(vid)) != want:
-            check(time.time() < deadline, f"the master's EC map "
-                  f"{sorted(ec_map(vid))} never became {sorted(want)}")
-            time.sleep(0.05)
-
-    def shard_files(vid, ext):
-        return [p for p in (os.path.join(root, f"vs{i}", f"{vid}{ext}")
-                            for i in range(4)) if os.path.exists(p)]
-
-    def counts_now(method="GET"):
-        """Each server's launch counters ("POST" sets them to 0) and
-        its codec routes."""
-        return {u: (json.loads(http.request(method, counts_url[u])),
-                    server_routes(u)) for u in urls}
-
-    def step_begin():
-        """The counts before a step, which each server starts on a
-        fresh, probed link state, as the in-process phases' steps do:
-        otherwise one step's contended dispatches set the estimate the
-        next one routes by (in one run the degraded reads' sent all 13
-        of the rebuild's dispatches to the host)."""
-        for u in urls:
-            http.request("POST", counts_url[u] + "link")
-        return counts_now()
-
-    def launched(before, after, name):
-        return sum(after[u][0][name] - before[u][0][name] for u in urls)
-
-    def routed(before, after, path):
-        return sum(n - before[u][1].get((p, r), 0)
-                   for u in urls for (p, r), n in after[u][1].items()
-                   if p == path and r != "error")
-
-    def step(before, after, what, form=None):
-        """gf_swar's launches in a step, in the compile-time RS(10,4)
-        form, the codec's host dispatches and its device routes; an
-        encode (``form="rs10x4"``) or rebuild (``"run-time"``) launched,
-        one launch a device route, every launch in that form."""
-        out = {"launches": launched(before, after, "gf_swar"),
-               "rs10x4": launched(before, after, "gf_swar_rs10x4"),
-               "host_dispatches": launched(before, after, "codec_host"),
-               "device_routes": routed(before, after, "device"),
-               "host_routes": routed(before, after, "host")}
-        if form is not None:
-            check(out["launches"] > 0
-                  and out["launches"] == out["device_routes"]
-                  and out["rs10x4"] == (out["launches"]
-                                        if form == "rs10x4" else 0),
-                  f"{what}: {out}: launches on the card, one gf_swar "
-                  f"launch a device route, every launch {form}")
-        return out
+    on_card, cli, ec_map = wc.on_card, wc.cli, wc.ec_map
+    wait_shards, shard_files = wc.wait_shards, wc.shard_files
+    counts_now, step_begin = wc.counts_now, wc.step_begin
+    launched, step = wc.launched, wc.step
 
     try:
         # the cluster: five processes of the port's weed
-        mport = free_port()
-        m = f"127.0.0.1:{mport}"
-        t0 = time.perf_counter()
-        spawn("master", ["master", "-ip", "127.0.0.1", "-port", str(mport),
-                         "-volumeSizeLimitMB", str(args.volume_mib)])
-        ports = [free_port() for _ in range(4)]
-        counts_url = {}
-        for i, port in enumerate(ports):
-            os.makedirs(os.path.join(root, f"vs{i}"))
-            cport = free_port()
-            counts_url[f"127.0.0.1:{port}"] = f"127.0.0.1:{cport}/"
-            spawn(f"volume{i}", [
-                "volume", "-ip", "127.0.0.1", "-port", str(port),
-                "-mserver", m, "-dir", os.path.join(root, f"vs{i}"),
-                "-max", "8", "-device", "cuda"],
-                [sys.executable, os.path.abspath(__file__), "--counted-weed",
-                 str(cport)])
-        urls = [f"127.0.0.1:{port}" for port in ports]
-        deadline = time.time() + 120
-        while True:
-            for name, proc in children:
-                check(proc.poll() is None,
-                      f"weed {name} exited {proc.returncode}")
-            try:
-                status = http.get_json(f"{m}/dir/status")
-                nodes = [dn["url"] for dc in status["data_centers"]
-                         for rack in dc["racks"]
-                         for dn in rack["data_nodes"]]
-                if sorted(nodes) == sorted(urls):
-                    break
-            except (http.HttpError, OSError):
-                pass
-            check(time.time() < deadline, "the weed cluster never came up")
-            time.sleep(0.1)
-        row["start_s"] = time.perf_counter() - t0
+        row["start_s"] = wc.start(args.volume_mib)
+        m, urls = wc.m, wc.urls
         counts0 = counts_now("POST")
         ledger0 = {u: device_dispatches(u) for u in urls}
         on_card(f"weed master {m} and four weed volume -device cuda "
@@ -3712,22 +3810,570 @@ def phase_cli_cluster(args, smi):
         row["phase_s"] = time.perf_counter() - phase_t0
         on_card(f"phase 17 took {row['phase_s']:.1f} s")
     finally:
-        for name, proc in children:
-            if proc.poll() is None:
-                proc.terminate()
-        for name, proc in children:
+        wc.close()
+    return row, path
+
+
+def phase_filer(args, smi):
+    """Phase 18: the filer on the card — phase 17's cluster of ``weed``
+    processes (through ``WeedCluster``) with one ``weed filer -store
+    sqlite -collection <c>`` beside it, driven through the CLI, the
+    filer's HTTP and the port's ``FilerRing``: seeded files of 1–24 MiB
+    (most span several 8 MiB chunks) written by four ``weed filer.copy``
+    processes into one grown volume of ``<c>`` until its ``.dat`` holds
+    at least 95 % of ``--volume-mib``; every file read back through
+    ``weed filer.cat``; ``fs.ls``, ``fs.du``, ``fs.cat`` and
+    ``fs.meta.save`` through one ``weed shell``; ``ec.encode`` of the
+    volume hashed against ``write_ec_files`` of its ``.dat``; shards {0,
+    5, 11, 13} deleted, the filer restarted over its sqlite store (no
+    chunk served from its cache) and every file read through its HTTP
+    ``GET`` on 8 threads; ``ec.rebuild`` hashed and the files read
+    again; ``weed filer.meta.tail``'s creates; ``/admin/query`` over
+    1,000 JSON needles against the same filter in plain Python; and two
+    ``weed filer -shard i/2`` processes written through a ``FilerRing``.
+    gf_swar launches in the volume server processes, read from their own
+    counters around each step. Returns the phase's row and the launch
+    counts of its path, summed over the servers."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from seaweedfs_tpu_torch.filer.sharding import FilerRing, ShardMap
+    from seaweedfs_tpu_torch.storage.erasure_coding import (
+        constants as C,
+        write_ec_files,
+        write_sorted_file_from_idx,
+    )
+    from seaweedfs_tpu_torch.util import http
+
+    phase_t0 = time.perf_counter()
+    wc = WeedCluster(args, smi, "filer")
+    root, on_card = wc.root, wc.on_card
+    limit = args.volume_mib * MIB
+    lost = [0, 5, 11, 13]
+    col = "filerdata"
+    row: dict = {"card": smi, "volume_size_limit_mb": args.volume_mib,
+                 "collection": col,
+                 "processes": "1 master + 4 volume servers + 1 filer, "
+                              "then 2 filer shards"}
+
+    def start_filer(name, port, *flags):
+        """One ``weed filer`` child on ``port``, up once its root lists."""
+        proc = wc.spawn(name, ["filer", "-ip", "127.0.0.1", "-port",
+                               str(port), "-master", wc.m, *flags])
+        url = f"127.0.0.1:{port}"
+        deadline = time.time() + 60
+        while True:
+            check(proc.poll() is None, f"weed {name} exited "
+                  f"{proc.returncode}")
             try:
-                proc.wait(30)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait()
-        for name, _proc in children:
-            log = os.path.join(root, f"{name}.log")
-            if os.path.exists(log):
-                with open(log, "rb") as f:
-                    tail = f.read()[-1500:].decode("utf-8", "replace")
-                if tail.strip():
-                    say(f"weed {name} log (tail): {tail!r}")
+                http.get_json(f"{url}/?limit=1")
+                return proc, url
+            except (http.HttpError, OSError):
+                pass
+            check(time.time() < deadline, f"weed {name} never answered")
+            time.sleep(0.1)
+
+    def stop(proc):
+        proc.terminate()
+        proc.wait(30)
+
+    def entry_vids(path):
+        meta = http.get_json(f"{fs_url}{path}?meta=true")
+        return {int(c["file_id"].split(",")[0]) for c in meta["chunks"]}
+
+    def get_all(label, names):
+        """Every named file through the filer's HTTP GET on 8 threads,
+        byte-exact; latencies and MB/s."""
+        def one(name):
+            t0 = time.perf_counter()
+            data = http.request("GET", f"{fs_url}{name}")
+            sec = time.perf_counter() - t0
+            check(data == files[name], f"{label}: {name} differs")
+            return sec
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            lat = list(pool.map(one, names))
+        wall = time.perf_counter() - t0
+        moved = sum(len(files[n]) for n in names)
+        return {"files": len(lat), "bytes": moved, "threads": 8,
+                "wall_s": wall, "MBps": moved / wall / 1e6,
+                "p50_ms": percentile_ms(lat, 50),
+                "p99_ms": percentile_ms(lat, 99)}
+
+    try:
+        row["start_s"] = wc.start(args.volume_mib)
+        m, urls = wc.m, wc.urls
+        fport = free_port()
+        db = os.path.join(root, "filer.db")
+        filer_flags = ("-store", "sqlite", "-dbPath", db,
+                       "-collection", col)
+        t0 = time.perf_counter()
+        filer_proc, fs_url = start_filer("filer", fport, *filer_flags)
+        row["filer_start_s"] = time.perf_counter() - t0
+        counts0 = wc.counts_now("POST")
+        on_card(f"weed master {m}, four weed volume -device cuda and weed "
+                f"filer {fs_url} (-store sqlite -collection {col}), each "
+                f"its own process: servers up in {row['start_s']:.1f} s, "
+                f"the filer in {row['filer_start_s']:.1f} s")
+
+        # 1. fill: one grown volume of the collection, through the filer
+        check(http.get_json(f"{m}/vol/grow?count=1&collection={col}")
+              == {"count": 1}, f"grow one volume of {col}")
+        rng = np.random.default_rng([args.seed, 18])
+        files: dict[str, bytes] = {}
+        local: dict[str, str] = {}
+        total, target = 0, int(0.975 * limit)
+        while total < target:
+            n = min(int(rng.integers(MIB, 24 * MIB + 1)), target - total)
+            k = len(files)
+            name = f"/data/p{k % 4}/f{k:04d}.bin"
+            data = np.random.default_rng([args.seed, 18, k]).bytes(n)
+            path = os.path.join(root, "files", f"p{k % 4}",
+                                f"f{k:04d}.bin")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "wb") as f:
+                f.write(data)
+            files[name], local[name] = data, path
+            total += n
+        manifest = "".join(
+            f"{name} {len(data)} {hashlib.sha256(data).hexdigest()}\n"
+            for name, data in files.items()).encode()
+        groups = [[local[n] for n in files if n.startswith(f"/data/p{j}/")]
+                  for j in range(4)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            wc.weed + ["filer.copy", "-filer", fs_url] + group
+            + [f"/data/p{j}"], cwd=root, env=wc.env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for j, group in enumerate(groups) if group]
+        for proc in procs:
+            out, err = proc.communicate(timeout=600)
+            check(proc.returncode == 0, f"weed filer.copy: {err[-3000:]}")
+        copy_s = time.perf_counter() - t0
+        man_path = os.path.join(root, "files", "MANIFEST.txt")
+        with open(man_path, "wb") as f:
+            f.write(manifest)
+        wc.cli("filer.copy", "-filer", fs_url, man_path, "/data")
+        files["/data/MANIFEST.txt"] = manifest
+        vids: dict[str, set] = {name: entry_vids(name) for name in files}
+        all_vids = set().union(*vids.values())
+        check(len(all_vids) == 1, f"the chunks went to one volume: "
+              f"{sorted(all_vids)}")
+        vid = all_vids.pop()
+        [dat] = wc.shard_files(vid, ".dat", col)
+        dat_bytes = os.path.getsize(dat)
+        check(dat_bytes >= 0.95 * limit, f"volume {vid}'s .dat is "
+              f"{dat_bytes} bytes, under 95 % of {limit}")
+        chunks = sum(len(http.get_json(f"{fs_url}{n}?meta=true")["chunks"])
+                     for n in files)
+        row["fill"] = {"files": len(files) - 1, "bytes": total,
+                       "chunks": chunks, "copy_s": copy_s,
+                       "MBps": total / copy_s / 1e6, "volume": vid,
+                       "dat_bytes": dat_bytes,
+                       "full_percent": 100 * dat_bytes / limit}
+        on_card(f"weed filer.copy of {len(files) - 1} files ({total} bytes "
+                f"in {chunks} chunks, four processes) through the filer "
+                f"into volume {vid} of {col}: {copy_s:.1f} s = "
+                f"{row['fill']['MBps']:.1f} MB/s; .dat {dat_bytes} bytes = "
+                f"{row['fill']['full_percent']:.2f} % of {args.volume_mib} "
+                "MiB")
+
+        # 2. read back through weed filer.cat, then the fs.* readers
+        def cat(name):
+            p = subprocess.run(wc.weed + ["filer.cat", "-filer", fs_url,
+                                          name], cwd=root, env=wc.env,
+                               capture_output=True, timeout=600)
+            check(p.returncode == 0, f"weed filer.cat {name}: "
+                  f"{p.stderr[-3000:]!r}")
+            check(p.stdout == files[name], f"weed filer.cat {name} differs")
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(cat, files))
+        cat_s = time.perf_counter() - t0
+        row["cat"] = {"files": len(files), "processes_at_once": 8,
+                      "seconds": cat_s,
+                      "MBps": (total + len(manifest)) / cat_s / 1e6}
+        dump = os.path.join(root, "meta.ndjson")
+        out, shell_s = wc.cli("shell", "-master", m, "-c", "; ".join([
+            f"fs.configure -filer {fs_url}", "fs.ls /data/p0", "fs.du /data",
+            "fs.cat /data/MANIFEST.txt", f"fs.meta.save -o {dump} /data"]))
+        p0 = {n.rsplit("/", 1)[1]: len(d) for n, d in files.items()
+              if n.startswith("/data/p0/")}
+        listed = {}
+        for line in out.splitlines():
+            parts = line.split()
+            if len(parts) == 2 and parts[1] in p0:
+                listed[parts[1]] = int(parts[0])
+        check(listed == p0, f"fs.ls /data/p0: {len(listed)} of {len(p0)} "
+              "files with their sizes")
+        du = f"{total + len(manifest)} bytes in {len(files)} files under /data"
+        check(du in out, f"fs.du /data: want {du!r}")
+        check(manifest.decode() in out, "fs.cat /data/MANIFEST.txt")
+        with open(dump) as f:
+            saved = [json.loads(line) for line in f if line.strip()]
+        saved_files = {r["file"]: r["entry"] for r in saved if "file" in r}
+        check(sorted(saved_files) == sorted(files)
+              and all(sum(c["size"] for c in e["chunks"])
+                      == len(files[p]) for p, e in saved_files.items()),
+              f"fs.meta.save: {len(saved_files)} files, chunk sizes")
+        row["shell_readers"] = {"seconds": shell_s, "fs_du": du,
+                                "meta_saved_entries": len(saved)}
+        on_card(f"weed filer.cat of all {len(files)} files (8 processes at "
+                f"once): {cat_s:.1f} s = {row['cat']['MBps']:.1f} MB/s, "
+                f"byte-exact; weed shell fs.ls / fs.du / fs.cat / "
+                f"fs.meta.save in {shell_s:.1f} s: {du}, {len(saved)} "
+                "entries saved")
+
+        # 3. ec.encode of the volume through weed shell
+        expect_dir = os.path.join(root, "expect")
+        os.makedirs(expect_dir)
+        base = os.path.join(expect_dir, str(vid))
+        os.link(dat, base + ".dat")
+        shutil.copyfile(dat[:-4] + ".idx", base + ".idx")
+        write_ec_files(base, device="cuda")
+        write_sorted_file_from_idx(base)
+        want = {ext: sha256_file(base + ext) for ext in
+                [C.to_ext(s) for s in range(C.TOTAL_SHARDS)] + [".ecx"]}
+        for ext in want:
+            os.remove(base + ext)
+        before = wc.step_begin()
+        out, sec = wc.cli("shell", "-master", m, "-c",
+                          f"lock; ec.encode -volumeId {vid} -collection "
+                          f"{col} -quietFor 0s; unlock")
+        after = wc.counts_now()
+        check(f"volume {vid}: ec.encode done" in out, f"ec.encode: {out}")
+        wc.wait_shards(vid, set(range(C.TOTAL_SHARDS)))
+        for ext, digest in want.items():
+            paths_ext = wc.shard_files(vid, ext, col)
+            check(paths_ext and all(sha256_file(p) == digest
+                                    for p in paths_ext),
+                  f"{ext} at {paths_ext} differs from write_ec_files'")
+        enc = wc.step(before, after, "ec.encode", "rs10x4")
+        row["ec_encode"] = {"shell_seconds": sec,
+                            "shell_GBps_incl_start": dat_bytes / sec / 1e9,
+                            **enc}
+        on_card(f"weed shell ec.encode -volumeId {vid} -collection {col}: "
+                f"{sec:.3f} s of shell; gf_swar {enc['launches']} launches "
+                f"in the servers ({enc['rs10x4']} compile-time), "
+                f"{enc['host_dispatches']} host dispatches; every "
+                ".ec00-.ec13 and .ecx hash equal to write_ec_files")
+
+        # 4. degraded reads through a restarted filer
+        for sid in lost:
+            for u in wc.ec_map(vid)[sid]:
+                http.post_json(f"{u}/admin/ec/delete_shards",
+                               {"volume": vid, "collection": col,
+                                "shard_ids": [sid]})
+        wc.wait_shards(vid, set(range(C.TOTAL_SHARDS)) - set(lost))
+        stop(filer_proc)
+        filer_proc, _ = start_filer("filer-restarted", fport, *filer_flags)
+        names = sorted(n for n in files if vid in vids[n])
+        before = wc.step_begin()
+        deg = get_all("degraded read", names)
+        after = wc.counts_now()
+        deg.update(wc.step(before, after, "degraded reads"))
+        check(deg["launches"] > 0 and deg["rs10x4"] == 0,
+              f"degraded reads: {deg}: gf_swar launched, run-time form")
+        row["degraded"] = deg
+        on_card(f"{deg['files']} files ({deg['bytes']} bytes) through the "
+                f"restarted filer's GET with shards {lost} lost, 8 threads: "
+                f"p50 {deg['p50_ms']:.2f} ms, p99 {deg['p99_ms']:.2f} ms a "
+                f"file, {deg['MBps']:.1f} MB/s; gf_swar {deg['launches']} "
+                f"run-time launches, {deg['host_dispatches']} host "
+                "dispatches; every file byte-exact")
+
+        # 5. ec.rebuild, then the same files again
+        before = wc.step_begin()
+        out, sec = wc.cli("shell", "-master", m, "-c",
+                          f"lock; ec.rebuild -volumeId {vid} -collection "
+                          f"{col}; unlock")
+        after = wc.counts_now()
+        check(f"rebuilt shards {lost}" in out, f"ec.rebuild: {out}")
+        wc.wait_shards(vid, set(range(C.TOTAL_SHARDS)))
+        for sid in lost:
+            ext = C.to_ext(sid)
+            paths_ext = wc.shard_files(vid, ext, col)
+            check(paths_ext and all(sha256_file(p) == want[ext]
+                                    for p in paths_ext),
+                  f"rebuilt {ext} at {paths_ext} differs")
+        reb = wc.step(before, after, "ec.rebuild", "run-time")
+        row["ec_rebuild"] = {"shell_seconds": sec, **reb}
+        row["reread"] = get_all("read after the rebuild", names)
+        on_card(f"weed shell ec.rebuild of {lost}: {sec:.3f} s of shell; "
+                f"gf_swar {reb['launches']} run-time launches; rebuilt "
+                f"shards hash equal; {len(names)} files read again "
+                f"byte-exact, p99 {row['reread']['p99_ms']:.2f} ms")
+
+        # 6. the filer's meta events, replayed from its durable log
+        tail = wc.spawn("meta-tail", ["filer.meta.tail", "-filer", fs_url,
+                                      "-pollSeconds", "0.5"])
+        log = os.path.join(root, "meta-tail.log")
+        creates: dict[str, int] = {}
+        deadline = time.time() + 60
+        while True:
+            with open(log, "rb") as f:
+                lines = f.read().decode("utf-8", "replace").splitlines()
+            creates = {}
+            for line in lines:
+                if not line.startswith("{"):
+                    continue
+                try:
+                    ev = json.loads(line)
+                except ValueError:
+                    continue  # the line being written
+                new = ev.get("new_entry") or {}
+                if ev.get("old_entry") is None and \
+                        new.get("full_path") in files:
+                    creates[new["full_path"]] = creates.get(
+                        new["full_path"], 0) + 1
+            if len(creates) == len(files) or time.time() > deadline:
+                break
+            time.sleep(0.2)
+        stop(tail)
+        check(creates == {n: 1 for n in files},
+              f"filer.meta.tail: {len(creates)} of {len(files)} files with "
+              "one create each")
+        row["meta_events"] = {"creates": len(creates), "lines": len(lines)}
+        on_card(f"weed filer.meta.tail: one create for each of the "
+                f"{len(files)} files ({len(lines)} events, replayed from the "
+                "restarted filer's durable log)")
+
+        # 7. /admin/query over 1,000 JSON needles
+        check(http.get_json(f"{m}/vol/grow?count=1&collection=query")
+              == {"count": 1}, "grow one volume of query")
+        qrng = np.random.default_rng([args.seed, 181])
+        kinds = ("log", "metric", "trace")
+        jdir = os.path.join(root, "json")
+        os.makedirs(jdir)
+        docs, jpaths = {}, []
+        for i in range(1000):
+            doc = {"id": i, "kind": kinds[int(qrng.integers(3))],
+                   "meta": {"size": int(qrng.integers(0, 1000)),
+                            "tags": [int(x) for x in
+                                     qrng.integers(0, 9, 3)]}}
+            p = os.path.join(jdir, f"d{i:04d}.json")
+            with open(p, "w") as f:
+                json.dump(doc, f)
+            docs[p] = doc
+            jpaths.append(p)
+        procs = [subprocess.Popen(
+            wc.weed + ["upload", "-master", m, "-collection", "query"]
+            + jpaths[j::4], cwd=root, env=wc.env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for j in range(4)]
+        uploaded = []
+        for proc in procs:
+            out, err = proc.communicate(timeout=600)
+            check(proc.returncode == 0, f"weed upload: {err[-3000:]}")
+            uploaded += [json.loads(line) for line in out.splitlines()]
+        qvids = {int(u["fid"].split(",")[0]) for u in uploaded}
+        check(len(uploaded) == 1000 and len(qvids) == 1,
+              f"1,000 JSON needles in one volume: {len(uploaded)}, {qvids}")
+        qvid = qvids.pop()
+        holder = http.get_json(
+            f"{m}/dir/lookup?volumeId={qvid}")["locations"][0]["url"]
+        flt = {"field": "meta.size", "op": ">=", "value": 500}
+        proj = ["id", "kind", "meta.size", "meta.tags.1"]
+        t0 = time.perf_counter()
+        got = http.request("POST", f"{holder}/admin/query", json.dumps(
+            {"volume": qvid, "filter": flt, "projections": proj}).encode())
+        query_s = time.perf_counter() - t0
+        # the same filter in plain Python, in needle-key order
+        by_key = sorted(uploaded,
+                        key=lambda u: int(u["fid"].split(",")[1][:-8], 16))
+        expect = "".join(
+            json.dumps({"id": d["id"], "kind": d["kind"],
+                        "meta.size": d["meta"]["size"],
+                        "meta.tags.1": d["meta"]["tags"][1]}) + "\n"
+            for d in (docs[u["fileName"]] for u in by_key)
+            if d["meta"]["size"] >= 500).encode()
+        check(got == expect, f"/admin/query: {len(got)} bytes against "
+              f"{len(expect)} from plain Python")
+        row["query"] = {"needles": 1000, "volume": qvid,
+                        "matched": expect.count(b"\n"),
+                        "seconds": query_s}
+        on_card(f"/admin/query over volume {qvid}'s 1,000 JSON needles "
+                f"(meta.size >= 500, four projections): "
+                f"{row['query']['matched']} lines in {query_s * 1e3:.1f} "
+                "ms, equal to the same filter in plain Python")
+
+        # 8. the sharded ring: two weed filer -shard i/2 processes
+        shard_urls = []
+        for i in range(2):
+            _, u = start_filer(
+                f"filer-shard{i}", free_port(), "-store", "sqlite",
+                "-dbPath", os.path.join(root, f"shard{i}.db"),
+                "-shard", f"{i}/2")
+            shard_urls.append(u)
+        ring = FilerRing(shard_urls)
+        smap = ShardMap(shard_urls)
+        srng = np.random.default_rng([args.seed, 182])
+        small = {}
+        for i in range(200):
+            top = (f"/buckets/b{i % 10}" if i % 2 == 0 else f"/t{i % 10}")
+            small[f"{top}/f{i:03d}.txt"] = srng.bytes(
+                int(srng.integers(1, 4096)))
+        t0 = time.perf_counter()
+        for name, data in small.items():
+            ring.request("POST", name, data)
+        ring_write_s = time.perf_counter() - t0
+        held = [set(), set()]
+        for name in small:
+            for i, u in enumerate(shard_urls):
+                try:
+                    http.request("GET", f"{u}{name}?meta=true")
+                    held[i].add(name)
+                except http.HttpError as e:
+                    check(e.status == 404, f"{u}{name}: {e}")
+        for i in range(2):
+            assigned = {n for n in small if smap.shard_of(n) == i}
+            check(held[i] == assigned and assigned,
+                  f"shard {i} holds {len(held[i])} paths, its map "
+                  f"{len(assigned)}")
+        tops = sorted({n.rsplit("/", 1)[0] for n in small})
+        roots = [e["FullPath"] for e in ring.list_all("/")]
+        check(roots == sorted(roots) and roots == sorted(
+            {"/buckets"} | {t for t in tops if not t.startswith("/b")}),
+              f"fan-out listing of /: {roots}")
+        buckets = [e["FullPath"] for e in ring.list_all("/buckets")]
+        check(buckets == sorted(t for t in tops if t.startswith("/b")),
+              f"fan-out listing of /buckets: {buckets}")
+        listed = sorted(e["FullPath"] for t in tops
+                        for e in ring.list_all(t))
+        check(listed == sorted(small), f"listings hold {len(listed)} of "
+              f"{len(small)} files")
+        old = next(n for n in small if smap.shard_of(n) == 0)
+        new = next(f"{t}/moved.txt" for t in tops
+                   if smap.shard_of(t + "/x") == 1)
+        ring.rename(old, new)
+        check(ring.request("GET", new) == small[old]
+              and ring.get_meta(old) is None
+              and ring.recover_renames() == 0,
+              f"cross-shard rename {old} -> {new}")
+        row["ring"] = {"files": len(small), "write_s": ring_write_s,
+                       "shard_paths": [len(h) for h in held],
+                       "rename": [old, new]}
+        on_card(f"two weed filer -shard i/2: 200 files through the port's "
+                f"FilerRing in {ring_write_s:.2f} s; shards hold "
+                f"{row['ring']['shard_paths']} paths, each exactly its "
+                f"ShardMap's; fan-out listings sorted and complete; "
+                f"cross-shard rename {old} -> {new} moved the data")
+
+        counts1 = wc.counts_now()
+        path = {name: wc.launched(counts0, counts1, name)
+                for name in counts1[urls[0]][0]}
+        row["launches"] = wc.step(counts0, counts1, "the phase")
+        row["phase_s"] = time.perf_counter() - phase_t0
+        on_card(f"the path's launch counts in the servers {path}; phase "
+                f"18 took {row['phase_s']:.1f} s")
+    finally:
+        wc.close()
+    return row, path
+
+
+def phase_leader(args, smi, reset_counts, counters):
+    """Phase 19: the leader-failover round on the card — the reference's
+    recorded leader round (``SCALE_r06.json``: spec 5x4x5m3, seed 6,
+    churn ``leader``, the nightly's 8 s of load) through
+    ``scale/round.run_scale_round(device="cuda")``: 100 volume servers
+    and a three-master raft tier in this process, the raft leader killed
+    mid-ingest, then flat-style volume kills. It must converge with the
+    kill landed on a new leader, a positive ``failover_converge_s``, a
+    ``midfailover_failure_rate`` in [0, 1] and the ``raft_term`` probe on
+    the timeline, and gate cleanly against its own record. The
+    comparison against ``SCALE_r06.json`` (a CPU host's record) is
+    printed as a finding, not a gate. The round seeds no warm volume, so
+    its launches are read and printed, not required. Returns the
+    phase's row and the launch counts of its path."""
+    from seaweedfs_tpu_torch.operation import client as op_client
+    from seaweedfs_tpu_torch.scale import round as round_mod
+    from seaweedfs_tpu_torch.util import retry
+
+    phase_t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    settings = dict(spec="5x4x5m3", seed=6, pulse_seconds=0.5,
+                    churn_kind="leader", kill_fraction=0.1,
+                    load_seconds=8.0, replication="000",
+                    converge_timeout=120.0, record_hz=2.0)
+    row: dict = {"card": smi, **settings,
+                 "reduced": ["one process", "one card shared by 100 "
+                             "servers and three masters"]}
+    lines: list[str] = []
+
+    def on_card(text):
+        say(f"[{smi}] {text}")
+
+    root = tempfile.mkdtemp(prefix="chip_smoke-leader-", dir=args.workdir)
+    json_path = os.path.join(root, "SCALE_leader.json")
+    try:
+        reset_counts()
+        retry.BREAKERS.reset()
+        op_client._lookup_cache.clear()
+        t0 = time.perf_counter()
+        result = round_mod.run_scale_round(
+            device="cuda", json_path=json_path, out=lines.append,
+            **settings)
+        round_s = time.perf_counter() - t0
+        path = {name: counter.value for name, counter in counters.items()}
+        for line in lines:
+            on_card(f"  | {line}")
+        d = result["detail"]
+        fo = d["failover"]
+        check(d["converged"], f"the round converged: {d['last_reasons']}")
+        check(fo.get("kill_landed"), f"the leader kill landed: {fo}")
+        check(fo.get("new_leader") is not None
+              and fo["new_leader"] != fo.get("killed_master"),
+              f"a new leader: {fo}")
+        check(d.get("failover_converge_s", 0) > 0,
+              f"failover_converge_s > 0: {fo}")
+        check(0.0 <= d["midfailover_failure_rate"] <= 1.0,
+              f"midfailover_failure_rate in [0, 1]: {fo}")
+        check("raft_term" in d["timeline"]["probes"],
+              f"raft_term on the timeline: {sorted(d['timeline']['probes'])}")
+        row.update(round_s=round_s, converged=d["converged"],
+                   converge_seconds=d["converge_seconds"],
+                   failover=fo,
+                   failover_converge_s=d["failover_converge_s"],
+                   midfailover_failure_rate=d["midfailover_failure_rate"],
+                   load_ops_per_second=d["load_ops_per_second"],
+                   load_failure_rate=d["load_failure_rate"],
+                   master_requests_per_second=d[
+                       "master_requests_per_second"],
+                   killed=d["churn"]["killed"],
+                   raft_term_peak=d["timeline"]["probes"]["raft_term"][
+                       "peak"],
+                   gf_swar={"launches": path["gf_swar"],
+                            "compile_time": path["gf_swar_rs10x4"],
+                            "host_dispatches": path["codec_host"]})
+        on_card(f"leader round {settings['spec']} seed {settings['seed']}: "
+                f"master {fo['killed_master']} killed, master "
+                f"{fo['new_leader']} elected in {fo.get('election_s')} s; "
+                f"failover_converge_s {d['failover_converge_s']}, "
+                f"midfailover_failure_rate {d['midfailover_failure_rate']} "
+                f"({fo.get('failed_in_window')}/{fo.get('ops_in_window')} "
+                f"writes); converged {d['converge_seconds']} s after load; "
+                f"load {d['load_ops_per_second']} ops/s; round "
+                f"{round_s:.1f} s; gf_swar launches {path['gf_swar']} "
+                "(none required: no warm volume)")
+        row["check_rc"] = round_mod.run_check(result, json_path,
+                                              out=lines.append)
+        check(row["check_rc"] == 0,
+              f"run_check of the round against its own record: "
+              f"{lines[-3:]}")
+        # a finding, not a gate: the reference's record, from a CPU host
+        ref_lines: list[str] = []
+        row["vs_SCALE_r06"] = {
+            "rc": round_mod.run_check(
+                result, os.path.join(here, "SCALE_r06.json"),
+                out=ref_lines.append),
+            "lines": ref_lines}
+        for line in ref_lines:
+            on_card(f"  vs SCALE_r06.json (a CPU host's record; not a "
+                    f"gate) | {line}")
+        row["phase_s"] = time.perf_counter() - phase_t0
+        on_card(f"run_check against its own record: 0; phase 19 took "
+                f"{row['phase_s']:.1f} s")
+    finally:
         shutil.rmtree(root, ignore_errors=True)
     return row, path
 
@@ -3812,6 +4458,10 @@ PATH_KERNELS = {
     "maintenance": ("gf_swar",),
     "fleet": ("gf_swar",),
     "cli_cluster": ("gf_swar",),
+    "filer": ("gf_swar",),
+    # the leader round seeds no warm volume: its launches are read, not
+    # required
+    "leader": (),
 }
 
 
@@ -5079,6 +5729,17 @@ def run(args, torch, here: str) -> int:
         cli_row, path_launches["cli_cluster"] = phase_cli_cluster(args, smi)
         check_path("cli_cluster")
         say(json.dumps({"cli_cluster": cli_row}))
+
+        # -- 18. the filer on the card, as weed processes ------------------
+        filer_row, path_launches["filer"] = phase_filer(args, smi)
+        check_path("filer")
+        say(json.dumps({"filer": filer_row}))
+
+        # -- 19. the leader-failover round on the card --------------------
+        leader_row, path_launches["leader"] = phase_leader(
+            args, smi, reset_counts, counters)
+        check_path("leader")
+        say(json.dumps({"leader": leader_row}))
     finally:
         shutil.rmtree(batch_dir, ignore_errors=True)
         shutil.rmtree(keep_dir, ignore_errors=True)

@@ -11,11 +11,13 @@ Entry points take an explicit ``device``. ``None`` means the card: when
 no CUDA device is present they raise instead of running on the CPU.
 Only an explicit ``device="cpu"`` selects the plain PyTorch versions of
 the kernels, which is what the CPU test suite does.
+
+``torch`` is imported by the modules that compute and by the two
+functions below, not here: a ``weed`` client subcommand (``upload``,
+``filer.copy``, ``filer.cat``) starts without it.
 """
 
 from __future__ import annotations
-
-import torch
 
 __version__ = "0.1.0"
 
@@ -25,6 +27,8 @@ def default_device() -> torch.device:
 
     Raises ``RuntimeError`` when no card is present: the port never
     drops to the CPU on its own."""
+    import torch
+
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device available; pass device='cpu' to run the "
@@ -37,6 +41,8 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     """Normalise an entry point's ``device`` argument: ``None`` is
     :func:`default_device`, ``"cpu"`` the plain versions, ``"cuda[:i]"``
     a card that must exist. Any other device type raises."""
+    import torch
+
     if device is None:
         return default_device()
     dev = torch.device(device)

@@ -41,8 +41,8 @@ the request-path analog of bench.py's codec trajectory:
   ``cluster.health`` shows load numbers next to SLO burn.
 
 The port's copy of ``seaweedfs_tpu/command/benchmark.py``, on the port's
-client, master ring, persona ledger and benchgate. The filer, S3 gateway,
-mount and broker tiers are not ported yet, so the ``s3``, ``fuse`` and
+client, master ring, persona ledger and benchgate. The S3 gateway, mount
+and broker tiers are not ported yet, so the ``s3``, ``fuse`` and
 ``broker`` personas and the front doors they need raise
 ``NotImplementedError``; the ``native`` persona runs.
 """
@@ -99,7 +99,7 @@ LAST_PERSONA_TRACES: dict[str, list] | None = None
 _HIST_EDGES_MS = [0.25 * 2 ** i for i in range(18)]  # 0.25ms .. ~32s
 
 _TIERS_NOT_PORTED = (
-    "the filer, S3, mount and broker tiers are not ported yet "
+    "the S3, mount and broker tiers are not ported yet "
     "(ROADMAP queue 1, item 7)"
 )
 
@@ -511,8 +511,8 @@ class _ProtocolRecorder:
 
 
 class FrontDoors:
-    """The protocol gateways a persona mix needs. The port has no filer,
-    S3 gateway, mount or broker yet, so a mix that needs any of them
+    """The protocol gateways a persona mix needs. The port has no S3
+    gateway, mount or broker yet, so a mix that needs any of them
     raises; a native-only mix needs none."""
 
     def __init__(self, master_url: str, need_s3: bool = False,

@@ -11,10 +11,11 @@ flags, defaults and output text, with one addition. ``volume`` and
 ``server`` take ``-device`` (default ``cuda``) and hand it to
 ``VolumeServer(device=)``; with no card they raise unless the flag says
 ``cpu``, never falling back on their own. ``benchmark -fleet`` and
-``scale`` build their fleets on the card. The subcommands of the tiers
-that are not ported yet (``filer``, ``s3``, ``webdav``, ``mount``,
-``msgBroker``, ``filer.sync``, ``filer.replicate``, and ``server``'s
-``-filer`` and ``-s3``) raise ``NotImplementedError`` and start nothing.
+``scale`` build their fleets on the card. ``filer`` and ``server
+-filer`` start the port's filer. The subcommands of the tiers that are
+not ported yet (``s3``, ``webdav``, ``mount``, ``msgBroker``,
+``filer.sync``, ``filer.replicate``, and ``server``'s ``-s3``) raise
+``NotImplementedError`` and start nothing.
 """
 
 from __future__ import annotations
@@ -471,7 +472,55 @@ def run_volume(args) -> int:
 
 
 def run_filer(args) -> int:
-    _not_ported("weed filer")
+    from ..filer import (
+        LogStructuredStore,
+        MemoryStore,
+        SqliteStore,
+    )
+    from ..server.filer import FilerServer
+
+    shard = None
+    if args.shard:
+        try:
+            idx_s, of_s = args.shard.split("/", 1)
+            shard = (int(idx_s), int(of_s))
+        except ValueError:
+            print(f"bad -shard {args.shard!r}: want i/N (e.g. 0/4)")
+            return 1
+        if not (0 <= shard[0] < shard[1] <= 64):
+            print(f"bad -shard {args.shard!r}: need 0 <= i < N <= 64")
+            return 1
+    if args.store == "sqlite":
+        store = SqliteStore(args.dbPath)
+    elif args.store == "lsm":
+        store = LogStructuredStore(args.dbPath + ".lsm")
+    else:
+        store = MemoryStore()
+    # durable stores get a durable event log beside the db so sync peers
+    # survive a filer restart (filer_notify.go analog)
+    meta_log_dir = (
+        args.dbPath + ".metalog"
+        if args.store in ("sqlite", "lsm")
+        else None
+    )
+    fs = FilerServer(
+        args.master,
+        host=args.ip,
+        port=args.port,
+        store=store,
+        collection=args.collection,
+        replication=args.replication,
+        jwt_signing_key=_security_key(),
+        meta_log_dir=meta_log_dir,
+        shard=shard,
+        ssl_context=_tls_contexts()[0],
+    )
+    fs.start()
+    if shard is not None:
+        print(f"filer shard {shard[0]}/{shard[1]} listening on {fs.url}")
+        return _wait_forever()
+    print(f"filer listening on {fs.url}")
+    return _wait_forever()
 
 
 def run_s3(args) -> int:
@@ -486,8 +535,8 @@ def run_server(args) -> int:
     from ..server.master import MasterServer
     from ..server.volume import VolumeServer
 
-    if args.filer or args.s3:
-        _not_ported("weed server -filer/-s3")
+    if args.s3:
+        _not_ported("weed server -s3")
     from .. import resolve_device
 
     # the card is checked before the master starts: a server that
@@ -510,6 +559,15 @@ def run_server(args) -> int:
     )
     vs.start()
     print(f"master on {m.url}, volume server on {vs.url}")
+    if args.filer:
+        from ..server.filer import FilerServer
+
+        fs = FilerServer(
+            m.url, host=args.ip, port=args.filer_port,
+            ssl_context=ssl_ctx_factory(),
+        )
+        fs.start()
+        print(f"filer on {fs.url}")
     return _wait_forever()
 
 

@@ -8,8 +8,7 @@ recorded, regression-gated SCALE_rNN.json scenario.
 The port's copy of ``seaweedfs_tpu/scale``. Its two entry points,
 :class:`ScaleHarness` and :func:`run_scale_round`, take ``device=``:
 ``None`` is the card (and raises without one), ``"cpu"`` the kernels'
-plain versions. The filer tier is not ported yet, so a spec with filer
-shards raises.
+plain versions. A spec with filer shards runs the port's shard tier.
 """
 
 from .churn import KINDS, ChurnEngine, ChurnProfile

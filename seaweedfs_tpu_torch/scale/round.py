@@ -12,7 +12,9 @@ takes ``device=`` (``None`` is the card and raises without one, before
 anything starts; ``"cpu"`` the kernels' plain versions). A lock witness
 the round installs for its contention section is removed again when
 the round ends, putting back whatever lock factories were there before.
-The filer tier is not ported yet, so the round drives no shard ring.
+A spec with filer shards (``fN``) runs its shard tier and records its
+``detail.filer`` section; the ``s3``, ``fuse`` and ``broker`` personas
+still raise.
 """
 
 from __future__ import annotations
@@ -362,6 +364,11 @@ def run_scale_round(
             min_live=n - kills_wanted,
         )
         load_result: dict = {}
+        # the spec's filer tier: persona front doors (S3 / FUSE /
+        # broker) ride the shard ring instead of spawning their own
+        # single filer, so persona traffic exercises shard routing
+        # and lands in the per-shard metadata ledger
+        filer_ring = harness.filer_ring()
 
         def run_load() -> None:
             bench_mod.run_benchmark(
@@ -375,6 +382,7 @@ def run_scale_round(
                 seed=seed,
                 replication=replication,
                 assign_batch=assign_batch,
+                filer_url=filer_ring or "",
                 # multi-master: assigns/lookups ride the leader-aware
                 # ring, and leader rounds trace per-op completion so
                 # the election window's failure rate is computable
@@ -405,6 +413,14 @@ def run_scale_round(
             engine.kill_random(kills_wanted - engine.kills)
         churn_seconds = time.monotonic() - t_up
         req1 = _sample_master_requests(tier)
+        # per-shard metadata golden signals, sampled NOW (the ledger's
+        # ops_s is a rolling window — convergence can take long enough
+        # to decay it). Process-global, so it survives leader churn.
+        filer_section = None
+        if spec.filers > 0:
+            from ..telemetry.snapshot import FILER_SHARDS
+
+            filer_section = FILER_SHARDS.section()
         if loader.is_alive():
             raise RuntimeError("load generator hung past its window")
 
@@ -515,6 +531,17 @@ def run_scale_round(
             )
     if timeline is not None:
         result["detail"]["timeline"] = timeline
+    if filer_section:
+        # the metadata-plane section benchgate._flatten_filer gates:
+        # tier-aggregate ops/s downward, per-shard p99/error upward
+        result["detail"]["filer"] = {
+            "shard_count": spec.filers,
+            "meta_ops_s": round(sum(
+                sec.get("ops_s", 0.0)
+                for sec in filer_section.values()
+            ), 3),
+            "shards": filer_section,
+        }
     protocols = (load_result.get("detail") or {}).get("protocols")
     if protocols:
         # persona rounds promote the per-protocol section to a
@@ -574,6 +601,15 @@ def run_scale_round(
             f"err {sec.get('error_rate', 0.0):.3f})"
             for name, sec in sorted(protocols.items())
         ))
+    if filer_section:
+        fsec = result["detail"]["filer"]
+        out(
+            f"  filer: {fsec['meta_ops_s']:.1f} meta ops/s over "
+            f"{fsec['shard_count']} shards (" + ", ".join(
+                f"{name} {sec.get('ops_s', 0.0):.1f}"
+                for name, sec in sorted(filer_section.items())
+            ) + ")"
+        )
     if "fleet_ec_GBps" in result["detail"]:
         out(
             f"  fleet EC: {result['detail']['fleet_ec_GBps']:.3f} GB/s"

@@ -8,12 +8,13 @@ master cluster (server/raft.py) with a kill/restart surface, so leader
 failover is as scriptable as volume churn.
 
 The port's copy of ``seaweedfs_tpu/server/harness.py``, on the port's
-master and volume servers. ``device`` goes to every ``VolumeServer``:
-``None`` is the card (and raises without one, as ``VolumeServer`` does),
-``"cpu"`` the kernels' plain versions; ``telemetry_interval`` to every
-one, and ``maintenance_policy`` and the SLO objectives to every master.
-The filer and S3 tiers are not ported yet: ``with_filer``, ``with_s3``
-and ``n_filer_shards`` raise ``NotImplementedError``.
+master, volume and filer servers. ``device`` goes to every
+``VolumeServer``: ``None`` is the card (and raises without one, as
+``VolumeServer`` does), ``"cpu"`` the kernels' plain versions;
+``telemetry_interval`` to every server, and ``maintenance_policy`` and
+the SLO objectives to every master. ``with_filer`` starts one filer and
+``n_filer_shards`` a sharded tier; the S3 tier is not ported yet, so
+``with_s3`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,10 +53,8 @@ class ClusterHarness:
         n_filer_shards: int = 0,
         device: str | torch.device | None = None,
     ):
-        if with_filer or with_s3 or n_filer_shards:
-            raise NotImplementedError(
-                "the filer and S3 tiers are not ported yet"
-            )
+        if with_s3:
+            raise NotImplementedError("the S3 tier is not ported yet")
         # resolved before any server starts: no card and no
         # device="cpu" raises here, with nothing left running
         self.device = resolve_device(device)
@@ -136,6 +135,35 @@ class ClusterHarness:
                 cfg["telemetry_interval"] = telemetry_interval
             self._vs_config.append(cfg)
             self.volume_servers.append(self._spawn(cfg))
+        # optional filer: it pushes its snapshots on the pulse so the
+        # aggregated /cluster/telemetry view converges within one
+        # heartbeat interval in tests
+        t_int = (
+            telemetry_interval
+            if telemetry_interval is not None
+            else pulse_seconds
+        )
+        self.filer = None
+        # sharded filer tier (filer/sharding): N shards, each owning
+        # its own sqlite file so shard writes never share a store lock
+        self.n_filer_shards = max(0, n_filer_shards)
+        self.filers: list = []
+        self.filers_down: set[int] = set()
+        self._filer_t_int = t_int
+        if self.n_filer_shards > 0:
+            for i in range(self.n_filer_shards):
+                self.filers.append(self._spawn_filer_shard(i))
+            # shard 0 doubles as `self.filer` for single-URL consumers
+            self.filer = self.filers[0]
+        elif with_filer:
+            from .filer import FilerServer
+
+            self.filer = FilerServer(
+                self.master_peers
+                if self.n_masters > 1 else self.master.url,
+                telemetry_interval=t_int,
+            )
+            self.filer.start()
 
     def _spawn(self, cfg: dict) -> VolumeServer:
         os.makedirs(cfg["dirs"][0], exist_ok=True)
@@ -218,6 +246,64 @@ class ClusterHarness:
         m.start()
         self.masters_down.discard(i)
 
+    # -- filer tier ------------------------------------------------------
+
+    def _spawn_filer_shard(self, i: int, port: int = 0):
+        from ..filer.stores import SqliteStore
+        from .filer import FilerServer
+
+        fs = FilerServer(
+            # the full candidate list: the shard's master ring rides
+            # out leader churn instead of erroring at its home master
+            self.master_peers
+            if self.n_masters > 1 else self.master.url,
+            port=port,
+            # one sqlite file per shard: shard writes never serialize
+            # on a sibling's store lock, and a restarted shard comes
+            # back with its namespace partition intact
+            store=SqliteStore(
+                os.path.join(self.root, f"filer{i}.db")
+            ),
+            shard=(i, self.n_filer_shards),
+            telemetry_interval=self._filer_t_int,
+        )
+        fs.start()
+        return fs
+
+    def filer_urls(self) -> list[str]:
+        """Every filer shard's URL in shard order (port-pinned across
+        restarts) — the list a FilerRing routes over."""
+        return [fs.url for fs in self.filers]
+
+    def filer_ring(self):
+        """A FilerRing over the shard tier (master-backed so clients
+        re-resolve), or None when the harness has no sharded tier."""
+        if not self.filers:
+            return None
+        from ..filer import sharding
+
+        return sharding.FilerRing(
+            self.filer_urls(), masters=self.master_urls()
+        )
+
+    def kill_filer_shard(self, i: int) -> None:
+        if i in self.filers_down:
+            return
+        self.filers_down.add(i)
+        self.filers[i].stop()
+
+    def restart_filer_shard(self, i: int) -> None:
+        """Respawn shard `i` at its original port over its surviving
+        sqlite file — the crash-recovery path cross-shard rename
+        tombstones are replayed against."""
+        if i not in self.filers_down:
+            return
+        port = int(self.filers[i].url.rsplit(":", 1)[1])
+        self.filers[i] = self._spawn_filer_shard(i, port=port)
+        if i == 0:
+            self.filer = self.filers[0]
+        self.filers_down.discard(i)
+
     # -- fault injection -------------------------------------------------
 
     def kill_volume_server(self, i: int) -> None:
@@ -241,15 +327,6 @@ class ClusterHarness:
         time.sleep(self.pulse * pulses)
 
     def stop(self) -> None:
-        def _stop_one(vs) -> None:
-            try:
-                vs.stop()
-            except Exception:
-                pass
-
-        # server stops are independent (each closes its own listener
-        # and store); at fleet scale a sequential walk dominates test
-        # teardown, so fan out
         # quiesce the masters' autonomous planes first: draining a big
         # fleet takes a while, and a live maintenance loop would spend
         # the whole teardown queueing repairs against half-stopped
@@ -261,6 +338,26 @@ class ClusterHarness:
                 m.maintenance.stop()
             except Exception:
                 pass
+        shard_tier = [
+            fs for i, fs in enumerate(self.filers)
+            if i not in self.filers_down and fs is not self.filer
+        ]
+        for gw in (self.filer, *shard_tier):
+            if gw is not None:
+                try:
+                    gw.stop()
+                except Exception:
+                    pass
+
+        def _stop_one(vs) -> None:
+            try:
+                vs.stop()
+            except Exception:
+                pass
+
+        # server stops are independent (each closes its own listener
+        # and store); at fleet scale a sequential walk dominates test
+        # teardown, so fan out
         with ThreadPoolExecutor(
             max_workers=min(16, max(1, len(self.volume_servers)))
         ) as pool:

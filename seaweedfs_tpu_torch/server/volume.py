@@ -22,10 +22,10 @@ with the EC-encode ledger each generate folds its ``timing`` into, and
 ``/admin/volume_copy`` pulls a volume from a peer over
 ``/admin/ec/download``; ``/admin/fsck`` checks every live needle,
 ``/admin/tail`` serves the records ``storage/volume_backup.py`` replays,
-and ``/ui`` the status page of ``server/ui.py``. Not ported yet, each
-answered with a 501: ``/admin/query`` and ``/admin/tier/{upload,download}``
-(with the S3 backend). A chunk-manifest needle resolves through the
-port's ``operation/`` client, as the reference's does. The server routes
+``/ui`` the status page of ``server/ui.py`` and ``/admin/query`` the JSON
+filter of ``query/``. Not ported yet, and answered with a 501:
+``/admin/tier/{upload,download}`` (with the S3 backend). A chunk-manifest
+needle resolves through the port's ``operation/`` client, as the reference's does. The server routes
 through the request-tracing middleware, which serves ``/debug/*``.
 """
 
@@ -163,6 +163,7 @@ class VolumeServer:
         )
         router.add("POST", r"/admin/leave", self._h_leave)
         router.add("POST", r"/admin/fsck", self._h_fsck)
+        router.add("POST", r"/admin/query", self._h_query)
         for method, path in _NOT_PORTED:
             router.add(method, path, _not_ported)
         router.add("GET", r"/admin/tail", self._h_tail)
@@ -1360,6 +1361,44 @@ class VolumeServer:
         self.heartbeat_once()
         return Response.json({"ok": True})
 
+    def _h_query(self, req: Request) -> Response:
+        """The Query rpc: JSON filter/projection over needle contents
+        (volume_grpc_query.go:13-62). Scope = one fid or a whole
+        volume; returns NDJSON."""
+        from ..query import query_json_lines
+
+        body = req.json()
+        flt = body.get("filter")
+        projections = body.get("projections")
+        limit = int(body.get("limit", 10_000))
+        blobs: list[bytes] = []
+        if fid_str := body.get("fid"):
+            fid = FileId.parse(fid_str)
+            vol = self.store.find_volume(fid.volume_id)
+            if vol is None:
+                return Response.error("volume not local", 404)
+            blobs.append(vol.read_needle(fid.key, fid.cookie).data)
+        elif vid := body.get("volume"):
+            vol = self.store.find_volume(int(vid))
+            if vol is None:
+                return Response.error("volume not local", 404)
+            for key, nv in vol.nm.ascending_visit():
+                if t.size_is_valid(nv.size):
+                    blobs.append(vol.read_needle(key).data)
+        out_lines = []
+        for blob in blobs:
+            for doc in query_json_lines(blob, flt, projections):
+                out_lines.append(json.dumps(doc))
+                if len(out_lines) >= limit:
+                    break
+            if len(out_lines) >= limit:
+                break
+        return Response(
+            status=200,
+            body=("\n".join(out_lines) + "\n").encode(),
+            headers={"Content-Type": "application/x-ndjson"},
+        )
+
     def _h_tail(self, req: Request) -> Response:
         """VolumeTailSender: raw .dat bytes appended at/after since_ns
         (volume_grpc_tail.go + volume_backup.go:170)."""
@@ -1396,7 +1435,6 @@ class VolumeServer:
 # endpoints whose modules are not ported yet: a clear 501, never the
 # data plane's catch-all (which would read the path as a fid)
 _NOT_PORTED = (
-    ("POST", r"/admin/query"),
     ("POST", r"/admin/tier/upload"),
     ("POST", r"/admin/tier/download"),
 )

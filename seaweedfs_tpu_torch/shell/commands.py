@@ -4,10 +4,9 @@ Behavioral model: weed/shell/commands.go:26-80 (command interface,
 confirmIsLocked), weed/wdclient/exclusive_locks (lease via master).
 
 The port's copy of ``seaweedfs_tpu/shell/commands.py``. It registers
-every command module of the reference but ``command_fs`` and
-``command_s3``, which wait for the filer and S3 tiers; their names raise
-the same ``unknown command`` error the reference raises for a name it
-does not know.
+every command module of the reference but ``command_s3``, which waits
+for the S3 tier; its names raise the same ``unknown command`` error the
+reference raises for a name it does not know.
 """
 
 from __future__ import annotations
@@ -84,6 +83,7 @@ def all_commands() -> dict[str, str]:
         command_collection,
         command_ec,
         command_fault,
+        command_fs,
         command_maintenance,
         command_trace,
         command_volume,

@@ -7,10 +7,10 @@ its name and its dashboards whichever package fed it. :data:`REGISTRY`
 is the port's own: the modules that define families (``ops/link.py``,
 ``ops/profiler.py``, ``telemetry/devices.py``, ``telemetry/phases.py``,
 ``tracing/recorder.py``, ``fault``, ``maintenance/scheduler.py``)
-register them here, and the volume server's three families, the fleet
-EC pair and the client master ring's are defined below. The reference's
-other server families (filer, S3, broker) come with the port of those
-servers.
+register them here, and the volume server's three families, the
+filer's two, the fleet EC pair, the client master ring's and the
+sharded filer ring's are defined below. The reference's other server
+families (S3, broker) come with the port of those servers.
 """
 
 from __future__ import annotations
@@ -255,7 +255,8 @@ class Registry:
 
 REGISTRY = Registry()
 
-# the reference's volume-server families (weed/stats/metrics.go:19-123)
+# the reference's volume-server and filer families
+# (weed/stats/metrics.go:19-123)
 VOLUME_SERVER_REQUESTS = REGISTRY.counter(
     "SeaweedFS_volumeServer_request_total",
     "Counter of volume server requests.",
@@ -270,6 +271,16 @@ VOLUME_SERVER_VOLUME_COUNT = REGISTRY.gauge(
     "SeaweedFS_volumeServer_volumes",
     "Number of volumes or EC shards.",
     ("collection", "type"),
+)
+FILER_REQUESTS = REGISTRY.counter(
+    "SeaweedFS_filer_request_total",
+    "Counter of filer requests.",
+    ("type",),
+)
+FILER_LATENCY = REGISTRY.histogram(
+    "SeaweedFS_filer_request_seconds",
+    "Bucketed histogram of filer request latency.",
+    ("type",),
 )
 
 # fleet EC observatory families (bounded: zero labels). The counter is
@@ -304,5 +315,23 @@ MASTER_LEADER_RESOLVES = REGISTRY.counter(
     "seaweedfs_master_leader_resolves_total",
     "Full /cluster/status leader sweeps by outcome "
     "(found | no_leader).",
+    ("outcome",),
+)
+
+# sharded filer plane families (filer/sharding/ring.py). Both label
+# sets are closed enums — never a shard URL or a path: `outcome` for
+# resolves is {refreshed, unchanged, unavailable, count_mismatch,
+# no_masters}; for cross-shard renames it is {completed, interrupted,
+# recovered}. Per-shard rates live in the telemetry snapshot's
+# bounded shard0..shardN section, not in a metric label here.
+FILER_RING_RESOLVES = REGISTRY.counter(
+    "seaweedfs_filer_ring_resolves_total",
+    "Client filer-ring shard-map re-resolutions by outcome.",
+    ("outcome",),
+)
+FILER_CROSS_RENAMES = REGISTRY.counter(
+    "seaweedfs_filer_cross_shard_renames_total",
+    "Cross-shard filer renames by outcome "
+    "(completed | interrupted | recovered).",
     ("outcome",),
 )

@@ -7,12 +7,14 @@ seaweedfs_tpu_torch``) held against the reference's on the CPU.
     ``export`` and ``backup`` leaving the same bytes on disk. The
     subcommands of the tiers that are not ported raise
     ``NotImplementedError``; ``volume`` and ``server`` with no card and
-    no ``-device cpu`` raise before they start anything.
+    no ``-device cpu`` raise before they start anything; ``filer``
+    refuses a bad ``-shard`` as the reference does.
 (b) In subprocesses, ``weed server`` of each package (the port's with
     ``-device cpu``) on a pinned record clock, then each package's
     ``upload``, ``shell -c "lock; ec.encode ..."`` and ``download``: the
     same fids, shards and ``.ecx`` byte for byte, every file downloaded
-    byte-exact.
+    byte-exact. ``weed server -filer`` of each package, then its
+    ``filer.copy`` and ``filer.cat``: the same output and the same bytes.
 """
 
 import contextlib
@@ -49,10 +51,10 @@ SUBCOMMANDS = (
     "mount", "msgBroker", "filer.sync", "filer.replicate", "scale",
     "trends")
 NOT_PORTED = (
-    ["filer"], ["s3"], ["webdav"], ["mount", "-dir", "x"], ["msgBroker"],
+    ["s3"], ["webdav"], ["mount", "-dir", "x"], ["msgBroker"],
     ["filer.sync", "-a", "a:1", "-b", "b:1"],
     ["filer.replicate", "-filer", "a:1", "-sink.dir", "x"],
-    ["server", "-filer"], ["server", "-s3"])
+    ["server", "-s3"])
 
 
 def _run(which, argv):
@@ -108,6 +110,13 @@ def test_scaffold_matches_reference(config):
 def test_unported_tiers_raise(argv):
     with pytest.raises(NotImplementedError, match="item 7"):
         port_cli.main(argv)
+
+
+@pytest.mark.parametrize("shard", ["x", "1", "2/2", "0/65", "a/b"])
+def test_filer_bad_shard_matches_reference(shard):
+    argv = ["filer", "-shard", shard]
+    assert _run("port", argv) == _run("ref", argv)
+    assert _run("port", argv)[0] == 1
 
 
 @pytest.mark.parametrize("cmd", ["volume", "server"])
@@ -352,3 +361,80 @@ def test_weed_server_upload_encode_download_matches_reference(tmp_path):
     assert len({run["shards"][f"{vid}.ec{s:02d}"] for s in range(14)}) > 5
     assert f"volume {vid}: ec.encode done" in run["shell"]
     assert run["shell"][-2:] == ["checked 9 needles, 0 issues", "unlocked"]
+
+
+def _filer_run(which, tmp_path, paths):
+    """One package's ``weed server -filer``, then its ``filer.copy`` of
+    ``paths`` and ``filer.cat`` of each copy."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
+               SEAWEEDFS_LOAD_JSON=str(tmp_path / "none.json"))
+    root = tmp_path / f"filer_{which}"
+    data = root / "data"
+    data.mkdir(parents=True)
+    mport, vport, fport = _free_port(), _free_port(), _free_port()
+    filer = f"127.0.0.1:{fport}"
+    argv = WEEDS[which] + [
+        "server", "-dir", str(data), "-master.port", str(mport),
+        "-volume.port", str(vport), "-filer", "-filer.port", str(fport)]
+    if which == "port":
+        argv += ["-device", "cpu"]
+    with open(root / "server.log", "wb") as log:
+        srv = subprocess.Popen(argv, cwd=str(root), env=env, stdout=log,
+                               stderr=subprocess.STDOUT)
+    try:
+        deadline = time.time() + 120
+        while True:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{mport}/dir/status",
+                        timeout=5) as r:
+                    status = json.load(r)
+                if any(rack["data_nodes"] for dc in status["data_centers"]
+                       for rack in dc["racks"]):
+                    urllib.request.urlopen(f"http://{filer}/",
+                                           timeout=5).close()
+                    break
+            except OSError:
+                pass
+            assert srv.poll() is None, (root / "server.log").read_text()
+            assert time.time() < deadline, "weed server never came up"
+            time.sleep(0.1)
+
+        def weed(*args, text=True):
+            p = subprocess.run(WEEDS[which] + list(args), cwd=str(root),
+                               env=env, capture_output=True, text=text,
+                               timeout=300)
+            assert p.returncode == 0, p.stderr[-3000:]
+            return p.stdout
+
+        copied = weed("filer.copy", "-filer", filer, *paths, "/docs/in")
+        cats = {os.path.basename(p): weed(
+            "filer.cat", "-filer", filer,
+            "/docs/in/" + os.path.basename(p), text=False)
+            for p in paths}
+        return copied.replace(str(tmp_path), "<tmp>"), cats
+    finally:
+        srv.terminate()
+        try:
+            srv.wait(30)
+        except subprocess.TimeoutExpired:
+            srv.kill()
+            srv.wait()
+
+
+def test_weed_server_filer_copy_cat_matches_reference(tmp_path):
+    files = tmp_path / "files"
+    files.mkdir()
+    paths = []
+    for i in range(3):
+        p = files / f"doc{i}.bin"
+        p.write_bytes(np.random.default_rng([17, i]).bytes(
+            1 + 700_000 * i))
+        paths.append(str(p))
+    got = {which: _filer_run(which, tmp_path, paths) for which in WEEDS}
+    assert got["port"] == got["ref"]
+    copied, cats = got["port"]
+    assert copied.splitlines() == [
+        f"<tmp>/files/doc{i}.bin -> /docs/in/doc{i}.bin" for i in range(3)]
+    for p in paths:
+        assert cats[os.path.basename(p)] == open(p, "rb").read()

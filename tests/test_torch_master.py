@@ -314,17 +314,23 @@ def test_what_waits_answers_501_or_raises(tmp_path):
         assert "# TYPE seaweedfs_master_heartbeat_total counter" in text
         assert ('seaweedfs_server_uptime_seconds{component="master"}'
                 in text)
-        # the filer's and S3's commands are not ported: they raise as any
-        # unknown name does
+        # the filer's commands are known and, with no filer configured,
+        # fail as the reference's do; S3's are not ported and raise as
+        # any unknown name does
         env = CommandEnv(m.url)
-        for line in ("fs.ls /", "fs.meta.cat /x", "s3.bucket.list"):
-            with pytest.raises(ValueError, match="unknown command"):
+        for line in ("fs.ls /", "fs.meta.cat /x"):
+            with pytest.raises(RuntimeError, match="no filer configured"):
                 run_command(env, line)
+            with pytest.raises(RuntimeError, match="no filer configured"):
+                ref_run_command(RefCommandEnv(m.url), line)
+        with pytest.raises(ValueError, match="unknown command"):
+            run_command(env, "s3.bucket.list")
         with pytest.raises(ValueError, match="unknown command"):
             ref_run_command(RefCommandEnv(m.url), "no.such.command")
         assert sorted(all_commands()) == sorted(
             name for name in ref_all_commands()
-            if not name.startswith(("fs.", "s3.")))
+            if not name.startswith("s3."))
+        assert any(name.startswith("fs.") for name in all_commands())
     finally:
         m.stop()
         ref.stop()
@@ -334,11 +340,9 @@ def test_what_waits_answers_501_or_raises(tmp_path):
     assert m.maintenance.policy == MaintenancePolicy()
     assert (m.telemetry.slo_error_rate,
             m.telemetry.slo_p99_seconds) == (0.05, 0.5)
-    for kw in ({"with_filer": True}, {"with_s3": True},
-               {"n_filer_shards": 2}):
-        with pytest.raises(NotImplementedError):
-            ClusterHarness(n_volume_servers=1, root=str(tmp_path),
-                           device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        ClusterHarness(n_volume_servers=1, root=str(tmp_path),
+                       device="cpu", with_s3=True)
     with ClusterHarness(n_volume_servers=1, root=str(tmp_path),
                         device="cpu", telemetry_interval=1.0,
                         slo_error_rate=0.05,

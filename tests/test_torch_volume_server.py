@@ -425,12 +425,13 @@ def test_what_waits_answers_501(tmp_path):
                       pulse_seconds=60)
     vs.start()
     try:
-        for method, path in (("POST", "/admin/query"),
-                             ("POST", "/admin/tier/upload"),
+        for method, path in (("POST", "/admin/tier/upload"),
                              ("POST", "/admin/tier/download")):
             assert call(vs.url, method, path, b"{}")[0] == 501, path
-        # fsck and the status page now answer, and the tail of a volume
-        # the server does not hold fails as the reference's does
+        # fsck, the status page and the query now answer, and the tail
+        # of a volume the server does not hold fails as the reference's
+        # does
+        assert call(vs.url, "POST", "/admin/query", b"{}")[0] == 200
         assert call(vs.url, "POST", "/admin/fsck", b"{}")[0] == 200
         assert call(vs.url, "GET", "/ui")[0] == 200
         assert call(vs.url, "GET", "/admin/tail?volume=1")[0] == 500
