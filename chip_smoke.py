@@ -308,9 +308,39 @@ phase 11 runs the link-aware default.
     no warm volume, so its launches are printed, not required. Its
     ``leader`` JSON line.
 
+20. S3 on the card: phase 17's cluster of ``weed`` processes with one
+    ``weed filer -store sqlite -collection s3data`` and one ``weed s3``
+    over it, driven only through ``weed`` processes and HTTP: an
+    identity set with ``s3.configure`` through ``weed shell`` and taken
+    up by the gateway's reload (anonymous requests denied from then
+    on), every later request sigv4-signed with the port's own
+    ``sign_request_v4``; objects of 1–24 MiB made from ``--seed``
+    written by four threads into one grown volume of the collection
+    until its ``.dat`` holds at least 95 % of the limit (those over
+    8 MiB as multipart uploads, the others as plain PUTs, one as an
+    aws-chunked streaming upload; ETags checked); ``ListObjectsV2``
+    totals equal to what was written and every object back through
+    ``GET``, byte-exact; ``ec.encode`` through ``weed shell`` hashed
+    against ``write_ec_files`` (every launch compile-time, one a
+    ``device`` route); shards {0, 5, 11, 13} deleted, the filer
+    restarted over its sqlite store and every object read through the
+    gateway on 8 threads, whole and one ranged GET each (p50/p99, MB/s;
+    gf_swar launched in its run-time form); ``ec.rebuild`` (rebuilt
+    shards hashing equal, every launch run-time) and the objects read
+    again; ``weed filer.sync -oneWay`` to a second ``weed filer
+    -collection s3copy``, started at the present, objects put through
+    S3 after it started read back from the second filer byte-exact; the
+    cloud tier: a ``tier`` volume filled by ``weed upload`` past 64 MiB,
+    ``volume.tier.upload -dest s3://tier/<key>`` to this gateway with
+    the credentials of a ``backend.json`` made from ``weed scaffold
+    -config backend``, every needle read through its volume server from
+    the ``S3Backend``, and ``volume.tier.download``, the ``.dat`` hashing
+    equal to the one uploaded. Launches are the server processes' own
+    counters. Its ``s3`` JSON line.
+
 It prints ``read_decode``, ``routing``, ``multigpu``, ``volume_server``,
-``cluster``, ``maintenance``, ``fleet``, ``cli_cluster``, ``filer`` and
-``leader`` JSON lines,
+``cluster``, ``maintenance``, ``fleet``, ``cli_cluster``, ``filer``,
+``leader`` and ``s3`` JSON lines,
 one JSON line describing
 every kernel,
 then, last,
@@ -3363,7 +3393,7 @@ class WeedCluster:
     counters; a phase spawns whatever else it needs beside them. The
     step helpers read those counters and the servers' codec routes
     around each step. ``close`` stops every child and prints each log's
-    tail. Phases 17 and 18 drive the main path through it."""
+    tail. Phases 17, 18 and 20 drive the main path through it."""
 
     def __init__(self, args, smi, name: str):
         self.smi = smi
@@ -3443,6 +3473,40 @@ class WeedCluster:
             check(time.time() < deadline, "the weed cluster never came up")
             time.sleep(0.1)
         return time.perf_counter() - t0
+
+    def wait_answer(self, name, proc, url):
+        """Wait until child ``name`` answers a GET of ``url`` (with any
+        status), failing if it exits or stays silent for 60 s."""
+        from seaweedfs_tpu_torch.util import http
+
+        deadline = time.time() + 60
+        while True:
+            check(proc.poll() is None, f"weed {name} exited "
+                  f"{proc.returncode}")
+            try:
+                http.request("GET", url, timeout=5)
+                return
+            except http.HttpError as e:
+                if e.status:
+                    return
+            except OSError:
+                pass
+            check(time.time() < deadline, f"weed {name} never answered")
+            time.sleep(0.1)
+
+    def start_filer(self, name, port, *flags):
+        """One ``weed filer`` child on ``port`` over this cluster's
+        master, up once its root lists."""
+        proc = self.spawn(name, ["filer", "-ip", "127.0.0.1", "-port",
+                                 str(port), "-master", self.m, *flags])
+        url = f"127.0.0.1:{port}"
+        self.wait_answer(name, proc, f"{url}/?limit=1")
+        return proc, url
+
+    @staticmethod
+    def stop(proc):
+        proc.terminate()
+        proc.wait(30)
 
     def ec_map(self, vid):
         from seaweedfs_tpu_torch.util import http
@@ -3855,27 +3919,6 @@ def phase_filer(args, smi):
                  "processes": "1 master + 4 volume servers + 1 filer, "
                               "then 2 filer shards"}
 
-    def start_filer(name, port, *flags):
-        """One ``weed filer`` child on ``port``, up once its root lists."""
-        proc = wc.spawn(name, ["filer", "-ip", "127.0.0.1", "-port",
-                               str(port), "-master", wc.m, *flags])
-        url = f"127.0.0.1:{port}"
-        deadline = time.time() + 60
-        while True:
-            check(proc.poll() is None, f"weed {name} exited "
-                  f"{proc.returncode}")
-            try:
-                http.get_json(f"{url}/?limit=1")
-                return proc, url
-            except (http.HttpError, OSError):
-                pass
-            check(time.time() < deadline, f"weed {name} never answered")
-            time.sleep(0.1)
-
-    def stop(proc):
-        proc.terminate()
-        proc.wait(30)
-
     def entry_vids(path):
         meta = http.get_json(f"{fs_url}{path}?meta=true")
         return {int(c["file_id"].split(",")[0]) for c in meta["chunks"]}
@@ -3908,7 +3951,7 @@ def phase_filer(args, smi):
         filer_flags = ("-store", "sqlite", "-dbPath", db,
                        "-collection", col)
         t0 = time.perf_counter()
-        filer_proc, fs_url = start_filer("filer", fport, *filer_flags)
+        filer_proc, fs_url = wc.start_filer("filer", fport, *filer_flags)
         row["filer_start_s"] = time.perf_counter() - t0
         counts0 = wc.counts_now("POST")
         on_card(f"weed master {m}, four weed volume -device cuda and weed "
@@ -4066,8 +4109,9 @@ def phase_filer(args, smi):
                                {"volume": vid, "collection": col,
                                 "shard_ids": [sid]})
         wc.wait_shards(vid, set(range(C.TOTAL_SHARDS)) - set(lost))
-        stop(filer_proc)
-        filer_proc, _ = start_filer("filer-restarted", fport, *filer_flags)
+        wc.stop(filer_proc)
+        filer_proc, _ = wc.start_filer("filer-restarted", fport,
+                                       *filer_flags)
         names = sorted(n for n in files if vid in vids[n])
         before = wc.step_begin()
         deg = get_all("degraded read", names)
@@ -4130,7 +4174,7 @@ def phase_filer(args, smi):
             if len(creates) == len(files) or time.time() > deadline:
                 break
             time.sleep(0.2)
-        stop(tail)
+        wc.stop(tail)
         check(creates == {n: 1 for n in files},
               f"filer.meta.tail: {len(creates)} of {len(files)} files with "
               "one create each")
@@ -4200,7 +4244,7 @@ def phase_filer(args, smi):
         # 8. the sharded ring: two weed filer -shard i/2 processes
         shard_urls = []
         for i in range(2):
-            _, u = start_filer(
+            _, u = wc.start_filer(
                 f"filer-shard{i}", free_port(), "-store", "sqlite",
                 "-dbPath", os.path.join(root, f"shard{i}.db"),
                 "-shard", f"{i}/2")
@@ -4378,6 +4422,564 @@ def phase_leader(args, smi, reset_counts, counters):
     return row, path
 
 
+def aws_chunked(ident, amz_date, seed_sig, payload, chunk=MIB):
+    """An aws-chunked body of ``payload`` whose chunk signatures chain
+    from ``seed_sig``, the request's header signature, as an SDK's
+    streaming sigv4 upload sends it."""
+    import hmac
+
+    from seaweedfs_tpu_torch.s3.auth import _sha256, _signing_key
+
+    date = amz_date[:8]
+    scope = f"{date}/us-east-1/s3/aws4_request"
+    key = _signing_key(ident.secret_key, date, "us-east-1", "s3")
+    empty = hashlib.sha256(b"").hexdigest()
+
+    def sign(prev, data):
+        sts = "\n".join(["AWS4-HMAC-SHA256-PAYLOAD", amz_date, scope, prev,
+                         empty, _sha256(data)])
+        return hmac.new(key, sts.encode(), hashlib.sha256).hexdigest()
+
+    pieces, prev = [], seed_sig
+    for off in range(0, len(payload), chunk):
+        piece = payload[off:off + chunk]
+        prev = sign(prev, piece)
+        pieces += [f"{len(piece):x};chunk-signature={prev}\r\n".encode(),
+                   piece, b"\r\n"]
+    pieces.append(f"0;chunk-signature={sign(prev, b'')}\r\n\r\n".encode())
+    return b"".join(pieces)
+
+
+class S3Client:
+    """sigv4-signed requests to one S3 gateway with the port's own
+    ``sign_request_v4`` (``UNSIGNED-PAYLOAD``, as ``S3Backend`` sends),
+    and the aws-chunked streaming PUT."""
+
+    def __init__(self, url, ident):
+        self.url, self.ident = url, ident
+        self.host = url.split("://", 1)[-1]
+
+    def headers(self, method, path, query, extra=None, sha="UNSIGNED-PAYLOAD"):
+        from seaweedfs_tpu_torch.s3.auth import sign_request_v4
+
+        amz = time.strftime("%Y%m%dT%H%M%SZ", time.gmtime())
+        h = {"Host": self.host, "X-Amz-Date": amz,
+             "X-Amz-Content-Sha256": sha, **(extra or {})}
+        h["Authorization"] = sign_request_v4(
+            self.ident, method, path, {k: [v] for k, v in query.items()},
+            h, b"", amz)
+        return h
+
+    def target(self, path, query):
+        import urllib.parse
+
+        qs = "?" + urllib.parse.urlencode(query) if query else ""
+        return f"http://{self.host}{path}{qs}"
+
+    def call(self, method, path, body=b"", query=None, extra=None):
+        """The body and headers of one signed request."""
+        from seaweedfs_tpu_torch.util import http
+
+        query = query or {}
+        with http.request_stream(
+                method, self.target(path, query), body or None,
+                self.headers(method, path, query, extra),
+                timeout=600) as r:
+            return r.read(), r.headers
+
+    def put_streaming(self, path, payload):
+        from seaweedfs_tpu_torch.s3.auth import STREAMING_PAYLOAD
+        from seaweedfs_tpu_torch.util import http
+
+        h = self.headers("PUT", path, {}, {
+            "X-Amz-Decoded-Content-Length": str(len(payload)),
+            "Content-Encoding": "aws-chunked"}, sha=STREAMING_PAYLOAD)
+        body = aws_chunked(self.ident, h["X-Amz-Date"],
+                           h["Authorization"].rsplit("Signature=", 1)[1],
+                           payload)
+        with http.request_stream("PUT", self.target(path, {}), body, h,
+                                 timeout=600) as r:
+            r.read()
+            return r.headers
+
+
+def xml_texts(body: bytes, tag: str) -> list[str]:
+    """The texts of every ``tag`` element of an S3 XML answer."""
+    import xml.etree.ElementTree as ET
+
+    return [e.text or "" for e in ET.fromstring(body).iter()
+            if e.tag.rsplit("}", 1)[-1] == tag]
+
+
+def phase_s3(args, smi):
+    """Phase 20: S3 on the card — phase 17's cluster of ``weed``
+    processes (``WeedCluster``) with one ``weed filer -store sqlite
+    -collection s3data`` and one ``weed s3`` over it, driven only
+    through ``weed`` processes and HTTP: an identity set with
+    ``s3.configure`` through ``weed shell`` and taken up by the
+    gateway's reload (anonymous requests then denied), every later
+    request sigv4-signed with the port's ``sign_request_v4``; objects of
+    1–24 MiB made from ``--seed`` written by four threads into one grown
+    volume of ``s3data`` until its ``.dat`` holds at least 95 % of
+    ``--volume-mib`` (objects over 8 MiB as multipart uploads of 8 MiB
+    parts, the others as plain PUTs, one as an aws-chunked streaming
+    upload); ``ListObjectsV2`` totals and every object through ``GET``
+    byte-exact; ``ec.encode`` through ``weed shell`` hashed against
+    ``write_ec_files``; shards {0, 5, 11, 13} deleted, the filer
+    restarted over its sqlite store, and every object read through the
+    gateway on 8 threads, whole and one ranged GET each; ``ec.rebuild``
+    hashed and the objects read again; ``weed filer.sync -oneWay`` to a
+    second ``weed filer -collection s3copy`` started at the present
+    (its checkpoint in the target's KV set to now), objects put through
+    S3 then read back from the second filer byte-exact; and the cloud
+    tier: one ``tier`` volume filled by ``weed upload`` past 64 MiB,
+    ``volume.tier.upload -dest s3://<bucket>/<key>`` to this gateway
+    with the credentials of ``backend.json`` (from ``weed scaffold
+    -config backend``), every needle read through the volume server
+    from the ``S3Backend``, and ``volume.tier.download``, the ``.dat``
+    hashing equal to the one uploaded. gf_swar launches in the volume
+    server processes, read from their own counters around each step.
+    Returns the phase's row and the launch counts of its path, summed
+    over the servers."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from seaweedfs_tpu_torch.filer import sharding
+    from seaweedfs_tpu_torch.s3.auth import Identity
+    from seaweedfs_tpu_torch.storage.erasure_coding import (
+        constants as C,
+        write_ec_files,
+        write_sorted_file_from_idx,
+    )
+    from seaweedfs_tpu_torch.util import http
+
+    phase_t0 = time.perf_counter()
+    wc = WeedCluster(args, smi, "s3")
+    root, on_card = wc.root, wc.on_card
+    limit = args.volume_mib * MIB
+    lost = [0, 5, 11, 13]
+    col, bucket = "s3data", "chip"
+    ident = Identity("chip", "AKCHIPSMOKE", "chip-smoke-secret",
+                     ["Admin"])
+    row: dict = {"card": smi, "volume_size_limit_mb": args.volume_mib,
+                 "collection": col, "bucket": bucket,
+                 "processes": "1 master + 4 volume servers + 1 filer + "
+                              "1 s3 gateway, then a second filer and "
+                              "filer.sync"}
+
+    def get_all(label, ranged):
+        """Every object through the gateway's GET on 8 threads,
+        byte-exact, and with ``ranged`` one ranged GET each too."""
+        def one(key):
+            data = objects[key]
+            t0 = time.perf_counter()
+            got, _ = s3.call("GET", f"/{bucket}/{key}")
+            lat = [time.perf_counter() - t0]
+            check(got == data, f"{label}: {key} differs")
+            if ranged:
+                lo = int(len(data) * 0.3)
+                hi = min(len(data) - 1, lo + 3 * MIB + 12345)
+                t0 = time.perf_counter()
+                got, hdr = s3.call("GET", f"/{bucket}/{key}",
+                                   extra={"Range": f"bytes={lo}-{hi}"})
+                lat.append(time.perf_counter() - t0)
+                check(got == data[lo:hi + 1],
+                      f"{label}: {key} bytes {lo}-{hi} differ")
+            return lat, len(got) + (len(data) if ranged else 0)
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            done = list(pool.map(one, sorted(objects)))
+        wall = time.perf_counter() - t0
+        whole = [lat[0] for lat, _ in done]
+        moved = sum(n for _, n in done)
+        out = {"objects": len(done), "bytes": moved, "threads": 8,
+               "wall_s": wall, "MBps": moved / wall / 1e6,
+               "p50_ms": percentile_ms(whole, 50),
+               "p99_ms": percentile_ms(whole, 99)}
+        if ranged:
+            parts = [lat[1] for lat, _ in done]
+            out.update(ranged_p50_ms=percentile_ms(parts, 50),
+                       ranged_p99_ms=percentile_ms(parts, 99))
+        return out
+
+    try:
+        row["start_s"] = wc.start(args.volume_mib)
+        m, urls = wc.m, wc.urls
+        fport = free_port()
+        filer_flags = ("-store", "sqlite", "-dbPath",
+                       os.path.join(root, "filer.db"), "-collection", col)
+        filer_proc, fs_url = wc.start_filer("filer", fport, *filer_flags)
+        check(http.get_json(f"{m}/vol/grow?count=1&collection={col}")
+              == {"count": 1}, f"grow one volume of {col}")
+        sport = free_port()
+        s3_url = f"127.0.0.1:{sport}"
+        t0 = time.perf_counter()
+        s3_proc = wc.spawn("s3", ["s3", "-filer", fs_url, "-port",
+                                  str(sport)])
+        wc.wait_answer("s3", s3_proc, f"{s3_url}/metrics")
+        row["s3_start_s"] = time.perf_counter() - t0
+        counts0 = wc.counts_now("POST")
+
+        # 1. the identity, through weed shell and the gateway's reload
+        out, _ = wc.cli("shell", "-master", m, "-c",
+                        f"s3.configure -filer {fs_url} -user {ident.name} "
+                        f"-access_key {ident.access_key} -secret_key "
+                        f"{ident.secret_key} -actions Admin")
+        check(f"configured s3 identity {ident.name}" in out,
+              f"s3.configure: {out}")
+        s3 = S3Client(s3_url, ident)
+        t0 = time.perf_counter()
+        while True:  # the reload polls the filer at most every 2 s
+            try:
+                http.request("GET", f"{s3_url}/")
+                denied = None
+            except http.HttpError as e:
+                denied = e
+            if denied is not None and denied.status == 403:
+                break
+            check(time.perf_counter() - t0 < 30, "the gateway never took "
+                  f"up the identity: an anonymous GET answered {denied}")
+            time.sleep(0.2)
+        row["identity_reload_s"] = time.perf_counter() - t0
+        s3.call("PUT", f"/{bucket}")
+        check(bucket in xml_texts(s3.call("GET", "/")[0], "Name"),
+              f"ListBuckets holds {bucket}")
+        on_card(f"weed master {m}, four weed volume -device cuda, weed "
+                f"filer {fs_url} (-store sqlite -collection {col}) and weed "
+                f"s3 {s3_url}, each its own process: servers up in "
+                f"{row['start_s']:.1f} s, the gateway in "
+                f"{row['s3_start_s']:.1f} s; s3.configure through weed "
+                f"shell, anonymous requests denied "
+                f"{row['identity_reload_s']:.2f} s later")
+
+        # 2. write: four threads into one grown volume of the collection
+        rng = np.random.default_rng([args.seed, 20])
+        objects: dict[str, bytes] = {}
+        how: dict[str, str] = {}
+        # a multipart object's parts stay in the .dat beside the object
+        # the gateway assembles from them
+        usage, target = 0, int(0.975 * limit)
+        while target - usage >= MIB:
+            n = int(rng.integers(MIB, 24 * MIB + 1))
+            cost = 2 * n if n > 8 * MIB else n
+            if usage + cost > target:  # the last ones fill what is left
+                n = cost = min(target - usage, 8 * MIB)
+            k = len(objects)
+            key = f"obj/p{k % 4}/o{k:04d}.bin"
+            objects[key] = np.random.default_rng([args.seed, 20, k]).bytes(n)
+            how[key] = ("multipart" if n > 8 * MIB else
+                        "put" if "streaming" in how.values()
+                        else "streaming")
+            usage += cost
+        check(any(h == "streaming" for h in how.values()),
+              "one object goes as an aws-chunked streaming upload")
+        def put(key, data, kind):
+            """One object through the gateway, its ETag checked."""
+            path = f"/{bucket}/{key}"
+            if kind == "put":
+                _, hdr = s3.call("PUT", path, data)
+                etag = hdr.get("ETag", "")
+                check(etag == f'"{hashlib.md5(data).hexdigest()}"',
+                      f"PUT {key}: ETag {etag}")
+            elif kind == "streaming":
+                hdr = s3.put_streaming(path, data)
+                etag = hdr.get("ETag", "")
+                check(etag == f'"{hashlib.md5(data).hexdigest()}"',
+                      f"streaming PUT {key}: ETag {etag}")
+            else:
+                body, _ = s3.call("POST", path, query={"uploads": ""})
+                [upload] = xml_texts(body, "UploadId")
+                parts = []
+                for i, off in enumerate(range(0, len(data), 8 * MIB), 1):
+                    _, hdr = s3.call("PUT", path, data[off:off + 8 * MIB],
+                                     {"partNumber": str(i),
+                                      "uploadId": upload})
+                    parts.append((i, hdr.get("ETag", "")))
+                done = "".join(f"<Part><PartNumber>{i}</PartNumber><ETag>"
+                               f"{e}</ETag></Part>" for i, e in parts)
+                body, _ = s3.call(
+                    "POST", path, (f"<CompleteMultipartUpload>{done}"
+                                   "</CompleteMultipartUpload>").encode(),
+                    {"uploadId": upload})
+                [etag] = xml_texts(body, "ETag")
+                check(etag == f'"{hashlib.md5(data).hexdigest()}'
+                      f'-{len(parts)}"', f"multipart {key}: ETag {etag}")
+
+        before = wc.counts_now()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(4) as pool:
+            list(pool.map(lambda k: put(k, objects[k], how[k]),
+                          sorted(objects)))
+        put_s = time.perf_counter() - t0
+        total = sum(len(d) for d in objects.values())
+        listed, token = {}, ""
+        while True:
+            q = {"list-type": "2", "prefix": "obj/"}
+            if token:
+                q["continuation-token"] = token
+            body, _ = s3.call("GET", f"/{bucket}", query=q)
+            listed.update(zip(xml_texts(body, "Key"),
+                              map(int, xml_texts(body, "Size"))))
+            token = next(iter(xml_texts(body, "NextContinuationToken")), "")
+            if not token:
+                break
+        check(listed == {k: len(d) for k, d in objects.items()},
+              f"ListObjectsV2: {len(listed)} keys, {sum(listed.values())} "
+              f"bytes; wrote {len(objects)}, {total}")
+        vids = set()
+        for key in objects:
+            meta = http.get_json(f"{fs_url}/buckets/{bucket}/{key}"
+                                 "?meta=true")
+            vids |= {int(c["file_id"].split(",")[0])
+                     for c in meta["chunks"]}
+        check(len(vids) == 1, f"the objects went to one volume: "
+              f"{sorted(vids)}")
+        vid = vids.pop()
+        [dat] = wc.shard_files(vid, ".dat", col)
+        dat_bytes = os.path.getsize(dat)
+        check(dat_bytes >= 0.95 * limit, f"volume {vid}'s .dat is "
+              f"{dat_bytes} bytes, under 95 % of {limit}")
+        kinds = {h: sum(1 for v in how.values() if v == h)
+                 for h in ("put", "multipart", "streaming")}
+        row["write"] = {"objects": len(objects), "bytes": total, **kinds,
+                        "threads": 4, "seconds": put_s,
+                        "MBps": total / put_s / 1e6, "volume": vid,
+                        "dat_bytes": dat_bytes,
+                        "full_percent": 100 * dat_bytes / limit,
+                        "launches": wc.launched(before, wc.counts_now(),
+                                                "gf_swar")}
+        row["read"] = get_all("read", ranged=False)
+        on_card(f"{len(objects)} objects ({total} bytes: {kinds['put']} "
+                f"PUTs, {kinds['multipart']} multipart uploads of 8 MiB "
+                f"parts, {kinds['streaming']} aws-chunked streaming PUT), "
+                f"sigv4-signed, four threads, through the gateway into "
+                f"volume {vid} of {col}: {put_s:.1f} s = "
+                f"{row['write']['MBps']:.1f} MB/s; .dat {dat_bytes} bytes = "
+                f"{row['write']['full_percent']:.2f} % of {args.volume_mib} "
+                f"MiB; ListObjectsV2 totals equal; every object back "
+                f"byte-exact, {row['read']['MBps']:.1f} MB/s on 8 threads")
+
+        # 3. ec.encode of the volume through weed shell
+        expect_dir = os.path.join(root, "expect")
+        os.makedirs(expect_dir)
+        base = os.path.join(expect_dir, str(vid))
+        os.link(dat, base + ".dat")
+        shutil.copyfile(dat[:-4] + ".idx", base + ".idx")
+        write_ec_files(base, device="cuda")
+        write_sorted_file_from_idx(base)
+        want = {ext: sha256_file(base + ext) for ext in
+                [C.to_ext(s) for s in range(C.TOTAL_SHARDS)] + [".ecx"]}
+        for ext in want:
+            os.remove(base + ext)
+        before = wc.step_begin()
+        out, sec = wc.cli("shell", "-master", m, "-c",
+                          f"lock; ec.encode -volumeId {vid} -collection "
+                          f"{col} -quietFor 0s; unlock")
+        after = wc.counts_now()
+        check(f"volume {vid}: ec.encode done" in out, f"ec.encode: {out}")
+        wc.wait_shards(vid, set(range(C.TOTAL_SHARDS)))
+        for ext, digest in want.items():
+            paths_ext = wc.shard_files(vid, ext, col)
+            check(paths_ext and all(sha256_file(p) == digest
+                                    for p in paths_ext),
+                  f"{ext} at {paths_ext} differs from write_ec_files'")
+        enc = wc.step(before, after, "ec.encode", "rs10x4")
+        row["ec_encode"] = {"shell_seconds": sec,
+                            "shell_GBps_incl_start": dat_bytes / sec / 1e9,
+                            **enc}
+        on_card(f"weed shell ec.encode -volumeId {vid} -collection {col}: "
+                f"{sec:.3f} s of shell; gf_swar {enc['launches']} launches "
+                f"in the servers ({enc['rs10x4']} compile-time); every "
+                ".ec00-.ec13 and .ecx hash equal to write_ec_files")
+
+        # 4. degraded reads through the gateway, the filer restarted
+        for sid in lost:
+            for u in wc.ec_map(vid)[sid]:
+                http.post_json(f"{u}/admin/ec/delete_shards",
+                               {"volume": vid, "collection": col,
+                                "shard_ids": [sid]})
+        wc.wait_shards(vid, set(range(C.TOTAL_SHARDS)) - set(lost))
+        wc.stop(filer_proc)
+        filer_proc, _ = wc.start_filer("filer-restarted", fport,
+                                       *filer_flags)
+        before = wc.step_begin()
+        deg = get_all("degraded read", ranged=True)
+        after = wc.counts_now()
+        deg.update(wc.step(before, after, "degraded reads"))
+        check(deg["launches"] > 0 and deg["rs10x4"] == 0,
+              f"degraded reads: {deg}: gf_swar launched, run-time form")
+        row["degraded"] = deg
+        on_card(f"{deg['objects']} objects through the gateway with shards "
+                f"{lost} lost, 8 threads, whole and one ranged GET each: "
+                f"whole p50 {deg['p50_ms']:.2f} ms, p99 {deg['p99_ms']:.2f} "
+                f"ms, ranged p99 {deg['ranged_p99_ms']:.2f} ms, "
+                f"{deg['MBps']:.1f} MB/s; gf_swar {deg['launches']} "
+                f"run-time launches, {deg['host_dispatches']} host "
+                "dispatches; every byte exact")
+
+        # 5. ec.rebuild, then the objects again
+        before = wc.step_begin()
+        out, sec = wc.cli("shell", "-master", m, "-c",
+                          f"lock; ec.rebuild -volumeId {vid} -collection "
+                          f"{col}; unlock")
+        after = wc.counts_now()
+        check(f"rebuilt shards {lost}" in out, f"ec.rebuild: {out}")
+        wc.wait_shards(vid, set(range(C.TOTAL_SHARDS)))
+        for sid in lost:
+            ext = C.to_ext(sid)
+            paths_ext = wc.shard_files(vid, ext, col)
+            check(paths_ext and all(sha256_file(p) == want[ext]
+                                    for p in paths_ext),
+                  f"rebuilt {ext} at {paths_ext} differs")
+        reb = wc.step(before, after, "ec.rebuild", "run-time")
+        row["ec_rebuild"] = {"shell_seconds": sec, **reb}
+        row["reread"] = get_all("read after the rebuild", ranged=False)
+        on_card(f"weed shell ec.rebuild of {lost}: {sec:.3f} s of shell; "
+                f"gf_swar {reb['launches']} run-time launches; rebuilt "
+                f"shards hash equal; every object read again byte-exact, "
+                f"p99 {row['reread']['p99_ms']:.2f} ms")
+
+        # 6. filer.sync to a second filer, from the present on
+        f2_proc, fs2_url = wc.start_filer(
+            "filer2", free_port(), "-store", "sqlite", "-dbPath",
+            os.path.join(root, "filer2.db"), "-collection", "s3copy")
+        src = sharding.ring_of(fs_url).urls[0]
+        http.request("PUT", f"{fs2_url}/__kv/sync.offset.{src}",
+                     str(time.time_ns()).encode())
+        sync_proc = wc.spawn("filer-sync", [
+            "filer.sync", "-a", fs_url, "-b", fs2_url, "-oneWay",
+            "-pollSeconds", "0.2"])
+        fresh = {}
+        for i, n in enumerate((3 * MIB, 5 * MIB + 77, 11 * MIB + 5)):
+            fresh[f"sync/s{i}.bin"] = np.random.default_rng(
+                [args.seed, 206, i]).bytes(n)
+        t0 = time.perf_counter()
+        for key, data in fresh.items():
+            put(key, data, "multipart" if len(data) > 8 * MIB else "put")
+        written_s = time.perf_counter() - t0
+        deadline = time.time() + 60
+        pending = set(fresh)
+        while pending:
+            check(sync_proc.poll() is None, "weed filer.sync exited")
+            for key in sorted(pending):
+                try:
+                    got = http.request(
+                        "GET", f"{fs2_url}/buckets/{bucket}/{key}")
+                except http.HttpError:
+                    continue
+                if got == fresh[key]:
+                    pending.discard(key)
+            check(time.time() < deadline, f"filer.sync: {sorted(pending)} "
+                  "never reached the second filer byte-exact")
+            time.sleep(0.1)
+        lag = time.perf_counter() - t0 - written_s
+        try:
+            replayed = http.get_json(f"{fs2_url}/buckets/{bucket}/obj/p0/"
+                                     "?limit=1000").get("Entries")
+        except http.HttpError as e:
+            check(e.status == 404, f"the second filer's /obj/p0: {e}")
+            replayed = None
+        check(not replayed, "filer.sync started at the present: the "
+              "objects written before it are not replayed")
+        wc.stop(sync_proc)
+        wc.stop(f2_proc)
+        row["sync"] = {"objects": len(fresh),
+                       "bytes": sum(map(len, fresh.values())),
+                       "write_s": written_s, "settled_after_s": lag}
+        on_card(f"weed filer.sync -oneWay {fs_url} -> {fs2_url} (-collection "
+                f"s3copy): {len(fresh)} objects put through S3 after it "
+                f"started read back from the second filer byte-exact "
+                f"{lag:.2f} s after the last PUT returned")
+
+        # 7. the cloud tier: a tier volume to this gateway and back
+        scaffold, _ = wc.cli("scaffold", "-config", "backend")
+        backend = json.loads(scaffold)
+        backend["s3"]["default"].update(endpoint=f"http://{s3_url}",
+                                        access_key=ident.access_key,
+                                        secret_key=ident.secret_key)
+        with open(os.path.join(root, "backend.json"), "w") as f:
+            json.dump(backend, f)
+        s3.call("PUT", "/tier")
+        check(http.get_json(f"{m}/vol/grow?count=1&collection=tier")
+              == {"count": 1}, "grow one volume of tier")
+        tdir = os.path.join(root, "tierfiles")
+        os.makedirs(tdir)
+        tfiles = {}
+        for i in range(36):
+            p = os.path.join(tdir, f"t{i:02d}.bin")
+            data = np.random.default_rng([args.seed, 207, i]).bytes(
+                2 * MIB - 1000 * i)
+            with open(p, "wb") as f:
+                f.write(data)
+            tfiles[p] = data
+        out, _ = wc.cli("upload", "-master", m, "-collection", "tier",
+                        *tfiles)
+        uploaded = [json.loads(line) for line in out.splitlines()]
+        tvids = {int(u["fid"].split(",")[0]) for u in uploaded}
+        check(len(uploaded) == len(tfiles) and len(tvids) == 1,
+              f"the tier files in one volume: {tvids}")
+        tvid = tvids.pop()
+        [tdat] = wc.shard_files(tvid, ".dat", "tier")
+        holder = urls[[os.path.dirname(tdat) == os.path.join(root, f"vs{i}")
+                       for i in range(4)].index(True)]
+        tier_bytes = os.path.getsize(tdat)
+        check(tier_bytes >= 64 * MIB, f"tier volume {tvid}: {tier_bytes} "
+              "bytes, under 64 MiB")
+        tier_sha = sha256_file(tdat)
+        dest = f"s3://tier/tier_{tvid}.dat"
+        out, up_s = wc.cli("shell", "-master", m, "-c",
+                           f"lock; volume.tier.upload -volumeId {tvid} "
+                           f"-server {holder} -dest {dest}; unlock")
+        check(f"volume {tvid} tiered to {dest} ({tier_bytes} bytes)" in out,
+              f"volume.tier.upload: {out}")
+        check(not os.path.exists(tdat), f"{tdat} left after the upload")
+        got, _ = s3.call("GET", f"/tier/tier_{tvid}.dat")
+        check(hashlib.sha256(got).hexdigest() == tier_sha,
+              "the tiered object differs from the .dat")
+        del got
+        t0 = time.perf_counter()
+
+        def read_tiered(u):
+            data = http.request("GET", f"{holder}/{u['fid']}")
+            check(data == tfiles[u["fileName"]],
+                  f"tiered needle {u['fid']} differs")
+            return len(data)
+
+        with ThreadPoolExecutor(8) as pool:
+            tier_read = sum(pool.map(read_tiered, uploaded))
+        tier_read_s = time.perf_counter() - t0
+        out, down_s = wc.cli("shell", "-master", m, "-c",
+                             f"lock; volume.tier.download -volumeId {tvid} "
+                             f"-server {holder}; unlock")
+        check(f"volume {tvid} un-tiered" in out,
+              f"volume.tier.download: {out}")
+        check(sha256_file(tdat) == tier_sha,
+              "the downloaded .dat differs from the one uploaded")
+        row["tier"] = {"volume": tvid, "dat_bytes": tier_bytes,
+                       "needles": len(uploaded), "upload_shell_s": up_s,
+                       "read_s": tier_read_s,
+                       "read_MBps": tier_read / tier_read_s / 1e6,
+                       "download_shell_s": down_s}
+        on_card(f"volume.tier.upload of tier volume {tvid} ({tier_bytes} "
+                f"bytes) to {dest} through this gateway (credentials from "
+                f"backend.json): {up_s:.2f} s of shell; its {len(uploaded)} "
+                f"needles read through {holder} from the S3 backend in "
+                f"{tier_read_s:.2f} s = {row['tier']['read_MBps']:.1f} MB/s, "
+                f"byte-exact; volume.tier.download {down_s:.2f} s, the "
+                ".dat hashing equal to the one uploaded")
+
+        counts1 = wc.counts_now()
+        path = {name: wc.launched(counts0, counts1, name)
+                for name in counts1[urls[0]][0]}
+        row["launches"] = wc.step(counts0, counts1, "the phase")
+        row["phase_s"] = time.perf_counter() - phase_t0
+        on_card(f"the path's launch counts in the servers {path}; phase "
+                f"20 took {row['phase_s']:.1f} s")
+    finally:
+        wc.close()
+    return row, path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4459,6 +5061,7 @@ PATH_KERNELS = {
     "fleet": ("gf_swar",),
     "cli_cluster": ("gf_swar",),
     "filer": ("gf_swar",),
+    "s3": ("gf_swar",),
     # the leader round seeds no warm volume: its launches are read, not
     # required
     "leader": (),
@@ -5740,6 +6343,11 @@ def run(args, torch, here: str) -> int:
             args, smi, reset_counts, counters)
         check_path("leader")
         say(json.dumps({"leader": leader_row}))
+
+        # -- 20. S3 on the card, as weed processes ---------------------------
+        s3_row, path_launches["s3"] = phase_s3(args, smi)
+        check_path("s3")
+        say(json.dumps({"s3": s3_row}))
     finally:
         shutil.rmtree(batch_dir, ignore_errors=True)
         shutil.rmtree(keep_dir, ignore_errors=True)

@@ -41,10 +41,10 @@ the request-path analog of bench.py's codec trajectory:
   ``cluster.health`` shows load numbers next to SLO burn.
 
 The port's copy of ``seaweedfs_tpu/command/benchmark.py``, on the port's
-client, master ring, persona ledger and benchgate. The S3 gateway, mount
-and broker tiers are not ported yet, so the ``s3``, ``fuse`` and
-``broker`` personas and the front doors they need raise
-``NotImplementedError``; the ``native`` persona runs.
+client, master ring, persona ledger and benchgate. The mount and broker
+tiers are not ported yet, so the ``fuse`` and ``broker`` personas and the
+front doors they need raise ``NotImplementedError``; the ``native`` and
+``s3`` personas run.
 """
 
 from __future__ import annotations
@@ -99,7 +99,7 @@ LAST_PERSONA_TRACES: dict[str, list] | None = None
 _HIST_EDGES_MS = [0.25 * 2 ** i for i in range(18)]  # 0.25ms .. ~32s
 
 _TIERS_NOT_PORTED = (
-    "the S3, mount and broker tiers are not ported yet "
+    "the mount and broker tiers are not ported yet "
     "(ROADMAP queue 1, item 7)"
 )
 
@@ -454,14 +454,111 @@ class _Workload:
 # ---- front-door personas ------------------------------------------------
 
 
+def _xml_field(body: bytes, tag: str) -> str:
+    """One element's text from a small S3 XML response (the gateway
+    emits flat documents; a full parser here would be dead weight)."""
+    text = body.decode("utf-8", "replace")
+    open_t, close_t = f"<{tag}>", f"</{tag}>"
+    i = text.find(open_t)
+    j = text.find(close_t)
+    if i < 0 or j < 0:
+        raise RuntimeError(f"no <{tag}> in S3 response")
+    return text[i + len(open_t):j]
+
+
 class S3Persona:
-    """S3 front-door workload through the HTTP gateway (multipart PUT,
-    ranged GET, ListObjectsV2). The port has no S3 gateway yet, so
-    building one raises."""
+    """S3 front-door workload: multipart PUT above MULTIPART_MIN
+    (initiate → two part uploads → complete), simple PUT below, ranged
+    GET verifying the returned length, and ListObjectsV2 — all through
+    the HTTP gateway, with its own zipf-sampled key log."""
+
+    BUCKET = "persona-bench"
+    MULTIPART_MIN = 2048  # small floor so bench-size objects engage it
 
     def __init__(self, s3_url: str, sizes: tuple[int, int], seed: int,
                  zipf_s: float = 1.1):
-        raise NotImplementedError(_TIERS_NOT_PORTED)
+        self.s3_url = s3_url
+        self.sizes = sizes
+        self.keys = KeySet(s=zipf_s)
+        self._lock = threading.Lock()
+        self._n = 0  # guarded-by: self._lock
+        payload_rng = np.random.default_rng(seed)
+        self._payload = payload_rng.integers(
+            0, 256, size=sizes[1], dtype=np.uint8
+        ).tobytes()
+        # CreateBucket is idempotent (re-PUT of an existing bucket
+        # succeeds), so concurrent persona setups don't race
+        http.request("PUT", f"{s3_url}/{self.BUCKET}")
+
+    def _next_key(self) -> str:
+        with self._lock:
+            self._n += 1
+            return f"obj-{self._n:08d}"
+
+    def op_put(self, rnd: random.Random) -> int:
+        lo, hi = self.sizes
+        size = rnd.randint(lo, hi) if hi > lo else lo
+        key = self._next_key()
+        data = self._payload[:size]
+        url = f"{self.s3_url}/{self.BUCKET}/{key}"
+        if size >= self.MULTIPART_MIN:
+            out = http.request("POST", f"{url}?uploads")
+            upload_id = _xml_field(out, "UploadId")
+            half = size // 2
+            http.request(
+                "PUT",
+                f"{url}?partNumber=1&uploadId={upload_id}",
+                data[:half],
+            )
+            http.request(
+                "PUT",
+                f"{url}?partNumber=2&uploadId={upload_id}",
+                data[half:],
+            )
+            # completion assembles the stored parts server-side; the
+            # gateway reads the part list from the filer, so an empty
+            # body completes the upload
+            http.request("POST", f"{url}?uploadId={upload_id}")
+        else:
+            http.request("PUT", url, data)
+        self.keys.add(key, size)
+        return size
+
+    def op_get(self, rnd: random.Random) -> int:
+        picked = self.keys.sample(rnd)
+        if picked is None:
+            return self.op_put(rnd)
+        key, size = picked
+        end = max(size // 2, 1) - 1
+        data = http.request(
+            "GET", f"{self.s3_url}/{self.BUCKET}/{key}",
+            headers={"Range": f"bytes=0-{end}"},
+        )
+        if len(data) != end + 1:
+            raise RuntimeError(
+                f"ranged GET {key}: got {len(data)} bytes, "
+                f"asked for {end + 1}"
+            )
+        return len(data)
+
+    def op_list(self, rnd: random.Random) -> int:
+        out = http.request(
+            "GET",
+            f"{self.s3_url}/{self.BUCKET}?list-type=2&max-keys=25",
+        )
+        if b"ListBucketResult" not in out:
+            raise RuntimeError("unexpected ListObjectsV2 response")
+        return len(out)
+
+    def run(self, op: str, rnd: random.Random) -> int:
+        if op == "put":
+            return self.op_put(rnd)
+        if op == "get":
+            return self.op_get(rnd)
+        return self.op_list(rnd)
+
+    def close(self) -> None:
+        pass
 
 
 class FusePersona:
@@ -511,22 +608,51 @@ class _ProtocolRecorder:
 
 
 class FrontDoors:
-    """The protocol gateways a persona mix needs. The port has no S3
-    gateway, mount or broker yet, so a mix that needs any of them
-    raises; a native-only mix needs none."""
+    """The protocol gateways a persona mix needs. Explicit URLs are
+    used as-is; missing ones are spawned in-proc against the master in
+    dependency order (filer → S3 gateway, each wired into cluster
+    telemetry via ``master_url``) and torn down by ``close()`` — a
+    native-only mix spawns nothing. The port has no mount or broker
+    yet, so a mix that needs either raises."""
 
     def __init__(self, master_url: str, need_s3: bool = False,
                  need_fuse: bool = False, need_broker: bool = False,
                  filer_url="", s3_url: str = "",
                  broker_url: str = ""):
-        if need_s3 or need_fuse or need_broker:
+        if need_fuse or need_broker:
             raise NotImplementedError(_TIERS_NOT_PORTED)
+        # `filer_url` accepts one URL, an ordered shard list, or a
+        # sharding.FilerRing (scale rounds with an fN spec pass the
+        # harness ring) — gateways coerce via sharding.ring_of, so a
+        # sharded tier's persona traffic exercises shard routing
+        self._own: list = []
         self.filer_url = filer_url
         self.s3_url = s3_url
         self.broker_url = broker_url
+        need_filer = need_fuse or (need_s3 and not s3_url) or (
+            need_broker and not broker_url
+        )
+        if need_filer and not self.filer_url:
+            from ..server.filer import FilerServer
+
+            f = FilerServer(master_url)
+            f.start()
+            self._own.append(f)
+            self.filer_url = f.url
+        if need_s3 and not self.s3_url:
+            from ..s3.s3api import S3ApiServer
+
+            s3 = S3ApiServer(self.filer_url, master_url=master_url)
+            s3.start()
+            self._own.append(s3)
+            self.s3_url = s3.url
 
     def close(self) -> None:
-        pass
+        for server in reversed(self._own):
+            try:
+                server.stop()
+            except Exception:  # noqa: BLE001 - teardown best-effort
+                pass
 
 
 def _run_phase(

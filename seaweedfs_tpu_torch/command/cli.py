@@ -12,10 +12,10 @@ flags, defaults and output text, with one addition. ``volume`` and
 ``VolumeServer(device=)``; with no card they raise unless the flag says
 ``cpu``, never falling back on their own. ``benchmark -fleet`` and
 ``scale`` build their fleets on the card. ``filer`` and ``server
--filer`` start the port's filer. The subcommands of the tiers that are
-not ported yet (``s3``, ``webdav``, ``mount``, ``msgBroker``,
-``filer.sync``, ``filer.replicate``, and ``server``'s ``-s3``) raise
-``NotImplementedError`` and start nothing.
+-filer`` start the port's filer, ``s3`` and ``server -s3`` its S3
+gateway, ``filer.sync`` and ``filer.replicate`` its replication. The
+subcommands of the tiers that are not ported yet (``webdav``, ``mount``
+and ``msgBroker``) raise ``NotImplementedError`` and start nothing.
 """
 
 from __future__ import annotations
@@ -524,7 +524,28 @@ def run_filer(args) -> int:
 
 
 def run_s3(args) -> int:
-    _not_ported("weed s3")
+    from ..s3 import S3ApiServer
+    from ..s3.auth import Identity
+
+    identities = []
+    if args.config:
+        with open(args.config) as f:
+            for ident in json.load(f).get("identities", []):
+                identities.append(
+                    Identity(
+                        name=ident["name"],
+                        access_key=ident["credentials"][0]["accessKey"],
+                        secret_key=ident["credentials"][0]["secretKey"],
+                        actions=ident.get("actions", ["Admin"]),
+                    )
+                )
+    s3 = S3ApiServer(
+        args.filer, port=args.port, identities=identities,
+        ssl_context=_tls_contexts()[0],
+    )
+    s3.start()
+    print(f"s3 gateway listening on {s3.url}")
+    return _wait_forever()
 
 
 def run_webdav(args) -> int:
@@ -535,8 +556,6 @@ def run_server(args) -> int:
     from ..server.master import MasterServer
     from ..server.volume import VolumeServer
 
-    if args.s3:
-        _not_ported("weed server -s3")
     from .. import resolve_device
 
     # the card is checked before the master starts: a server that
@@ -559,7 +578,7 @@ def run_server(args) -> int:
     )
     vs.start()
     print(f"master on {m.url}, volume server on {vs.url}")
-    if args.filer:
+    if args.filer or args.s3:
         from ..server.filer import FilerServer
 
         fs = FilerServer(
@@ -568,6 +587,15 @@ def run_server(args) -> int:
         )
         fs.start()
         print(f"filer on {fs.url}")
+        if args.s3:
+            from ..s3 import S3ApiServer
+
+            s3 = S3ApiServer(
+                fs.url, port=args.s3_port,
+                ssl_context=ssl_ctx_factory(),
+            )
+            s3.start()
+            print(f"s3 on {s3.url}")
     return _wait_forever()
 
 
@@ -886,11 +914,45 @@ def run_mount(args) -> int:
 
 
 def run_filer_sync(args) -> int:
-    _not_ported("weed filer.sync")
+    from ..replication import FilerSync
+
+    sync = FilerSync(
+        args.a, args.b,
+        bidirectional=not args.oneWay,
+        poll_seconds=args.pollSeconds,
+    )
+    sync.start()
+    print(f"syncing {args.a} <-> {args.b}")
+    return _wait_forever()
 
 
 def run_filer_replicate(args) -> int:
-    _not_ported("weed filer.replicate")
+    from ..replication import Replicator
+    from ..replication.sink import FilerSink, LocalSink
+    from ..util import http as _http
+
+    if args.sink_filer:
+        sink = FilerSink(args.sink_filer)
+    elif args.sink_dir:
+        sink = LocalSink(args.sink_dir)
+    else:
+        print("need -sink.filer or -sink.dir", file=sys.stderr)
+        return 1
+    rep = Replicator(args.filer, sink, args.sourcePath, args.sinkPath)
+    print(f"replicating {args.filer}{args.sourcePath} -> sink")
+    from ..util import retry as _retry
+
+    since = 0
+    # foreground CLI poll loop: Ctrl-C is the stop signal
+    while True:  # weedcheck: ignore[loop-without-stop]
+        out = _http.get_json(
+            f"{args.filer}/meta/events?since={since}",
+            retry=_retry.LOOKUP,
+        )
+        for ev in out.get("events", []):
+            since = max(since, ev["ts_ns"])
+            rep.replicate_event(ev)
+        time.sleep(args.pollSeconds)
 
 
 def run_msgBroker(args) -> int:

@@ -7,8 +7,8 @@ directory listing JSON, rename via mv.from, extended attrs from
 Seaweed-* headers, /meta/events for subscribers.
 
 The port's copy of ``seaweedfs_tpu/server/filer.py``. ``filer_peers``
-(the meta aggregator over ``replication/sync.py``) waits for the
-replication tier and raises ``NotImplementedError``.
+is the meta aggregator: one ``replication/sync.py`` ``FilerSync`` from
+each peer into this filer.
 """
 
 from __future__ import annotations
@@ -71,11 +71,7 @@ class FilerServer:
         # every peer filer's meta events into this one for multi-filer
         # HA; loop prevention via the sync source markers.
         self.filer_peers = filer_peers or []
-        if self.filer_peers:
-            raise NotImplementedError(
-                "filer peers sync through replication/, which is not "
-                "ported yet"
-            )
+        self._peer_syncs = []
         # every master round-trip (assign proxy, chunk upload/delete,
         # manifest resolution) rides the ring's leader re-resolution:
         # a leader failover costs writers a latency spike, not an
@@ -145,10 +141,24 @@ class FilerServer:
             self._telemetry_reporter.start()
         if self.watch_locations:
             operation.start_location_watch(self.master_url)
+        if self.filer_peers:
+            from ..replication.sync import FilerSync
+
+            for peer in self.filer_peers:
+                if peer == self.url:
+                    continue
+                sync = FilerSync(
+                    peer, self.url, bidirectional=False,
+                    poll_seconds=1.0,
+                )
+                sync.start()
+                self._peer_syncs.append(sync)
 
     def stop(self) -> None:
         if self._telemetry_reporter is not None:
             self._telemetry_reporter.stop()
+        for sync in self._peer_syncs:
+            sync.stop()
         if self.watch_locations:
             operation.stop_location_watch(self.master_url)
         self.server.stop()

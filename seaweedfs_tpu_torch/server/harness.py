@@ -13,8 +13,8 @@ master, volume and filer servers. ``device`` goes to every
 ``VolumeServer`` does), ``"cpu"`` the kernels' plain versions;
 ``telemetry_interval`` to every server, and ``maintenance_policy`` and
 the SLO objectives to every master. ``with_filer`` starts one filer and
-``n_filer_shards`` a sharded tier; the S3 tier is not ported yet, so
-``with_s3`` raises ``NotImplementedError``.
+``n_filer_shards`` a sharded tier; ``with_s3`` starts an S3 gateway
+over it (over the shard ring when there is one).
 """
 
 from __future__ import annotations
@@ -53,8 +53,6 @@ class ClusterHarness:
         n_filer_shards: int = 0,
         device: str | torch.device | None = None,
     ):
-        if with_s3:
-            raise NotImplementedError("the S3 tier is not ported yet")
         # resolved before any server starts: no card and no
         # device="cpu" raises here, with nothing left running
         self.device = resolve_device(device)
@@ -135,7 +133,8 @@ class ClusterHarness:
                 cfg["telemetry_interval"] = telemetry_interval
             self._vs_config.append(cfg)
             self.volume_servers.append(self._spawn(cfg))
-        # optional filer: it pushes its snapshots on the pulse so the
+        # optional full stack (all four telemetry roles): the filer
+        # and S3 gateway push their snapshots on the pulse so the
         # aggregated /cluster/telemetry view converges within one
         # heartbeat interval in tests
         t_int = (
@@ -144,6 +143,7 @@ class ClusterHarness:
             else pulse_seconds
         )
         self.filer = None
+        self.s3 = None
         # sharded filer tier (filer/sharding): N shards, each owning
         # its own sqlite file so shard writes never share a store lock
         self.n_filer_shards = max(0, n_filer_shards)
@@ -155,7 +155,7 @@ class ClusterHarness:
                 self.filers.append(self._spawn_filer_shard(i))
             # shard 0 doubles as `self.filer` for single-URL consumers
             self.filer = self.filers[0]
-        elif with_filer:
+        elif with_filer or with_s3:
             from .filer import FilerServer
 
             self.filer = FilerServer(
@@ -164,6 +164,15 @@ class ClusterHarness:
                 telemetry_interval=t_int,
             )
             self.filer.start()
+        if with_s3:
+            from ..s3 import S3ApiServer
+
+            self.s3 = S3ApiServer(
+                self.filer_ring() or self.filer.url,
+                master_url=self.master.url,
+                telemetry_interval=t_int,
+            )
+            self.s3.start()
 
     def _spawn(self, cfg: dict) -> VolumeServer:
         os.makedirs(cfg["dirs"][0], exist_ok=True)
@@ -342,7 +351,7 @@ class ClusterHarness:
             fs for i, fs in enumerate(self.filers)
             if i not in self.filers_down and fs is not self.filer
         ]
-        for gw in (self.filer, *shard_tier):
+        for gw in (self.s3, self.filer, *shard_tier):
             if gw is not None:
                 try:
                     gw.stop()

@@ -22,9 +22,9 @@ with the EC-encode ledger each generate folds its ``timing`` into, and
 ``/admin/volume_copy`` pulls a volume from a peer over
 ``/admin/ec/download``; ``/admin/fsck`` checks every live needle,
 ``/admin/tail`` serves the records ``storage/volume_backup.py`` replays,
-``/ui`` the status page of ``server/ui.py`` and ``/admin/query`` the JSON
-filter of ``query/``. Not ported yet, and answered with a 501:
-``/admin/tier/{upload,download}`` (with the S3 backend). A chunk-manifest
+``/ui`` the status page of ``server/ui.py``, ``/admin/query`` the JSON
+filter of ``query/`` and ``/admin/tier/{upload,download}`` move a .dat to
+a plain-HTTP or an S3 tier and back. A chunk-manifest
 needle resolves through the port's ``operation/`` client, as the reference's does. The server routes
 through the request-tracing middleware, which serves ``/debug/*``.
 """
@@ -164,8 +164,10 @@ class VolumeServer:
         router.add("POST", r"/admin/leave", self._h_leave)
         router.add("POST", r"/admin/fsck", self._h_fsck)
         router.add("POST", r"/admin/query", self._h_query)
-        for method, path in _NOT_PORTED:
-            router.add(method, path, _not_ported)
+        router.add("POST", r"/admin/tier/upload", self._h_tier_upload)
+        router.add(
+            "POST", r"/admin/tier/download", self._h_tier_download
+        )
         router.add("GET", r"/admin/tail", self._h_tail)
         router.add("GET", r"/status", self._h_status)
         router.add("GET", r"/ui", self._h_ui)
@@ -1399,6 +1401,98 @@ class VolumeServer:
             headers={"Content-Type": "application/x-ndjson"},
         )
 
+    def _h_tier_upload(self, req: Request) -> Response:
+        """VolumeTierMoveDatToRemote: push .dat to a remote HTTP store
+        (filer or S3 gateway path), keep serving via Range reads
+        (volume_grpc_tier_upload.go analog)."""
+        from ..storage import backend as backend_mod
+        from ..storage.volume import Volume
+
+        body = req.json()
+        vid = int(body["volume"])
+        keep_local = bool(body.get("keep_local", False))
+        vol = self._require_volume(vid)
+        vol.readonly = True
+        vol.sync()
+        dat_path = vol.data_file_name
+        size = os.path.getsize(dat_path)
+        if s3_spec := body.get("s3"):
+            # cloud tier: .dat becomes one sigv4-signed S3 object
+            # (s3_backend.go:20-50); key defaults to the dat name.
+            # Credentials come ONLY from the named backend config
+            # (backend.json / WEED_S3_* env) — never from the request
+            # and never into the persisted .vif, so the upload and
+            # every later read resolve identically.
+            if s3_spec.get("access_key") or s3_spec.get("secret_key"):
+                return Response.error(
+                    "inline S3 credentials are not accepted; configure "
+                    "a named backend (backend.json s3.<name>.* or "
+                    "WEED_S3_<NAME>_* env) and pass its name as "
+                    '"backend"',
+                    400,
+                )
+            # pick up backend.json edits made since startup — tiering
+            # is rare, so re-reading config here keeps rotated keys
+            # usable without a server restart
+            backend_mod.reload_backend_configuration()
+            be = backend_mod.S3Backend(
+                endpoint=s3_spec["endpoint"],
+                bucket=s3_spec["bucket"],
+                key=s3_spec.get("key")
+                or os.path.basename(dat_path),
+                backend_name=s3_spec.get("backend", "default"),
+            )
+            be.upload_file(dat_path)
+            remote = be.spec()
+        else:
+            dest_url = body["dest_url"]  # full URL to PUT the .dat at
+            with open(dat_path, "rb") as f:
+                http.request("POST", dest_url, f, timeout=3600)
+            remote = {"url": dest_url, "size": size}
+        vif = backend_mod.load_volume_info(vol.base_file_name)
+        vif.update({"version": vol.version, "remote": remote})
+        backend_mod.save_volume_info(vol.base_file_name, vif)
+        collection, directory = vol.collection, vol.dir
+        # reload in remote mode
+        for loc in self.store.locations:
+            if vid in loc.volumes:
+                loc.volumes[vid].close()
+                if not keep_local:
+                    os.remove(dat_path)
+                loc.volumes[vid] = Volume(directory, collection, vid)
+                break
+        return Response.json({"ok": True, "size": size})
+
+    def _h_tier_download(self, req: Request) -> Response:
+        """VolumeTierMoveDatFromRemote: pull the .dat back to disk."""
+        from ..storage import backend as backend_mod
+        from ..storage.volume import Volume
+
+        body = req.json()
+        vid = int(body["volume"])
+        vol = self._require_volume(vid)
+        be = vol.remote_backend
+        if be is None:
+            return Response.error(f"volume {vid} is not remote", 400)
+        dat_path = vol.data_file_name
+        if isinstance(be, backend_mod.S3Backend):
+            be.download_file(dat_path)
+        else:
+            with http.request_stream(
+                "GET", be.url, timeout=3600
+            ) as r, open(dat_path, "wb") as f:
+                for piece in r.iter(1 << 20):
+                    f.write(piece)
+        os.remove(vol.base_file_name + ".vif")
+        collection, directory = vol.collection, vol.dir
+        for loc in self.store.locations:
+            if vid in loc.volumes:
+                loc.volumes[vid].close()
+                loc.volumes[vid] = Volume(directory, collection, vid)
+                loc.volumes[vid].readonly = False
+                break
+        return Response.json({"ok": True})
+
     def _h_tail(self, req: Request) -> Response:
         """VolumeTailSender: raw .dat bytes appended at/after since_ns
         (volume_grpc_tail.go + volume_backup.go:170)."""
@@ -1430,15 +1524,3 @@ class VolumeServer:
         ) else (int(body["needle_id"]), 0)
         ev.delete_needle(key)
         return Response.json({"ok": True})
-
-
-# endpoints whose modules are not ported yet: a clear 501, never the
-# data plane's catch-all (which would read the path as a fid)
-_NOT_PORTED = (
-    ("POST", r"/admin/tier/upload"),
-    ("POST", r"/admin/tier/download"),
-)
-
-
-def _not_ported(req: Request) -> Response:
-    return Response.error(f"{req.path} is not ported yet", 501)

@@ -5,9 +5,7 @@ Behavioral model: weed/shell/command_volume_list.go, _balance.go,
 _fix_replication.go, _fsck.go, _move.go.
 
 The port's copy of ``seaweedfs_tpu/shell/command_volume.py``: the same
-commands and output text. ``volume.tier.upload`` and
-``volume.tier.download`` call the servers' ``/admin/tier/*``, which
-answer 501 until the S3 backend is ported.
+commands and output text.
 """
 
 from __future__ import annotations

@@ -4,9 +4,7 @@ Behavioral model: weed/shell/commands.go:26-80 (command interface,
 confirmIsLocked), weed/wdclient/exclusive_locks (lease via master).
 
 The port's copy of ``seaweedfs_tpu/shell/commands.py``. It registers
-every command module of the reference but ``command_s3``, which waits
-for the S3 tier; its names raise the same ``unknown command`` error the
-reference raises for a name it does not know.
+every command module of the reference.
 """
 
 from __future__ import annotations
@@ -85,6 +83,7 @@ def all_commands() -> dict[str, str]:
         command_fault,
         command_fs,
         command_maintenance,
+        command_s3,
         command_trace,
         command_volume,
     )

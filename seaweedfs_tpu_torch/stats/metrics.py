@@ -8,9 +8,9 @@ is the port's own: the modules that define families (``ops/link.py``,
 ``ops/profiler.py``, ``telemetry/devices.py``, ``telemetry/phases.py``,
 ``tracing/recorder.py``, ``fault``, ``maintenance/scheduler.py``)
 register them here, and the volume server's three families, the
-filer's two, the fleet EC pair, the client master ring's and the
-sharded filer ring's are defined below. The reference's other server
-families (S3, broker) come with the port of those servers.
+filer's two, the S3 gateway's, the fleet EC pair, the client master
+ring's and the sharded filer ring's are defined below. The reference's
+broker families come with the port of the broker.
 """
 
 from __future__ import annotations
@@ -255,7 +255,7 @@ class Registry:
 
 REGISTRY = Registry()
 
-# the reference's volume-server and filer families
+# the reference's volume-server, filer and s3 families
 # (weed/stats/metrics.go:19-123)
 VOLUME_SERVER_REQUESTS = REGISTRY.counter(
     "SeaweedFS_volumeServer_request_total",
@@ -280,6 +280,11 @@ FILER_REQUESTS = REGISTRY.counter(
 FILER_LATENCY = REGISTRY.histogram(
     "SeaweedFS_filer_request_seconds",
     "Bucketed histogram of filer request latency.",
+    ("type",),
+)
+S3_REQUESTS = REGISTRY.counter(
+    "SeaweedFS_s3_request_total",
+    "Counter of s3 requests.",
     ("type",),
 )
 

@@ -172,7 +172,17 @@ def test_port_files_exist():
                    ("filer", "sharding", "bench.py"),
                    ("telemetry", "reporter.py"),
                    ("server", "filer.py"),
-                   ("shell", "command_fs.py")):
+                   ("shell", "command_fs.py"),
+                   ("s3", "__init__.py"),
+                   ("s3", "auth.py"),
+                   ("s3", "s3api.py"),
+                   ("shell", "command_s3.py"),
+                   ("replication", "__init__.py"),
+                   ("replication", "replicator.py"),
+                   ("replication", "sink.py"),
+                   ("replication", "sync.py"),
+                   ("notification", "__init__.py"),
+                   ("notification", "publisher.py")):
         assert os.path.join("seaweedfs_tpu_torch", *module) in names
     assert len(files) > 10
 
@@ -286,6 +296,10 @@ def test_importing_the_port_loads_no_jax():
         "import seaweedfs_tpu_torch.telemetry.reporter\n"
         "import seaweedfs_tpu_torch.server.filer\n"
         "import seaweedfs_tpu_torch.shell.command_fs\n"
+        "import seaweedfs_tpu_torch.s3\n"
+        "import seaweedfs_tpu_torch.shell.command_s3\n"
+        "import seaweedfs_tpu_torch.replication\n"
+        "import seaweedfs_tpu_torch.notification\n"
         "seaweedfs_tpu_torch.shell.commands.all_commands()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'seaweedfs_tpu', 'bench', 'tools')]\n"
@@ -321,3 +335,32 @@ def test_weed_version_loads_neither_jax_nor_cryptography():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.startswith("seaweedfs-tpu version "), proc.stdout
+
+
+@pytest.mark.parametrize("argv", (["s3", "-h"], ["filer.sync", "-h"],
+                                  ["filer.replicate", "-h"]),
+                         ids=lambda a: a[0])
+def test_gateway_subcommands_load_no_torch(argv):
+    """``python -m seaweedfs_tpu_torch s3 -h`` (and the replication
+    subcommands) in a fresh interpreter: the S3 gateway and the filer
+    sync are client-side tiers and start without ``torch``, as
+    ``import seaweedfs_tpu_torch.s3`` does."""
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = ['seaweedfs_tpu_torch'] + {argv!r}\n"
+        "try:\n"
+        "    runpy.run_module('seaweedfs_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "import seaweedfs_tpu_torch.s3, seaweedfs_tpu_torch.replication\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'jaxlib', 'seaweedfs_tpu')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "usage:" in proc.stdout, proc.stdout

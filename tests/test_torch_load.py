@@ -7,8 +7,10 @@ against its own cluster (the reference's ``ClusterHarness`` and the
 port's with ``device="cpu"``) on one worker, so the op sequence is a
 function of the seed alone: both give the same ops, the same outcomes,
 the same per-phase counts and the same result keys, and each pushes its
-summary to its own master's ``/cluster/benchmark``. The personas that
-need the filer, S3, mount or broker tiers raise in the port.
+summary to its own master's ``/cluster/benchmark``. The S3 persona of
+each package runs against its own gateway with the same ops, bytes and
+counts; the personas that need the mount or broker tiers raise in the
+port.
 """
 
 import random
@@ -186,11 +188,15 @@ def test_run_benchmark_same_ops_same_result_shape(tmp_path):
 
 
 def test_gateway_personas_raise(tmp_path):
-    with PortHarness(n_volume_servers=1, volumes_per_server=4,
+    """The mount and broker personas still raise; the S3 persona, which
+    raised before the gateway was ported, runs (its front door spawns a
+    filer and a gateway), as does a native-only mix. The filer's chunks
+    need volumes of their own collection, hence the slots."""
+    with PortHarness(n_volume_servers=1, volumes_per_server=12,
                      pulse_seconds=0.2, root=str(tmp_path),
                      device="cpu") as c:
         c.wait_for_nodes(1)
-        for personas in ("native:50,s3:50", "fuse:1", "broker:1",
+        for personas in ("fuse:1", "broker:1",
                          "native:1,fuse:1,broker:1,s3:1"):
             with pytest.raises(NotImplementedError, match="item 7"):
                 port_bench.run_benchmark(c.master.url, n=4, concurrency=1,
@@ -198,17 +204,25 @@ def test_gateway_personas_raise(tmp_path):
                                          out=lambda *_: None)
         for persona, a in ((port_bench.FusePersona,
                             ("http://127.0.0.1:9", (1, 2), 1)),
-                           (port_bench.S3Persona,
-                            ("http://127.0.0.1:9", (1, 2), 1)),
                            (port_bench.BrokerPersona,
                             ("http://127.0.0.1:9", 1))):
             with pytest.raises(NotImplementedError, match="item 7"):
                 persona(*a)
-        for need in ("need_s3", "need_fuse", "need_broker"):
+        for need in ("need_fuse", "need_broker"):
             with pytest.raises(NotImplementedError, match="item 7"):
                 port_bench.FrontDoors(c.master.url, s3_url="http://x",
                                       broker_url="http://y", **{need: True})
-        # a native-only persona mix needs no front door and runs
+        # an explicit gateway URL is used as it is: nothing spawned
+        doors = port_bench.FrontDoors(c.master.url, need_s3=True,
+                                      s3_url="http://x")
+        assert (doors.s3_url, doors._own) == ("http://x", [])
+        rc = port_bench.run_benchmark(c.master.url, n=12, concurrency=2,
+                                      personas="native:50,s3:50", seed=3,
+                                      out=lambda *_: None)
+        assert rc == 0
+        protocols = port_bench.LAST_RESULT["detail"]["protocols"]
+        assert sorted(protocols) == ["native", "s3"]
+        assert protocols["s3"]["ops"] > 0 and protocols["s3"]["failures"] == 0
         rc = port_bench.run_benchmark(c.master.url, n=8, concurrency=2,
                                       personas="native", seed=3,
                                       out=lambda *_: None)
@@ -216,3 +230,49 @@ def test_gateway_personas_raise(tmp_path):
     assert rc == 0
     protocols = port_bench.LAST_RESULT["detail"]["protocols"]
     assert list(protocols) == ["native"] and protocols["native"]["ops"] > 0
+
+
+def _s3_persona_run(name, root):
+    """One package's S3 persona on its own cluster, filer and gateway:
+    a seeded op sequence driven straight through ``run`` (the bytes of
+    each op), then a seeded one-worker ``run_benchmark`` of the ``s3``
+    persona (its op trace and counts)."""
+    bench = BENCH[name]
+    kw = {"device": "cpu"} if name == "port" else {}
+    harness = RefHarness if name == "ref" else PortHarness
+    _reset_clients()
+    with harness(n_volume_servers=1, volumes_per_server=10,
+                 pulse_seconds=0.2, root=str(root), with_s3=True,
+                 **kw) as c:
+        c.wait_for_nodes(1)
+        persona = bench.S3Persona(c.s3.url, (512, 6000), 11)
+        rnd = random.Random(11)
+        direct = []
+        for _ in range(30):
+            op = rnd.choices(["put", "get", "list"], [0.45, 0.45, 0.1])[0]
+            direct.append((op, persona.run(op, rnd)))
+        rc = bench.run_benchmark(
+            c.master.url, n=24, concurrency=1, personas="s3",
+            sizes="512-6000", seed=5, op_trace=True, s3_url=c.s3.url,
+            out=lambda *_: None)
+    _reset_clients()
+    proto = bench.LAST_RESULT["detail"]["protocols"]["s3"]
+    return {
+        "direct": direct, "rc": rc,
+        "trace": [(op, ok) for _t, op, ok in
+                  bench.LAST_PERSONA_TRACES["s3"]],
+        "counts": (proto["ops"], proto["ok"], proto["failures"]),
+        "by_op": {op: (v["ops"], v["ok"], v["failures"])
+                  for op, v in proto["by_op"].items()},
+    }
+
+
+def test_s3_persona_matches_reference(tmp_path):
+    got = {name: _s3_persona_run(name, tmp_path / name) for name in BENCH}
+    assert got["port"] == got["ref"]
+    run = got["port"]
+    assert run["rc"] == 0 and run["counts"][2] == 0
+    # multipart above MULTIPART_MIN and simple PUTs below both ran
+    puts = [n for op, n in run["direct"] if op == "put"]
+    assert min(puts) < port_bench.S3Persona.MULTIPART_MIN <= max(puts)
+    assert {op for op, _ in run["direct"]} == {"put", "get", "list"}

@@ -13,8 +13,8 @@ held against the reference on the CPU.
     the assign cookies and the write pick draw from one seeded
     ``random.Random`` for each run, in place of the ``random`` module
     of each package's master and volume layout.
-(b) What the port does not serve yet (the filer's and S3's shell
-    commands) raises; the status pages ``/`` and ``/ui``,
+(b) The filer's and S3's shell commands, with no filer configured,
+    fail as the reference's do; the status pages ``/`` and ``/ui``,
     ``/cluster/benchmark`` and the maintenance and telemetry planes
     answer as the reference's do; and
     ``ClusterHarness()`` and volume servers under a port master raise
@@ -314,23 +314,29 @@ def test_what_waits_answers_501_or_raises(tmp_path):
         assert "# TYPE seaweedfs_master_heartbeat_total counter" in text
         assert ('seaweedfs_server_uptime_seconds{component="master"}'
                 in text)
-        # the filer's commands are known and, with no filer configured,
-        # fail as the reference's do; S3's are not ported and raise as
-        # any unknown name does
+        # the filer's and S3's commands are known and, with no filer
+        # configured, fail as the reference's do
         env = CommandEnv(m.url)
-        for line in ("fs.ls /", "fs.meta.cat /x"):
+        for line in ("fs.ls /", "fs.meta.cat /x", "s3.bucket.create -name b",
+                     "s3.bucket.delete -name b"):
             with pytest.raises(RuntimeError, match="no filer configured"):
                 run_command(env, line)
             with pytest.raises(RuntimeError, match="no filer configured"):
                 ref_run_command(RefCommandEnv(m.url), line)
-        with pytest.raises(ValueError, match="unknown command"):
+        # s3.bucket.list asks the empty filer address, as the reference's
+        with pytest.raises(port_http.HttpError) as got:
             run_command(env, "s3.bucket.list")
-        with pytest.raises(ValueError, match="unknown command"):
-            ref_run_command(RefCommandEnv(m.url), "no.such.command")
-        assert sorted(all_commands()) == sorted(
-            name for name in ref_all_commands()
-            if not name.startswith("s3."))
+        with pytest.raises(Exception) as want:
+            ref_run_command(RefCommandEnv(m.url), "s3.bucket.list")
+        assert (got.value.status, str(got.value)) == (
+            want.value.status, str(want.value))
+        for run, env_of in ((run_command, CommandEnv),
+                            (ref_run_command, RefCommandEnv)):
+            with pytest.raises(ValueError, match="unknown command"):
+                run(env_of(m.url), "no.such.command")
+        assert sorted(all_commands()) == sorted(ref_all_commands())
         assert any(name.startswith("fs.") for name in all_commands())
+        assert any(name.startswith("s3.") for name in all_commands())
     finally:
         m.stop()
         ref.stop()
@@ -340,9 +346,13 @@ def test_what_waits_answers_501_or_raises(tmp_path):
     assert m.maintenance.policy == MaintenancePolicy()
     assert (m.telemetry.slo_error_rate,
             m.telemetry.slo_p99_seconds) == (0.05, 0.5)
-    with pytest.raises(NotImplementedError):
-        ClusterHarness(n_volume_servers=1, root=str(tmp_path),
-                       device="cpu", with_s3=True)
+    # with_s3 starts a gateway over the harness's filer
+    with ClusterHarness(n_volume_servers=1, root=str(tmp_path / "s3"),
+                        device="cpu", with_s3=True) as c:
+        assert c.s3 is not None and c.filer is not None
+        assert c.s3.filer_url == c.filer.url
+        port_http.request("PUT", f"{c.s3.url}/b")
+        assert b"<Name>b</Name>" in port_http.request("GET", f"{c.s3.url}/")
     with ClusterHarness(n_volume_servers=1, root=str(tmp_path),
                         device="cpu", telemetry_interval=1.0,
                         slo_error_rate=0.05,

@@ -221,17 +221,17 @@ def test_entry_points_raise_without_a_card(port_witness_kept):
 
 
 def test_filer_shards_raise(port_witness_kept):
-    """The S3 tier still raises; a spec's filer shards now start, one
-    sqlite store each, and the ring routes over them."""
+    """A spec's filer shards start, one sqlite store each, and the ring
+    routes over them; the S3 gateway, once it raised here, now starts
+    over that ring."""
     spec = port_spec.TopologySpec(1, 1, 1, filers=2)
-    with pytest.raises(NotImplementedError):
-        ScaleHarness(spec, device="cpu", with_s3=True)
-    harness = ScaleHarness(spec, device="cpu")
+    harness = ScaleHarness(spec, device="cpu", with_s3=True)
     try:
         assert len(harness.filer_urls()) == 2
         assert harness.filer is harness.filers[0]
         ring = harness.filer_ring()
         assert len(ring) == 2 and ring.urls == harness.filer_urls()
+        assert harness.s3.ring.urls == ring.urls
         assert {f"filer{i}.db" for i in range(2)} <= set(
             os.listdir(harness.root))
     finally:

@@ -476,9 +476,13 @@ def test_backend_remote_tier(tmp_path):
 
     assert isinstance(port_backend.remote_backend_from_vif(
         {"url": "h:1/x", "size": 5}), port_backend.HttpRangeBackend)
-    with pytest.raises(NotImplementedError, match="S3"):
-        port_backend.remote_backend_from_vif(
-            {"type": "s3", "bucket": "b", "key": "k"})
+    # an S3 tier builds the sigv4 backend, as the reference's does
+    s3 = {"type": "s3", "backend": "default", "endpoint": "h:1",
+          "bucket": "b", "key": "/k", "size": 5}
+    got = port_backend.remote_backend_from_vif(s3)
+    assert isinstance(got, port_backend.S3Backend)
+    assert got.spec() == ref_backend.remote_backend_from_vif(s3).spec() == {
+        **s3, "endpoint": "http://h:1", "key": "k"}
     # a tiered volume serves reads through Range requests
     src = tmp_path / "src"
     src.mkdir()

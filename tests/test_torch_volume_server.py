@@ -424,10 +424,18 @@ def test_what_waits_answers_501(tmp_path):
     vs = VolumeServer(NO_MASTER, [str(tmp_path)], device="cpu",
                       pulse_seconds=60)
     vs.start()
+    ref = RefVolumeServer(NO_MASTER, [str(tmp_path / "ref")],
+                          pulse_seconds=60)
+    ref.start()
     try:
-        for method, path in (("POST", "/admin/tier/upload"),
-                             ("POST", "/admin/tier/download")):
-            assert call(vs.url, method, path, b"{}")[0] == 501, path
+        # the name is historical: nothing answers 501 any more. The tier
+        # routes refuse a request naming no volume, or one the server
+        # does not hold, as the reference's do
+        for body in (b"{}", b'{"volume": 7}'):
+            for path in ("/admin/tier/upload", "/admin/tier/download"):
+                got = call(vs.url, "POST", path, body)
+                assert got[0] not in (404, 501), path
+                assert got[::2] == call(ref.url, "POST", path, body)[::2]
         # fsck, the status page and the query now answer, and the tail
         # of a volume the server does not hold fails as the reference's
         # does
@@ -447,6 +455,7 @@ def test_what_waits_answers_501(tmp_path):
         assert call(vs.url, "DELETE", "/1,0101020304?cm=false")[0] == 200
     finally:
         vs.stop()
+        ref.stop()
 
 
 def _copy_run(src_cls, dst_cls, root):
