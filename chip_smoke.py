@@ -337,10 +337,41 @@ phase 11 runs the link-aware default.
     the ``S3Backend``, and ``volume.tier.download``, the ``.dat`` hashing
     equal to the one uploaded. Launches are the server processes' own
     counters. Its ``s3`` JSON line.
+21. the gateways over a degraded volume: phase 17's cluster of ``weed``
+    processes with its volume servers on the sqlite needle map
+    (``-index sqlite``), one ``weed filer -store sqlite -collection
+    gateways``, one ``weed webdav`` and one ``weed msgBroker`` over it:
+    one grown volume filled to about 97.5 % of the limit from
+    ``--seed`` by 4,000 messages published on eight threads over the
+    broker's four partitions (every one persisted to its segments
+    before going on), files of 1–24 MiB written through the port's
+    ``WFS`` API (then random-offset rewrites, a truncate, a rename, a
+    symlink and a hard link) and files of 1–24 MiB PUT through WebDAV;
+    ``ec.encode`` hashed against ``write_ec_files`` (every launch
+    compile-time); shards {0, 5, 11, 13} deleted, the filer, the
+    gateway and the broker restarted, and every byte read back
+    byte-exact through a fresh ``WFS`` (whole and ranged), WebDAV
+    ``GET`` (whole, and with a ``Range`` header that the gateway, as the
+    reference's, answers with the whole file) and broker subscribes
+    from offset 0 (run-time launches and host dispatches printed for
+    each door, at least one run-time launch over the three); a publish
+    a partition continuing the recovered offsets; ``ec.rebuild`` with
+    13 run-time launches, and the WebDAV files again. No kernel mount:
+    the ``WFS`` API is the path. Its ``gateways`` JSON line.
+22. the persona round: the reference's recorded sharded-filer round
+    (``SCALE_r07.json``: spec 5x4x5m3f2, seed 7, churn ``leader``, 3 %
+    killed, personas ``native:40,s3:30,fuse:20,broker:10``, 20 s of
+    load) through ``run_scale_round(device="cuda")``: it must converge
+    with the kill landed on a new leader, every persona with
+    operations, ``detail.filer`` for both shards, the record's gated
+    names and ``protocols`` keys, and ``run_check`` against its own
+    record 0; the numbers against ``SCALE_r07.json`` (a CPU host's
+    record) are printed, not gated; it seeds no warm volume, so its
+    launches are printed, not required. Its ``persona_round`` JSON line.
 
 It prints ``read_decode``, ``routing``, ``multigpu``, ``volume_server``,
 ``cluster``, ``maintenance``, ``fleet``, ``cli_cluster``, ``filer``,
-``leader`` and ``s3`` JSON lines,
+``leader``, ``s3``, ``gateways`` and ``persona_round`` JSON lines,
 one JSON line describing
 every kernel,
 then, last,
@@ -3393,7 +3424,7 @@ class WeedCluster:
     counters; a phase spawns whatever else it needs beside them. The
     step helpers read those counters and the servers' codec routes
     around each step. ``close`` stops every child and prints each log's
-    tail. Phases 17, 18 and 20 drive the main path through it."""
+    tail. Phases 17, 18, 20 and 21 drive the main path through it."""
 
     def __init__(self, args, smi, name: str):
         self.smi = smi
@@ -3432,9 +3463,9 @@ class WeedCluster:
               f"{p.returncode}: {p.stderr[-3000:]}")
         return p.stdout, sec
 
-    def start(self, volume_mib: int) -> float:
-        """The master and the four volume servers; the seconds until the
-        master's topology holds every server."""
+    def start(self, volume_mib: int, index: str = "memory") -> float:
+        """The master and the four volume servers (``-index index``); the
+        seconds until the master's topology holds every server."""
         from seaweedfs_tpu_torch.util import http
 
         mport = free_port()
@@ -3452,7 +3483,7 @@ class WeedCluster:
                 "volume", "-ip", "127.0.0.1", "-port", str(port),
                 "-mserver", self.m, "-dir",
                 os.path.join(self.root, f"vs{i}"), "-max", "8",
-                "-device", "cuda"],
+                "-index", index, "-device", "cuda"],
                 [sys.executable, os.path.abspath(__file__), "--counted-weed",
                  str(cport)])
         self.urls = [f"127.0.0.1:{port}" for port in ports]
@@ -4980,6 +5011,622 @@ def phase_s3(args, smi):
     return row, path
 
 
+def phase_gateways(args, smi):
+    """Phase 21: the gateways over a degraded volume — phase 17's
+    cluster of ``weed`` processes (``WeedCluster``) with its volume
+    servers on the sqlite needle map (``-index sqlite``), one ``weed
+    filer -store sqlite -collection gateways``, one ``weed webdav`` and
+    one ``weed msgBroker`` over it, driven through the port's ``WFS``
+    API, WebDAV and the broker's HTTP. One grown volume of the
+    collection is filled to about 97.5 % of ``--volume-mib`` with three
+    kinds of data made from ``--seed``: messages published on eight
+    threads over the broker's four partitions (persisted as segments
+    through the filer), files of 1–24 MiB written through ``WFS``
+    (``create``/``write``/``flush``/``release``, then random-offset
+    rewrites, a truncate, a rename, a symlink and a hard link), and
+    files of 1–24 MiB ``PUT`` through WebDAV. ``ec.encode`` through
+    ``weed shell`` is hashed against ``write_ec_files`` of the ``.dat``
+    (every launch compile-time). Shards {0, 5, 11, 13} are deleted, the
+    filer, the WebDAV gateway and the broker restarted, and every byte
+    read back: through a fresh ``WFS`` (whole files and one ranged read
+    each, the symlink and the hard link), through WebDAV ``GET`` (whole,
+    then with a ``Range`` header, which the gateway answers with the
+    whole file as the reference's does) and through broker subscribes
+    from offset 0; then one publish a partition shows the restarted
+    broker recovered each partition's next offset from its segments.
+    ``ec.rebuild`` must make 13 run-time launches. No kernel mount: the
+    ``WFS`` API is the path. gf_swar launches in the volume server
+    processes, read from their own counters around each step. Returns
+    the phase's row and the launch counts of its path, summed over the
+    servers."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from seaweedfs_tpu_torch.messaging.broker import partition_of
+    from seaweedfs_tpu_torch.mount.wfs import WFS
+    from seaweedfs_tpu_torch.storage.erasure_coding import (
+        constants as C,
+        write_ec_files,
+        write_sorted_file_from_idx,
+    )
+    from seaweedfs_tpu_torch.util import http
+
+    phase_t0 = time.perf_counter()
+    wc = WeedCluster(args, smi, "gateways")
+    root, on_card = wc.root, wc.on_card
+    limit = args.volume_mib * MIB
+    lost = [0, 5, 11, 13]
+    col, topic, parts = "gateways", "chip", 4
+    row: dict = {"card": smi, "volume_size_limit_mb": args.volume_mib,
+                 "collection": col, "needle_map": "sqlite",
+                 "processes": "1 master + 4 volume servers (-index "
+                              "sqlite) + 1 filer + 1 webdav + 1 "
+                              "msgBroker"}
+    wfs_files: dict[str, bytes] = {}
+    dav_files: dict[str, bytes] = {}
+    messages: dict[int, dict[int, str]] = {p: {} for p in range(parts)}
+
+    def door(label, items, read_one, threads=8):
+        """Every item through one front door on ``threads`` threads,
+        byte-exact (``read_one`` checks); latencies and MB/s."""
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(threads) as pool:
+            done = list(pool.map(read_one, items))
+        wall = time.perf_counter() - t0
+        lat = [x for sec, _n in done for x in sec]
+        moved = sum(n for _sec, n in done)
+        return {"reads": len(lat), "bytes": moved, "threads": threads,
+                "wall_s": wall, "MBps": moved / wall / 1e6,
+                "p50_ms": percentile_ms(lat, 50),
+                "p99_ms": percentile_ms(lat, 99)}
+
+    def wfs_read(w, name, ranged):
+        data = wfs_files[name]
+        t0 = time.perf_counter()
+        got = w.read(name, len(data) + 4096, 0, 0)
+        lat = [time.perf_counter() - t0]
+        check(got == data, f"WFS read of {name} differs")
+        n = len(got)
+        if ranged:
+            lo = int(len(data) * 0.3)
+            size = min(len(data) - lo, 3 * MIB + 12345)
+            t0 = time.perf_counter()
+            got = w.read(name, size, lo, 0)
+            lat.append(time.perf_counter() - t0)
+            check(got == data[lo:lo + size],
+                  f"WFS read of {name} bytes {lo}+{size} differs")
+            n += len(got)
+        return lat, n
+
+    def dav_read(name, ranged):
+        data = dav_files[name]
+        t0 = time.perf_counter()
+        got = http.request("GET", f"{dav_url}{name}")
+        lat = [time.perf_counter() - t0]
+        check(got == data, f"WebDAV GET {name} differs")
+        n = len(got)
+        if ranged:
+            lo = int(len(data) * 0.3)
+            t0 = time.perf_counter()
+            got = http.request("GET", f"{dav_url}{name}", headers={
+                "Range": f"bytes={lo}-{lo + 3 * MIB}"})
+            lat.append(time.perf_counter() - t0)
+            # the gateway forwards no Range: the whole file, as the
+            # reference's WebDAV answers
+            check(got == data, f"WebDAV Range GET {name}: "
+                  f"{len(got)} bytes, want the whole {len(data)}")
+            n += len(got)
+        return lat, n
+
+    def subscribe_all(p):
+        """Every message of partition ``p`` from offset 0, byte-exact."""
+        want = messages[p]
+        got: dict[int, str] = {}
+        lat = []
+        since = 0
+        while since < len(want):
+            t0 = time.perf_counter()
+            out = http.get_json(f"{broker_url}/subscribe?topic={topic}"
+                                f"&partition={p}&offset={since}"
+                                "&limit=1000")
+            lat.append(time.perf_counter() - t0)
+            check(out["messages"], f"partition {p}: nothing from {since}")
+            for msg in out["messages"]:
+                got[msg["offset"]] = msg["value"]
+            since = out["next_offset"]
+        check(got == want, f"partition {p}: {len(got)} messages back, "
+              f"{sum(got.get(o) == v for o, v in want.items())} equal of "
+              f"{len(want)}")
+        return lat, sum(map(len, got.values()))
+
+    def persisted_through(p):
+        """The last offset of partition ``p`` in its segments, -1 if
+        none."""
+        seg_dir = f"/topics/default/{topic}/{p:02d}/"
+        try:
+            listing = http.get_json(f"{fs_url}{seg_dir}?limit=10000")
+        except http.HttpError:
+            return -1
+        segs = sorted(e["FullPath"] for e in listing.get("Entries") or []
+                      if e["FullPath"].endswith(".seg"))
+        if not segs:
+            return -1
+        last = http.request("GET", f"{fs_url}{segs[-1]}").splitlines()[-1]
+        return int(json.loads(last)["offset"])
+
+    def meta_vids(path):
+        meta = http.get_json(f"{fs_url}{path}?meta=true")
+        return {int(c["file_id"].split(",")[0]) for c in meta["chunks"]}
+
+    procs: dict = {}
+
+    def start_gateways(tag):
+        """The WebDAV gateway and the broker over the filer, up."""
+        t0 = time.perf_counter()
+        procs["webdav"] = wc.spawn(f"webdav{tag}", [
+            "webdav", "-filer", fs_url, "-port", str(dport)])
+        procs["broker"] = wc.spawn(f"msgBroker{tag}", [
+            "msgBroker", "-filer", fs_url, "-port", str(bport),
+            "-master", m])
+        wc.wait_answer("webdav", procs["webdav"], f"{dav_url}/")
+        wc.wait_answer("msgBroker", procs["broker"],
+                       f"{broker_url}/cluster")
+        return time.perf_counter() - t0
+
+    try:
+        row["start_s"] = wc.start(args.volume_mib, index="sqlite")
+        m = wc.m
+        fport, dport, bport = free_port(), free_port(), free_port()
+        filer_flags = ("-store", "sqlite", "-dbPath",
+                       os.path.join(root, "filer.db"), "-collection", col)
+        filer_proc, fs_url = wc.start_filer("filer", fport, *filer_flags)
+        dav_url = f"127.0.0.1:{dport}"
+        broker_url = f"127.0.0.1:{bport}"
+        row["gateways_start_s"] = start_gateways("")
+        check(http.get_json(f"{m}/vol/grow?count=1&collection={col}")
+              == {"count": 1}, f"grow one volume of {col}")
+        counts0 = wc.counts_now("POST")
+        fuse_ok = os.path.exists("/dev/fuse")
+        on_card(f"weed master {m}, four weed volume -index sqlite -device "
+                f"cuda, weed filer {fs_url} (-store sqlite -collection "
+                f"{col}), weed webdav {dav_url} and weed msgBroker "
+                f"{broker_url}, each its own process: servers up in "
+                f"{row['start_s']:.1f} s, the gateways in "
+                f"{row['gateways_start_s']:.1f} s; kernel mount: not run "
+                f"(the WFS API is the path; /dev/fuse "
+                f"{'present' if fuse_ok else 'absent'})")
+
+        # 1. the broker: messages over four partitions, persisted
+        rng = np.random.default_rng([args.seed, 21])
+        bodies = []
+        for i in range(4000):
+            key = f"k{int(rng.integers(256)):03d}"
+            bodies.append((key, rng.bytes(int(rng.integers(512, 2049)))
+                           .hex()))
+
+        def publish(body):
+            key, value = body
+            out = http.post_json(f"{broker_url}/publish",
+                                 {"topic": topic, "key": key,
+                                  "value": value})
+            check(out["partition"] == partition_of(key.encode(), parts),
+                  f"publish {key}: partition {out['partition']}")
+            return out["partition"], out["offset"], value
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            for p, off, value in pool.map(publish, bodies):
+                messages[p][off] = value
+        publish_s = time.perf_counter() - t0
+        for p in range(parts):
+            check(sorted(messages[p]) == list(range(len(messages[p]))),
+                  f"partition {p}: offsets not 0..n-1")
+        deadline = time.time() + 120
+        while not all(persisted_through(p) == len(messages[p]) - 1
+                      for p in range(parts)):
+            check(time.time() < deadline, "the broker never persisted "
+                  "every message to its segments")
+            time.sleep(0.5)
+        persist_s = time.perf_counter() - t0 - publish_s
+        msg_bytes = sum(len(v) for ms in messages.values()
+                        for v in ms.values())
+        row["broker"] = {"messages": len(bodies), "partitions": parts,
+                         "per_partition": [len(messages[p])
+                                           for p in range(parts)],
+                         "value_bytes": msg_bytes, "threads": 8,
+                         "publish_s": publish_s,
+                         "publishes_per_s": len(bodies) / publish_s,
+                         "persisted_after_s": persist_s}
+
+        # 2. WFS: files of 1-24 MiB, then rewrites, truncate, rename,
+        # symlink and hard link
+        w = WFS(fs_url, filer_root="/wfs", subscribe_meta=False)
+        target = int(0.975 * limit)
+
+        def dat_bytes_now():
+            vids = set()
+            for p in range(parts):
+                listing = http.get_json(f"{fs_url}/topics/default/{topic}/"
+                                        f"{p:02d}/?limit=10000")
+                for e in listing.get("Entries") or []:
+                    vids |= meta_vids(e["FullPath"])
+            check(len(vids) == 1, f"one volume so far: {sorted(vids)}")
+            [dat] = wc.shard_files(next(iter(vids)), ".dat", col)
+            return next(iter(vids)), os.path.getsize(dat)
+
+        vid, after_broker = dat_bytes_now()
+        # files of 1-24 MiB at 1 GiB; a smaller --volume-mib scales them
+        top = max(2 * MIB, min(24 * MIB, limit // 40))
+        low = min(MIB, top // 2)
+        plan, budget = [], int(0.45 * (target - after_broker))
+        while budget >= low:
+            n = min(int(rng.integers(low, top + 1)), budget)
+            plan.append(n)
+            budget -= n
+        check(len(plan) >= 6, f"{len(plan)} WFS files planned, want 6+")
+
+        def wfs_write(k):
+            name = f"/p{k % 4}/f{k:04d}.bin"
+            data = np.random.default_rng([args.seed, 21, 1, k]).bytes(
+                plan[k])
+            w.create(name, 0o644)
+            for off in range(0, len(data), MIB):
+                w.write(name, data[off:off + MIB], off, 0)
+            w.flush(name, 0)
+            w.release(name, 0)
+            return name, data
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(4) as pool:
+            wfs_files.update(pool.map(wfs_write, range(len(plan))))
+        wfs_write_s = time.perf_counter() - t0
+        names = sorted(wfs_files)
+        rewrites = 0
+        for name in names[:4]:
+            buf = bytearray(wfs_files[name])
+            w.open(name, os.O_RDWR)
+            for _ in range(3):
+                off = int(rng.integers(0, len(buf)))
+                patch = rng.bytes(int(rng.integers(1, 2 * MIB)))
+                w.write(name, patch, off, 0)
+                end = off + len(patch)
+                if end > len(buf):
+                    buf.extend(bytes(end - len(buf)))
+                buf[off:end] = patch
+                rewrites += 1
+            w.flush(name, 0)
+            w.release(name, 0)
+            wfs_files[name] = bytes(buf)
+        cut = names[4]
+        half = int(len(wfs_files[cut]) * 0.6)
+        w.truncate(cut, half)
+        wfs_files[cut] = wfs_files[cut][:half]
+        w.mkdir("/moved", 0o755)
+        moved = "/moved/" + names[5].rsplit("/", 1)[1]
+        w.rename(names[5], moved)
+        wfs_files[moved] = wfs_files.pop(names[5])
+        w.symlink(names[0], "/link0")
+        w.link(names[1], "/hard1")
+        wfs_files["/hard1"] = wfs_files[names[1]]
+        w.close()
+        wfs_bytes = sum(len(d) for n, d in wfs_files.items()
+                        if n != "/hard1")
+        row["wfs"] = {"files": len(plan), "bytes": wfs_bytes,
+                      "threads": 4, "write_s": wfs_write_s,
+                      "MBps": sum(plan) / wfs_write_s / 1e6,
+                      "rewrites": rewrites, "truncated": cut,
+                      "renamed": moved, "symlink": "/link0",
+                      "hard_link": "/hard1"}
+
+        # 3. WebDAV: PUTs until the .dat holds about 97.5 % of the limit
+        _, dat_now = dat_bytes_now()
+        t0 = time.perf_counter()
+        k = 0
+        while target - dat_now >= 2 * low:
+            n = min(int(rng.integers(low, top + 1)),
+                    target - dat_now - low)
+            name = f"/dav/d{k % 4}/f{k:04d}.bin"
+            data = np.random.default_rng([args.seed, 21, 2, k]).bytes(n)
+            http.request("PUT", f"{dav_url}{name}", data)
+            dav_files[name] = data
+            k += 1
+            [dat] = wc.shard_files(vid, ".dat", col)
+            dat_now = os.path.getsize(dat)
+        dav_put_s = time.perf_counter() - t0
+        dav_bytes = sum(map(len, dav_files.values()))
+        vids = set()
+        for name in wfs_files:
+            vids |= meta_vids(f"/wfs{name}")
+        for name in dav_files:
+            vids |= meta_vids(name)
+        check(vids == {vid}, f"every chunk in volume {vid}: {sorted(vids)}")
+        [dat] = wc.shard_files(vid, ".dat", col)
+        dat_bytes = os.path.getsize(dat)
+        check(dat_bytes >= 0.95 * limit, f"volume {vid}'s .dat is "
+              f"{dat_bytes} bytes, under 95 % of {limit}")
+        check(os.path.exists(dat[:-4] + ".idx.ldb"),
+              "the volume's sqlite needle map is on disk")
+        row["webdav"] = {"files": len(dav_files), "bytes": dav_bytes,
+                         "put_s": dav_put_s,
+                         "MBps": dav_bytes / dav_put_s / 1e6}
+        row["fill"] = {"volume": vid, "dat_bytes": dat_bytes,
+                       "full_percent": 100 * dat_bytes / limit,
+                       "dat_after_broker": after_broker}
+        on_card(f"volume {vid} of {col} filled to {dat_bytes} bytes = "
+                f"{row['fill']['full_percent']:.2f} % of {args.volume_mib} "
+                f"MiB: {len(bodies)} broker messages ({msg_bytes} bytes of "
+                f"values, 8 threads, {publish_s:.1f} s, persisted "
+                f"{persist_s:.1f} s later), {len(plan)} WFS files "
+                f"({sum(plan)} bytes, 4 threads, "
+                f"{row['wfs']['MBps']:.1f} MB/s; {rewrites} random-offset "
+                f"rewrites, a truncate, a rename, a symlink, a hard link) "
+                f"and {len(dav_files)} WebDAV PUTs ({dav_bytes} bytes, "
+                f"{row['webdav']['MBps']:.1f} MB/s)")
+
+        # 4. ec.encode of the volume through weed shell
+        expect_dir = os.path.join(root, "expect")
+        os.makedirs(expect_dir)
+        base = os.path.join(expect_dir, str(vid))
+        os.link(dat, base + ".dat")
+        shutil.copyfile(dat[:-4] + ".idx", base + ".idx")
+        write_ec_files(base, device="cuda")
+        write_sorted_file_from_idx(base)
+        want = {ext: sha256_file(base + ext) for ext in
+                [C.to_ext(s) for s in range(C.TOTAL_SHARDS)] + [".ecx"]}
+        for ext in want:
+            os.remove(base + ext)
+        before = wc.step_begin()
+        out, sec = wc.cli("shell", "-master", m, "-c",
+                          f"lock; ec.encode -volumeId {vid} -collection "
+                          f"{col} -quietFor 0s; unlock")
+        after = wc.counts_now()
+        check(f"volume {vid}: ec.encode done" in out, f"ec.encode: {out}")
+        wc.wait_shards(vid, set(range(C.TOTAL_SHARDS)))
+        for ext, digest in want.items():
+            paths_ext = wc.shard_files(vid, ext, col)
+            check(paths_ext and all(sha256_file(p) == digest
+                                    for p in paths_ext),
+                  f"{ext} at {paths_ext} differs from write_ec_files'")
+        enc = wc.step(before, after, "ec.encode", "rs10x4")
+        row["ec_encode"] = {"shell_seconds": sec, **enc}
+        on_card(f"weed shell ec.encode -volumeId {vid} -collection {col} "
+                f"(a volume on the sqlite needle map): {sec:.3f} s of "
+                f"shell; gf_swar {enc['launches']} launches in the servers "
+                f"({enc['rs10x4']} compile-time); every .ec00-.ec13 and "
+                ".ecx hash equal to write_ec_files")
+
+        # 5. degraded: lose four shards, restart the filer and gateways
+        for sid in lost:
+            for u in wc.ec_map(vid)[sid]:
+                http.post_json(f"{u}/admin/ec/delete_shards",
+                               {"volume": vid, "collection": col,
+                                "shard_ids": [sid]})
+        wc.wait_shards(vid, set(range(C.TOTAL_SHARDS)) - set(lost))
+        for name in ("webdav", "broker"):
+            wc.stop(procs[name])
+        wc.stop(filer_proc)
+        filer_proc, _ = wc.start_filer("filer-restarted", fport,
+                                       *filer_flags)
+        start_gateways("-restarted")
+        deg: dict = {}
+        fresh = WFS(fs_url, filer_root="/wfs", subscribe_meta=False)
+        try:
+            check(fresh.readlink("/link0") == names[0],
+                  "the symlink through a fresh WFS")
+            check(fresh.getattr("/hard1")["st_nlink"] == 2,
+                  "the hard link's count through a fresh WFS")
+            before = wc.step_begin()
+            deg["wfs"] = door("WFS", sorted(wfs_files),
+                              lambda n: wfs_read(fresh, n, True))
+            deg["wfs"].update(wc.step(before, wc.counts_now(), "WFS"))
+        finally:
+            fresh.close()
+        before = wc.step_begin()
+        deg["webdav"] = door("WebDAV", sorted(dav_files),
+                             lambda n: dav_read(n, True))
+        deg["webdav"].update(wc.step(before, wc.counts_now(), "WebDAV"))
+        before = wc.step_begin()
+        deg["broker"] = door("broker", range(parts), subscribe_all,
+                             threads=parts)
+        deg["broker"].update(wc.step(before, wc.counts_now(), "broker"))
+        recovered = {}
+        for p in range(parts):
+            key = next(f"r{j}" for j in range(10_000)
+                       if partition_of(f"r{j}".encode(), parts) == p)
+            out = http.post_json(f"{broker_url}/publish",
+                                 {"topic": topic, "key": key,
+                                  "value": "after the restart"})
+            recovered[p] = out["offset"]
+        check(recovered == {p: len(messages[p]) for p in range(parts)},
+              f"the restarted broker's next offsets {recovered}")
+        launches = sum(d["launches"] for d in deg.values())
+        check(launches > 0 and all(d["rs10x4"] == 0 for d in deg.values()),
+              f"degraded reads: {launches} gf_swar launches, run-time form")
+        row["degraded"] = deg
+        row["recovered_next_offsets"] = recovered
+        for label, d in deg.items():
+            on_card(f"{label} with shards {lost} lost, after restarts: "
+                    f"{d['reads']} reads, {d['bytes']} bytes, p50 "
+                    f"{d['p50_ms']:.2f} ms, p99 {d['p99_ms']:.2f} ms, "
+                    f"{d['MBps']:.1f} MB/s on {d['threads']} threads; "
+                    f"gf_swar {d['launches']} run-time launches, "
+                    f"{d['host_dispatches']} host dispatches; byte-exact")
+        on_card(f"the restarted broker continued every partition at "
+                f"{recovered}, recovered from its segments")
+
+        # 6. ec.rebuild, then the WebDAV files again
+        before = wc.step_begin()
+        out, sec = wc.cli("shell", "-master", m, "-c",
+                          f"lock; ec.rebuild -volumeId {vid} -collection "
+                          f"{col}; unlock")
+        after = wc.counts_now()
+        check(f"rebuilt shards {lost}" in out, f"ec.rebuild: {out}")
+        wc.wait_shards(vid, set(range(C.TOTAL_SHARDS)))
+        for sid in lost:
+            ext = C.to_ext(sid)
+            paths_ext = wc.shard_files(vid, ext, col)
+            check(paths_ext and all(sha256_file(p) == want[ext]
+                                    for p in paths_ext),
+                  f"rebuilt {ext} at {paths_ext} differs")
+        reb = wc.step(before, after, "ec.rebuild", "run-time")
+        check(reb["launches"] == 13, f"ec.rebuild: {reb['launches']} "
+              "gf_swar launches, want 13")
+        row["ec_rebuild"] = {"shell_seconds": sec, **reb}
+        row["reread"] = door("WebDAV after the rebuild", sorted(dav_files),
+                             lambda n: dav_read(n, False))
+        on_card(f"weed shell ec.rebuild of {lost}: {sec:.3f} s of shell; "
+                f"gf_swar {reb['launches']} run-time launches; rebuilt "
+                f"shards hash equal; every WebDAV file read again "
+                f"byte-exact, p99 {row['reread']['p99_ms']:.2f} ms")
+
+        counts1 = wc.counts_now()
+        path = {name: wc.launched(counts0, counts1, name)
+                for name in counts1[wc.urls[0]][0]}
+        row["launches"] = wc.step(counts0, counts1, "the phase")
+        row["phase_s"] = time.perf_counter() - phase_t0
+        on_card(f"the path's launch counts in the servers {path}; phase "
+                f"21 took {row['phase_s']:.1f} s")
+    finally:
+        wc.close()
+    return row, path
+
+
+def phase_persona_round(args, smi, reset_counts, counters):
+    """Phase 22: the persona round on the card — the reference's
+    recorded sharded-filer round (``SCALE_r07.json``: spec 5x4x5m3f2,
+    seed 7, churn ``leader``, 3 % of the servers killed, the persona mix
+    ``native:40,s3:30,fuse:20,broker:10``) through
+    ``scale/round.run_scale_round(device="cuda")``: 100 volume servers, a
+    three-master raft tier and two filer shards in this process, the
+    ``s3``, ``fuse`` and ``broker`` personas through an in-process S3
+    gateway, the port's ``WFS`` and an in-process broker over the shard
+    ring, the raft leader killed mid-load, then volume kills. It must
+    converge with the kill landed on a new leader, record every
+    persona's ``detail.protocols`` section with operations, record
+    ``detail.filer`` for both shards, flatten to the record's gated
+    names with the record's ``protocols`` keys, and gate cleanly
+    against its own record. The comparison of the numbers against
+    ``SCALE_r07.json`` (a CPU host's record) is printed, not gated. The
+    round seeds no warm volume, so its launches are read and printed,
+    not required. Returns the phase's row and the launch counts of its
+    path."""
+    from seaweedfs_tpu_torch.operation import client as op_client
+    from seaweedfs_tpu_torch.scale import round as round_mod
+    from seaweedfs_tpu_torch.util import benchgate, retry
+
+    phase_t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "SCALE_r07.json")) as f:
+        record = json.load(f)
+    mix = "native:40,s3:30,fuse:20,broker:10"
+    settings = dict(spec="5x4x5m3f2", seed=7, pulse_seconds=0.5,
+                    churn_kind="leader", kill_fraction=0.03,
+                    load_seconds=20.0, personas=mix,
+                    replication="000", converge_timeout=120.0,
+                    record_hz=2.0)
+    row: dict = {"card": smi, **settings,
+                 "reduced": ["one process", "one card shared by 100 "
+                             "servers, three masters and two filer shards"]}
+    lines: list[str] = []
+
+    def on_card(text):
+        say(f"[{smi}] {text}")
+
+    root = tempfile.mkdtemp(prefix="chip_smoke-personas-",
+                            dir=args.workdir)
+    json_path = os.path.join(root, "SCALE_personas.json")
+    try:
+        reset_counts()
+        retry.BREAKERS.reset()
+        op_client._lookup_cache.clear()
+        t0 = time.perf_counter()
+        result = round_mod.run_scale_round(
+            device="cuda", json_path=json_path, out=lines.append,
+            **settings)
+        round_s = time.perf_counter() - t0
+        path = {name: counter.value for name, counter in counters.items()}
+        for line in lines:
+            on_card(f"  | {line}")
+        d = result["detail"]
+        fo = d["failover"]
+        check(d["converged"], f"the round converged: {d['last_reasons']}")
+        check(fo.get("kill_landed"), f"the leader kill landed: {fo}")
+        check(fo.get("new_leader") is not None
+              and fo["new_leader"] != fo.get("killed_master"),
+              f"a new leader: {fo}")
+        check(d.get("personas") == mix, f"personas: {d.get('personas')}")
+        protos = d.get("protocols") or {}
+        check(sorted(protos) == ["broker", "fuse", "native", "s3"]
+              and all(s["ops"] > 0 for s in protos.values()),
+              f"every persona ran: { {k: s['ops'] for k, s in protos.items()} }")
+        filer = d.get("filer") or {}
+        check(filer.get("shard_count") == 2
+              and sorted(filer.get("shards") or {}) == ["shard0", "shard1"],
+              f"detail.filer for both shards: {filer}")
+        want_names = sorted(benchgate.flatten_scale(record))
+        names = sorted(benchgate.flatten_scale(result))
+        check(names == want_names, f"gated names {names} against the "
+              f"record's {want_names}")
+        rec_protos = record["detail"]["protocols"]
+        for name, sec in protos.items():
+            # by_op holds the ops this load drew, each one the record has
+            check(sorted(sec) == sorted(rec_protos[name])
+                  and set(sec["by_op"]) <= set(rec_protos[name]["by_op"]),
+                  f"protocols.{name} keys {sorted(sec)}, ops "
+                  f"{sorted(sec['by_op'])} against the record's "
+                  f"{sorted(rec_protos[name])}, "
+                  f"{sorted(rec_protos[name]['by_op'])}")
+        row.update(round_s=round_s, converged=d["converged"],
+                   converge_seconds=d["converge_seconds"], failover=fo,
+                   failover_converge_s=d["failover_converge_s"],
+                   midfailover_failure_rate=d["midfailover_failure_rate"],
+                   load_ops_per_second=d["load_ops_per_second"],
+                   load_failure_rate=d["load_failure_rate"],
+                   killed=d["churn"]["killed"],
+                   protocols={k: {f: s[f] for f in ("ops", "ok",
+                                                    "failures", "ops_s",
+                                                    "p50_s", "p99_s")}
+                              for k, s in protos.items()},
+                   filer={"meta_ops_s": filer.get("meta_ops_s"),
+                          "shards": {k: s.get("ops") for k, s in
+                                     (filer.get("shards") or {}).items()}},
+                   gated_names=len(names),
+                   gf_swar={"launches": path["gf_swar"],
+                            "compile_time": path["gf_swar_rs10x4"],
+                            "host_dispatches": path["codec_host"]})
+        ops = ", ".join(f"{k} {s['ops']} ops ({s['failures']} failed, "
+                        f"p99 {s['p99_s'] * 1e3:.1f} ms)"
+                        for k, s in sorted(protos.items()))
+        on_card(f"persona round {settings['spec']} seed {settings['seed']}: "
+                f"master {fo['killed_master']} killed, master "
+                f"{fo['new_leader']} elected in {fo.get('election_s')} s; "
+                f"killed {d['churn']['killed']}; {ops}; filer shards "
+                f"{row['filer']['shards']} ops; converged "
+                f"{d['converge_seconds']} s after load; round {round_s:.1f} "
+                f"s; {len(names)} gated names, the record's; gf_swar "
+                f"launches {path['gf_swar']} (none required: no warm "
+                "volume)")
+        row["check_rc"] = round_mod.run_check(result, json_path,
+                                              out=lines.append)
+        check(row["check_rc"] == 0,
+              f"run_check of the round against its own record: "
+              f"{lines[-3:]}")
+        ref_lines: list[str] = []
+        row["vs_SCALE_r07"] = {
+            "rc": round_mod.run_check(
+                result, os.path.join(here, "SCALE_r07.json"),
+                out=ref_lines.append),
+            "lines": ref_lines}
+        for line in ref_lines:
+            on_card(f"  vs SCALE_r07.json (a CPU host's record; not a "
+                    f"gate) | {line}")
+        row["phase_s"] = time.perf_counter() - phase_t0
+        on_card(f"run_check against its own record: 0; phase 22 took "
+                f"{row['phase_s']:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return row, path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5065,6 +5712,9 @@ PATH_KERNELS = {
     # the leader round seeds no warm volume: its launches are read, not
     # required
     "leader": (),
+    "gateways": ("gf_swar",),
+    # nor does the persona round
+    "persona_round": (),
 }
 
 
@@ -6348,6 +6998,17 @@ def run(args, torch, here: str) -> int:
         s3_row, path_launches["s3"] = phase_s3(args, smi)
         check_path("s3")
         say(json.dumps({"s3": s3_row}))
+
+        # -- 21. the gateways over a degraded volume, as weed processes --
+        gw_row, path_launches["gateways"] = phase_gateways(args, smi)
+        check_path("gateways")
+        say(json.dumps({"gateways": gw_row}))
+
+        # -- 22. SCALE_r07.json's persona round on the card ---------------
+        persona_row, path_launches["persona_round"] = phase_persona_round(
+            args, smi, reset_counts, counters)
+        check_path("persona_round")
+        say(json.dumps({"persona_round": persona_row}))
     finally:
         shutil.rmtree(batch_dir, ignore_errors=True)
         shutil.rmtree(keep_dir, ignore_errors=True)

@@ -41,10 +41,9 @@ the request-path analog of bench.py's codec trajectory:
   ``cluster.health`` shows load numbers next to SLO burn.
 
 The port's copy of ``seaweedfs_tpu/command/benchmark.py``, on the port's
-client, master ring, persona ledger and benchgate. The mount and broker
-tiers are not ported yet, so the ``fuse`` and ``broker`` personas and the
-front doors they need raise ``NotImplementedError``; the ``native`` and
-``s3`` personas run.
+client, master ring, persona ledger and benchgate. All four personas
+run: ``native``, ``s3`` through the port's S3 gateway, ``fuse`` through
+its ``WFS`` and ``broker`` through its message broker.
 """
 
 from __future__ import annotations
@@ -97,11 +96,6 @@ LAST_OP_TRACE: list[tuple[float, str, bool]] | None = None
 LAST_PERSONA_TRACES: dict[str, list] | None = None
 
 _HIST_EDGES_MS = [0.25 * 2 ** i for i in range(18)]  # 0.25ms .. ~32s
-
-_TIERS_NOT_PORTED = (
-    "the mount and broker tiers are not ported yet "
-    "(ROADMAP queue 1, item 7)"
-)
 
 
 def parse_mix(spec: str) -> dict[str, float]:
@@ -563,22 +557,142 @@ class S3Persona:
 
 class FusePersona:
     """FUSE-style file churn through the WFS API (mount/wfs.py) with
-    no kernel mount. The port has no mount tier yet, so building one
-    raises."""
+    no kernel mount: create = create+write+flush+release, read
+    verifies the recorded size, unlink removes a sampled file."""
 
     def __init__(self, filer_url, sizes: tuple[int, int],
                  seed: int, zipf_s: float = 1.1,
                  root: str = "/persona-bench"):
-        raise NotImplementedError(_TIERS_NOT_PORTED)
+        # filer_url: one URL, a shard list, or a sharding.FilerRing —
+        # WFS coerces via sharding.ring_of
+        from ..mount.wfs import WFS
+
+        # subscribe_meta=False: the persona is the only writer of its
+        # subtree, so the meta-event long-poll thread is dead weight
+        self.wfs = WFS(
+            filer_url, filer_root=root, subscribe_meta=False
+        )
+        self.sizes = sizes
+        self.keys = KeySet(s=zipf_s)
+        self._lock = threading.Lock()
+        self._n = 0  # guarded-by: self._lock
+        payload_rng = np.random.default_rng(seed)
+        self._payload = payload_rng.integers(
+            0, 256, size=sizes[1], dtype=np.uint8
+        ).tobytes()
+
+    def _next_path(self) -> str:
+        with self._lock:
+            self._n += 1
+            return f"/f-{self._n:08d}"
+
+    def op_create(self, rnd: random.Random) -> int:
+        lo, hi = self.sizes
+        size = rnd.randint(lo, hi) if hi > lo else lo
+        path = self._next_path()
+        fh = self.wfs.create(path, 0o644)
+        self.wfs.write(path, self._payload[:size], 0, fh)
+        self.wfs.flush(path, fh)
+        self.wfs.release(path, fh)
+        self.keys.add(path, size)
+        return size
+
+    def op_read(self, rnd: random.Random) -> int:
+        picked = self.keys.sample(rnd)
+        if picked is None:
+            return self.op_create(rnd)
+        path, size = picked
+        data = self.wfs.read(path, size, 0, 0)
+        if len(data) != size:
+            raise RuntimeError(
+                f"wfs read {path}: got {len(data)} bytes, wrote {size}"
+            )
+        return size
+
+    def op_unlink(self, rnd: random.Random) -> int:
+        picked = self.keys.take(rnd)
+        if picked is None:
+            return self.op_create(rnd)
+        path, _size = picked
+        self.wfs.unlink(path)
+        return 0
+
+    def run(self, op: str, rnd: random.Random) -> int:
+        if op == "create":
+            return self.op_create(rnd)
+        if op == "read":
+            return self.op_read(rnd)
+        return self.op_unlink(rnd)
+
+    def close(self) -> None:
+        self.wfs.close()
 
 
 class BrokerPersona:
-    """Broker pub/sub against a seeded topic with offset-recovery
-    reads. The port has no broker yet, so building one raises."""
+    """Broker pub/sub against a seeded topic: publishes keyed
+    messages, subscribes with offset-recovery-style reads — each read
+    resumes from the tracked per-partition next_offset, verifies the
+    returned offsets ascend, and advances the cursor. A broker 503
+    (backpressure, offset recovery, unreachable owner) raises and is
+    counted a FAILURE by the phase runner, never a latency."""
 
     def __init__(self, broker_url: str, seed: int,
                  partition_count: int = 4):
-        raise NotImplementedError(_TIERS_NOT_PORTED)
+        self.broker_url = broker_url
+        self.partition_count = partition_count
+        self.topic = f"persona-{seed & 0xFFFF}"
+        self._lock = threading.Lock()
+        self._n = 0  # guarded-by: self._lock
+        # partition -> next offset to read  # guarded-by: self._lock
+        self._next_offset: dict[int, int] = {}
+
+    def op_publish(self, rnd: random.Random) -> int:
+        with self._lock:
+            self._n += 1
+            n = self._n
+        value = f"v-{n:08d}-{rnd.randrange(1 << 30):08x}"
+        http.post_json(
+            f"{self.broker_url}/publish",
+            {
+                "topic": self.topic,
+                "key": f"k-{rnd.randrange(1 << 16):04x}",
+                "value": value,
+            },
+        )
+        return len(value)
+
+    def op_subscribe(self, rnd: random.Random) -> int:
+        partition = rnd.randrange(self.partition_count)
+        with self._lock:
+            since = self._next_offset.get(partition, 0)
+        out = http.get_json(
+            f"{self.broker_url}/subscribe?topic={self.topic}"
+            f"&partition={partition}&offset={since}&limit=50"
+        )
+        msgs = out.get("messages") or []
+        last = since - 1
+        for m in msgs:
+            off = m.get("offset", -1)
+            if off <= last:
+                raise RuntimeError(
+                    f"subscribe {self.topic}/{partition}: offsets "
+                    f"not ascending from {since} ({off} after {last})"
+                )
+            last = off
+        with self._lock:
+            cur = self._next_offset.get(partition, 0)
+            self._next_offset[partition] = max(
+                cur, int(out.get("next_offset", since))
+            )
+        return sum(len(m.get("value", "")) for m in msgs)
+
+    def run(self, op: str, rnd: random.Random) -> int:
+        if op == "publish":
+            return self.op_publish(rnd)
+        return self.op_subscribe(rnd)
+
+    def close(self) -> None:
+        pass
 
 
 class _ProtocolRecorder:
@@ -610,17 +724,14 @@ class _ProtocolRecorder:
 class FrontDoors:
     """The protocol gateways a persona mix needs. Explicit URLs are
     used as-is; missing ones are spawned in-proc against the master in
-    dependency order (filer → S3 gateway, each wired into cluster
-    telemetry via ``master_url``) and torn down by ``close()`` — a
-    native-only mix spawns nothing. The port has no mount or broker
-    yet, so a mix that needs either raises."""
+    dependency order (filer → S3 gateway → broker, each wired into
+    cluster telemetry via ``master_url``) and torn down by
+    ``close()`` — a native-only mix spawns nothing."""
 
     def __init__(self, master_url: str, need_s3: bool = False,
                  need_fuse: bool = False, need_broker: bool = False,
                  filer_url="", s3_url: str = "",
                  broker_url: str = ""):
-        if need_fuse or need_broker:
-            raise NotImplementedError(_TIERS_NOT_PORTED)
         # `filer_url` accepts one URL, an ordered shard list, or a
         # sharding.FilerRing (scale rounds with an fN spec pass the
         # harness ring) — gateways coerce via sharding.ring_of, so a
@@ -646,6 +757,20 @@ class FrontDoors:
             s3.start()
             self._own.append(s3)
             self.s3_url = s3.url
+        if need_broker and not self.broker_url:
+            from ..filer import sharding
+            from ..messaging.broker import MessageBroker
+
+            b = MessageBroker(
+                # the broker journals through one filer URL; on a
+                # sharded tier that is the primary (its paths share
+                # one routing key, so one shard owns them all)
+                sharding.primary_url(self.filer_url),
+                master_url=master_url,
+            )
+            b.start()
+            self._own.append(b)
+            self.broker_url = b.url
 
     def close(self) -> None:
         for server in reversed(self._own):

@@ -13,9 +13,10 @@ flags, defaults and output text, with one addition. ``volume`` and
 ``cpu``, never falling back on their own. ``benchmark -fleet`` and
 ``scale`` build their fleets on the card. ``filer`` and ``server
 -filer`` start the port's filer, ``s3`` and ``server -s3`` its S3
-gateway, ``filer.sync`` and ``filer.replicate`` its replication. The
-subcommands of the tiers that are not ported yet (``webdav``, ``mount``
-and ``msgBroker``) raise ``NotImplementedError`` and start nothing.
+gateway, ``filer.sync`` and ``filer.replicate`` its replication,
+``webdav`` its WebDAV gateway, ``mount`` its FUSE mount and
+``msgBroker`` its message broker; these client-side subcommands import
+no torch.
 """
 
 from __future__ import annotations
@@ -358,12 +359,6 @@ def main(argv: list[str] | None = None) -> int:
     return globals()[f"run_{args.cmd.replace('.', '_')}"](args)
 
 
-def _not_ported(what: str):
-    from .benchmark import _TIERS_NOT_PORTED
-
-    raise NotImplementedError(f"{what}: {_TIERS_NOT_PORTED}")
-
-
 def _wait_forever():
     try:
         signal.pause()
@@ -549,7 +544,14 @@ def run_s3(args) -> int:
 
 
 def run_webdav(args) -> int:
-    _not_ported("weed webdav")
+    from ..server.webdav import WebDavServer
+
+    w = WebDavServer(
+        args.filer, port=args.port, ssl_context=_tls_contexts()[0]
+    )
+    w.start()
+    print(f"webdav listening on {w.url}")
+    return _wait_forever()
 
 
 def run_server(args) -> int:
@@ -910,7 +912,11 @@ def run_scaffold(args) -> int:
 
 
 def run_mount(args) -> int:
-    _not_ported("weed mount")
+    _tls_contexts()  # outbound mTLS when the cluster is secured
+
+    from ..mount import mount_filer
+
+    return mount_filer(args.filer, args.dir, args.filer_path)
 
 
 def run_filer_sync(args) -> int:
@@ -956,7 +962,13 @@ def run_filer_replicate(args) -> int:
 
 
 def run_msgBroker(args) -> int:
-    _not_ported("weed msgBroker")
+    from ..messaging.broker import MessageBroker
+
+    b = MessageBroker(args.filer, port=args.port,
+                      master_url=args.master)
+    b.start()
+    print(f"message broker listening on {b.url}")
+    return _wait_forever()
 
 
 if __name__ == "__main__":

@@ -13,8 +13,8 @@ anything starts; ``"cpu"`` the kernels' plain versions). A lock witness
 the round installs for its contention section is removed again when
 the round ends, putting back whatever lock factories were there before.
 A spec with filer shards (``fN``) runs its shard tier and records its
-``detail.filer`` section; the ``s3`` persona runs through the S3
-gateway, and the ``fuse`` and ``broker`` personas still raise.
+``detail.filer`` section; the ``s3``, ``fuse`` and ``broker`` personas
+run through the port's S3 gateway, ``WFS`` and message broker.
 """
 
 from __future__ import annotations

@@ -2,4 +2,5 @@
 raft in ``raft``), the volume server (``volume.VolumeServer``), the
 filer (``filer.FilerServer``), the client side of the heartbeat stream
 and the in-process ``harness.ClusterHarness``; the S3 gateway lives in
-``seaweedfs_tpu_torch/s3``. WebDAV is not ported yet."""
+``seaweedfs_tpu_torch/s3``, and the WebDAV gateway is
+``webdav.WebDavServer``."""

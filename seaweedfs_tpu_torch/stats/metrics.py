@@ -9,8 +9,7 @@ is the port's own: the modules that define families (``ops/link.py``,
 ``tracing/recorder.py``, ``fault``, ``maintenance/scheduler.py``)
 register them here, and the volume server's three families, the
 filer's two, the S3 gateway's, the fleet EC pair, the client master
-ring's and the sharded filer ring's are defined below. The reference's
-broker families come with the port of the broker.
+ring's, the sharded filer ring's and the broker's are defined below.
 """
 
 from __future__ import annotations
@@ -338,5 +337,25 @@ FILER_CROSS_RENAMES = REGISTRY.counter(
     "seaweedfs_filer_cross_shard_renames_total",
     "Cross-shard filer renames by outcome "
     "(completed | interrupted | recovered).",
+    ("outcome",),
+)
+
+# broker front-door families (observability arc): the broker predates
+# the golden-signal baseline, so its publish/subscribe paths gain
+# bounded-outcome counters. `outcome` is a closed enum, never a topic
+# or partition (topics are user-controlled = unbounded cardinality):
+# publish: accepted (appended locally) | proxied (forwarded to the
+# HRW owner) | rejected (backpressure / offset-recovery failure /
+# unreachable owner — all 503s); subscribe: served (answered from
+# local segments+tail) | proxied (forwarded to the owner).
+BROKER_PUBLISH = REGISTRY.counter(
+    "seaweedfs_broker_publish_total",
+    "Broker publish requests by outcome "
+    "(accepted | proxied | rejected).",
+    ("outcome",),
+)
+BROKER_SUBSCRIBE = REGISTRY.counter(
+    "seaweedfs_broker_subscribe_total",
+    "Broker subscribe requests by outcome (served | proxied).",
     ("outcome",),
 )

@@ -5,10 +5,11 @@ seaweedfs_tpu_torch``) held against the reference's on the CPU.
     every subcommand (``volume`` and ``server`` add ``-device``), the
     same ``version`` and ``scaffold`` output, and ``fix``, ``compact``,
     ``export`` and ``backup`` leaving the same bytes on disk. The
-    subcommands of the tiers that are not ported (``webdav``, ``mount``,
-    ``msgBroker``) raise ``NotImplementedError``; ``s3``, ``server
-    -s3``, ``filer.sync`` and ``filer.replicate`` start as child
-    processes and answer; ``volume`` and ``server`` with no card and
+    gateway tiers (``s3``, ``server -s3``, ``filer.sync``,
+    ``filer.replicate``, ``webdav``, ``mount`` and ``msgBroker``) start
+    as child processes and answer (``mount`` through a kernel mount
+    where ``/dev/fuse`` exists, else failing as the reference's does);
+    ``volume`` and ``server`` with no card and
     no ``-device cpu`` raise before they start anything; ``filer``
     refuses a bad ``-shard`` as the reference does.
 (b) In subprocesses, ``weed server`` of each package (the port's with
@@ -57,8 +58,6 @@ NOT_PORTED = (
     ["filer.sync", "-a", "a:1", "-b", "b:1"],
     ["filer.replicate", "-filer", "a:1", "-sink.dir", "x"],
     ["server", "-s3"])
-# of those, the tiers still to port
-STILL_RAISING = ("webdav", "mount", "msgBroker")
 
 
 def _run(which, argv):
@@ -112,12 +111,9 @@ def test_scaffold_matches_reference(config):
 @pytest.mark.parametrize("argv", NOT_PORTED, ids=lambda a: " ".join(a[:1]
                                                                     + a[1:2]))
 def test_unported_tiers_raise(argv, tmp_path, filers):
-    """The tiers still to port raise; the S3 and replication ones, which
-    raised before they were ported, now start and answer."""
-    if argv[0] in STILL_RAISING:
-        with pytest.raises(NotImplementedError, match="item 7"):
-            port_cli.main(argv)
-        return
+    """Every tier that raised before it was ported (the last three, the
+    WebDAV gateway, the mount and the broker, included) now starts and
+    answers."""
     _tier_answers(argv[0] + (" -s3" if argv[0] == "server" else ""),
                   tmp_path, filers)
 
@@ -164,11 +160,17 @@ def _get(url, data=None, method=None):
 
 def _tier_answers(what, tmp_path, filers):
     """Start ``weed <what>`` of the port as a child process and drive it
-    until it answers: an object through the S3 gateway, or a file
-    written on the source filer read back from the sync's target."""
+    until it answers: an object through the S3 gateway, a file written
+    on the source filer read back from the sync's target, a file PUT
+    through WebDAV, a message published to the broker, or a file
+    written through the kernel mount, each read back."""
     src, dst = filers
     name = f"f-{what.split()[0].replace('.', '-')}.txt"
     body = what.encode() * 50
+    mnt = tmp_path / "mnt"
+    if what == "mount" and not os.path.exists("/dev/fuse"):
+        _mount_fails_as_reference(src, tmp_path)
+        return
     argv = {
         "s3": ["s3", "-filer", src, "-port", str(_free_port())],
         "server -s3": ["server", "-dir", str(tmp_path / "d"), "-device",
@@ -181,8 +183,14 @@ def _tier_answers(what, tmp_path, filers):
         "filer.replicate": ["filer.replicate", "-filer", src,
                             "-sink.dir", str(tmp_path / "sink"),
                             "-pollSeconds", "0.1"],
+        "webdav": ["webdav", "-filer", src, "-port", str(_free_port())],
+        "msgBroker": ["msgBroker", "-filer", src, "-port",
+                      str(_free_port())],
+        "mount": ["mount", "-filer", src, "-dir", str(mnt),
+                  "-filer.path", "/mnt-cli"],
     }[what]
     (tmp_path / "d").mkdir()
+    mnt.mkdir()
     env = dict(os.environ, PYTHONPATH=REPO,
                SEAWEEDFS_LOAD_JSON=str(tmp_path / "none.json"))
     log = tmp_path / "weed.log"
@@ -201,6 +209,32 @@ def _tier_answers(what, tmp_path, filers):
             _get(f"{s3}/b/{name}", body, "PUT")
             assert _get(f"{s3}/b/{name}") == body
             assert b"SeaweedFS_s3_request_total" in _get(f"{s3}/metrics")
+        elif what == "webdav":
+            dav = f"http://127.0.0.1:{argv[argv.index('-port') + 1]}"
+            _wait(what, lambda: _get(f"{dav}/", method="OPTIONS") == b"",
+                  proc, log)
+            _get(f"{dav}/cli/{name}", body, "PUT")
+            assert _get(f"{dav}/cli/{name}") == body
+            assert _get(f"http://{src}/cli/{name}") == body
+        elif what == "msgBroker":
+            b = f"http://127.0.0.1:{argv[argv.index('-port') + 1]}"
+            _wait(what, lambda: _get(f"{b}/cluster"), proc, log)
+            out = json.loads(_get(f"{b}/publish", json.dumps(
+                {"topic": "cli", "key": name, "value": body.decode()}
+            ).encode(), "POST"))
+            got = json.loads(_get(
+                f"{b}/subscribe?topic=cli&partition={out['partition']}"
+                f"&offset={out['offset']}"))
+            assert [m["value"] for m in got["messages"]] == [body.decode()]
+        elif what == "mount":
+            _wait(what, lambda: os.path.ismount(mnt), proc, log)
+            (mnt / name).write_bytes(body)
+            assert _get(f"http://{src}/mnt-cli/{name}") == body
+            assert (mnt / name).read_bytes() == body
+            subprocess.run(["fusermount", "-u", str(mnt)],
+                           capture_output=True)
+            proc.wait(timeout=30)
+            return
         else:
             _get(f"http://{src}/cli/{name}", body, "POST")
             if what == "filer.sync":
@@ -215,6 +249,20 @@ def _tier_answers(what, tmp_path, filers):
     finally:
         proc.terminate()
         proc.wait(timeout=30)
+
+
+def _mount_fails_as_reference(src, tmp_path):
+    """Without ``/dev/fuse`` each package's ``weed mount`` fails alike."""
+    got = {}
+    for which in CLIS:
+        mnt = tmp_path / f"mnt-{which}"
+        mnt.mkdir()
+        try:
+            got[which] = ("rc", _run(which, ["mount", "-filer", src,
+                                             "-dir", str(mnt)]))
+        except Exception as e:  # noqa: BLE001 - the class is compared
+            got[which] = ("raised", type(e).__name__)
+    assert got["port"] == got["ref"]
 
 
 @pytest.mark.parametrize("shard", ["x", "1", "2/2", "0/65", "a/b"])

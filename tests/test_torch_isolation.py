@@ -182,7 +182,15 @@ def test_port_files_exist():
                    ("replication", "sink.py"),
                    ("replication", "sync.py"),
                    ("notification", "__init__.py"),
-                   ("notification", "publisher.py")):
+                   ("notification", "publisher.py"),
+                   ("messaging", "__init__.py"),
+                   ("messaging", "broker.py"),
+                   ("mount", "__init__.py"),
+                   ("mount", "wfs.py"),
+                   ("mount", "fuse_ctypes.py"),
+                   ("mount", "page_writer.py"),
+                   ("server", "webdav.py"),
+                   ("ftpd", "__init__.py")):
         assert os.path.join("seaweedfs_tpu_torch", *module) in names
     assert len(files) > 10
 
@@ -300,6 +308,11 @@ def test_importing_the_port_loads_no_jax():
         "import seaweedfs_tpu_torch.shell.command_s3\n"
         "import seaweedfs_tpu_torch.replication\n"
         "import seaweedfs_tpu_torch.notification\n"
+        "import seaweedfs_tpu_torch.messaging\n"
+        "import seaweedfs_tpu_torch.mount\n"
+        "import seaweedfs_tpu_torch.mount.fuse_ctypes\n"
+        "import seaweedfs_tpu_torch.server.webdav\n"
+        "import seaweedfs_tpu_torch.ftpd\n"
         "seaweedfs_tpu_torch.shell.commands.all_commands()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'seaweedfs_tpu', 'bench', 'tools')]\n"
@@ -338,13 +351,16 @@ def test_weed_version_loads_neither_jax_nor_cryptography():
 
 
 @pytest.mark.parametrize("argv", (["s3", "-h"], ["filer.sync", "-h"],
-                                  ["filer.replicate", "-h"]),
+                                  ["filer.replicate", "-h"],
+                                  ["webdav", "-h"], ["mount", "-h"],
+                                  ["msgBroker", "-h"]),
                          ids=lambda a: a[0])
 def test_gateway_subcommands_load_no_torch(argv):
-    """``python -m seaweedfs_tpu_torch s3 -h`` (and the replication
-    subcommands) in a fresh interpreter: the S3 gateway and the filer
-    sync are client-side tiers and start without ``torch``, as
-    ``import seaweedfs_tpu_torch.s3`` does."""
+    """``python -m seaweedfs_tpu_torch s3 -h`` (and the replication,
+    WebDAV, mount and broker subcommands) in a fresh interpreter: the
+    gateways, the filer sync, the mount and the broker are client-side
+    tiers and start without ``torch``, as importing their modules
+    does."""
     code = (
         "import runpy, sys\n"
         f"sys.argv = ['seaweedfs_tpu_torch'] + {argv!r}\n"
@@ -353,6 +369,9 @@ def test_gateway_subcommands_load_no_torch(argv):
         "except SystemExit as e:\n"
         "    assert e.code == 0, e.code\n"
         "import seaweedfs_tpu_torch.s3, seaweedfs_tpu_torch.replication\n"
+        "import seaweedfs_tpu_torch.server.webdav\n"
+        "import seaweedfs_tpu_torch.mount, seaweedfs_tpu_torch.messaging\n"
+        "import seaweedfs_tpu_torch.mount.fuse_ctypes\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('torch', 'jax', 'jaxlib', 'seaweedfs_tpu')]\n"
         "print(bad)\n"

@@ -9,8 +9,8 @@ function of the seed alone: both give the same ops, the same outcomes,
 the same per-phase counts and the same result keys, and each pushes its
 summary to its own master's ``/cluster/benchmark``. The S3 persona of
 each package runs against its own gateway with the same ops, bytes and
-counts; the personas that need the mount or broker tiers raise in the
-port.
+counts; the mount and broker personas run through the port's ``WFS``
+and broker (held to the reference's in ``test_torch_personas.py``).
 """
 
 import random
@@ -188,30 +188,26 @@ def test_run_benchmark_same_ops_same_result_shape(tmp_path):
 
 
 def test_gateway_personas_raise(tmp_path):
-    """The mount and broker personas still raise; the S3 persona, which
-    raised before the gateway was ported, runs (its front door spawns a
-    filer and a gateway), as does a native-only mix. The filer's chunks
-    need volumes of their own collection, hence the slots."""
+    """No persona raises now: the mount and broker personas, which
+    raised before their tiers were ported, run as the S3 persona does
+    (their front doors spawn a filer and a broker), alone and in the
+    full mix, as does a native-only mix. The filer's chunks need volumes
+    of their own collection, hence the slots."""
     with PortHarness(n_volume_servers=1, volumes_per_server=12,
                      pulse_seconds=0.2, root=str(tmp_path),
                      device="cpu") as c:
         c.wait_for_nodes(1)
         for personas in ("fuse:1", "broker:1",
                          "native:1,fuse:1,broker:1,s3:1"):
-            with pytest.raises(NotImplementedError, match="item 7"):
-                port_bench.run_benchmark(c.master.url, n=4, concurrency=1,
-                                         personas=personas,
-                                         out=lambda *_: None)
-        for persona, a in ((port_bench.FusePersona,
-                            ("http://127.0.0.1:9", (1, 2), 1)),
-                           (port_bench.BrokerPersona,
-                            ("http://127.0.0.1:9", 1))):
-            with pytest.raises(NotImplementedError, match="item 7"):
-                persona(*a)
-        for need in ("need_fuse", "need_broker"):
-            with pytest.raises(NotImplementedError, match="item 7"):
-                port_bench.FrontDoors(c.master.url, s3_url="http://x",
-                                      broker_url="http://y", **{need: True})
+            rc = port_bench.run_benchmark(c.master.url, n=8, concurrency=2,
+                                          personas=personas, seed=3,
+                                          out=lambda *_: None)
+            assert rc == 0, personas
+            protocols = port_bench.LAST_RESULT["detail"]["protocols"]
+            want = sorted(p.split(":")[0] for p in personas.split(","))
+            assert sorted(protocols) == want
+            for name, sec in protocols.items():
+                assert sec["ops"] > 0 and sec["failures"] == 0, (name, sec)
         # an explicit gateway URL is used as it is: nothing spawned
         doors = port_bench.FrontDoors(c.master.url, need_s3=True,
                                       s3_url="http://x")

@@ -8,8 +8,8 @@ record): the answers, the exceptions and every file left behind
 (``.dat``, ``.idx``, ``.vif``, shards, ``.ecx``, ``.ecj``) must be
 identical, 0 differing bytes. Also the memory ``NeedleMap`` cases of
 ``tests/test_needle_map_sqlite.py``, ``collect_heartbeat`` key for key,
-``new_needle_map(kind="sqlite")`` raising, and ``Store()`` raising
-without a card."""
+``new_needle_map(kind="sqlite")`` giving the sqlite map, and
+``Store()`` raising without a card."""
 
 import os
 import time
@@ -440,10 +440,19 @@ def test_sorted_file_needle_map(tmp_path):
 
 
 def test_sqlite_needle_map_waits(tmp_path):
-    with pytest.raises(ValueError, match="not ported"):
-        port_nm.new_needle_map(str(tmp_path / "a.idx"), "sqlite")
-    with pytest.raises(ValueError, match="unknown"):
-        port_nm.new_needle_map(str(tmp_path / "a.idx"), "bogus")
+    """The factory's kinds as the reference's: ``sqlite`` is the port's
+    ``SqliteNeedleMap`` (held to the reference's in
+    ``test_torch_needle_map_sqlite.py``), it needs an idx path, and an
+    unknown kind raises."""
+    for nm in (port_nm, ref_nm):
+        m = nm.new_needle_map(str(tmp_path / f"{nm.__name__}.idx"), "sqlite")
+        assert type(m).__name__ == "SqliteNeedleMap"
+        assert isinstance(m, nm.SqliteNeedleMap)
+        m.close()
+        with pytest.raises(ValueError, match="requires an idx path"):
+            nm.new_needle_map(None, "sqlite")
+        with pytest.raises(ValueError, match="unknown"):
+            nm.new_needle_map(str(tmp_path / "a.idx"), "bogus")
 
 
 @pytest.mark.skipif("torch.cuda.is_available()")
