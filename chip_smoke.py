@@ -13,7 +13,9 @@ Run from the root of the repository, on a machine with a CUDA card and
    ``nvcc`` per source, all started together) and of the native host
    codec (``g++``), with ptxas's registers and
    spills (none allowed in gf_swar and gf_swar_u8) and SASS checks: the
-   doubling's instruction forms, and the XOR LOP3s a word of the
+   doubling's instruction forms; gf_vpu's table lookups (register-selector
+   PRMTs, at least one set a coefficient) with no doubling of a byte
+   alone left; and the XOR LOP3s a word of the
    compile-time RS(10,4) form of gf_swar and of gf_swar_u8, no more than
    the matrix's set bits; gf_swar's decides how the bound counts XORs
    (for the parity, the lower of that count and the pairs');
@@ -427,7 +429,9 @@ DOUBLING_FORMS = {
 ALU_PER_DOUBLING = sum(p == "alu" for p, _ in DOUBLING_FORMS.values())
 FMA_PER_DOUBLING = sum(p == "fma" for p, _ in DOUBLING_FORMS.values())
 # The instructions of one doubling of a byte alone in a 32-bit lane, as
-# gf_vpu's kernel does it: the SWAR forms without the per-byte mask.
+# gf_vpu's first design did it: the SWAR forms without the per-byte mask.
+# Its bound was counted from them (vpu_work_before); the table design has
+# no such doubling, and phase 1 checks that its LOP3 form is gone.
 VPU_DOUBLING_FORMS = {
     "SHF.R x>>7": ("alu", r"SHF\.R\.U32\.HI R\d+, RZ, 0x7, R\d+"),
     "LOP3 (x<<1&0xfe)^t": ("alu", r"LOP3\.LUT R\d+, R\d+, 0xfe, R\d+, 0x78"),
@@ -436,6 +440,9 @@ VPU_DOUBLING_FORMS = {
 }
 VPU_ALU_PER_DOUBLING = sum(p == "alu" for p, _ in VPU_DOUBLING_FORMS.values())
 VPU_FMA_PER_DOUBLING = sum(p == "fma" for p, _ in VPU_DOUBLING_FORMS.values())
+# gf_vpu's table lookup: a byte permute whose selector is a register (the
+# column's piece indices), three a coefficient for four columns.
+VPU_LOOKUP = r"PRMT R\d+, R\d+, R\d+, R(?:\d+|Z)"
 
 # gf_bitplane's instantiation for o <= 4, k <= 16 (the RS(10,4) launches):
 # <MT = 2 m-tiles, 4 K slices unrolled>
@@ -546,10 +553,21 @@ def swar_work(matrix: np.ndarray, n_bytes: int, batch: int = 1, *,
             words * FMA_PER_DOUBLING * xtimes)
 
 
-def vpu_work(matrix: np.ndarray, n_bytes: int, batch: int = 1):
-    """(bytes moved, ALU-pipe ops, FMA-pipe ops) of one gf_vpu call: the
-    SWAR count per byte instead of per u32 word, each doubling the
-    VPU_DOUBLING_FORMS."""
+def vpu_work(o: int, k: int, n_bytes: int, batch: int = 1):
+    """(bytes moved, ALU-pipe ops, FMA-pipe ops) of the function one
+    gf_vpu call computes: each byte read once and written once. The
+    product's operations are the kernel's design, not the function (a
+    split product table costs a few byte permutes a coefficient, well
+    under the bytes' time), so none is counted, as for gf_bitplane."""
+    return (batch * (k + o) * n_bytes, 0, 0)
+
+
+def vpu_work_before(matrix: np.ndarray, n_bytes: int, batch: int = 1):
+    """The count the bound took before it counted the function's work:
+    the first design's own instructions, per byte one doubling per
+    coefficient bit past the first of each input row (the
+    VPU_DOUBLING_FORMS) and one XOR per set coefficient bit. Printed
+    beside the bound for comparison."""
     o, k = matrix.shape
     tops = [int(c).bit_length() for c in np.bitwise_or.reduce(matrix, axis=0)]
     xtimes = sum(max(0, t - 1) for t in tops)
@@ -5966,18 +5984,30 @@ def run(args, torch, here: str) -> int:
                           "gf_fused_u8_kernelILi4E")
     say("SASS gf_fused_u8_kernelILi4E doubling forms: " + ", ".join(
         f"{name} x{n}" for name, n in forms.items()))
-    vpu_forms = sass_doubling(nvcc, build.build_info["gf_vpu"]["path"],
-                              "gf_vpu_kernelILi4E", VPU_DOUBLING_FORMS)
-    say("SASS gf_vpu_kernelILi4E doubling forms: " + ", ".join(
-        f"{name} x{n}" for name, n in vpu_forms.items()))
-    check(min(vpu_forms.values()) > 0 and len(set(vpu_forms.values())) == 1,
-          f"the built doubling of gf_vpu is no longer {VPU_ALU_PER_DOUBLING} "
-          f"ALU + {VPU_FMA_PER_DOUBLING} FMA-pipe instructions; recount the "
-          "bound")
-    vpu_ops = sass_opcodes(nvcc, build.build_info["gf_vpu"]["path"],
-                           "gf_vpu_kernelILi4E")
+    # gf_vpu: the table design's lookups are there (three register-
+    # selector PRMTs a coefficient, word pair half and row; the o = 4
+    # loop body takes two rows: at least 4 x 2 x 2 x 2 x 3 = 96), and the
+    # first design's doubling of a byte alone is gone. Its SWAR forms may
+    # stay: the block's table build doubles four table bytes at once
+    vpu_path = build.build_info["gf_vpu"]["path"]
+    vpu_forms = sass_doubling(nvcc, vpu_path, "gf_vpu_kernelILi4E",
+                              VPU_DOUBLING_FORMS)
+    vpu_body = sass_body(nvcc, vpu_path, "gf_vpu_kernelILi4E")
+    lookups = len(re.findall(VPU_LOOKUP, vpu_body))
+    say("SASS gf_vpu_kernelILi4E: table lookups (register-selector PRMT) "
+        f"x{lookups}; the first design's doubling forms: " + ", ".join(
+            f"{name} x{n}" for name, n in vpu_forms.items()))
+    check(lookups >= 96, f"gf_vpu's o = 4 kernel has {lookups} table "
+          "lookups, fewer than one loop body's 96: not the table design")
+    check(vpu_forms["LOP3 (x<<1&0xfe)^t"] == 0,
+          "gf_vpu still doubles a byte alone in a 32-bit lane")
+    vpu_ops = sass_opcodes(nvcc, vpu_path, "gf_vpu_kernelILi4E")
     say("SASS gf_vpu_kernelILi4E opcodes (static): " + ", ".join(
         f"{op} x{n}" for op, n in list(vpu_ops.items())[:16]))
+    for name, targs, regs, spill in ptxas_entries(
+            build.build_info["gf_vpu"]["ptxas"], r"gf_vpu_kernel"):
+        say(f"ptxas {name}<{targs[0]}>: {regs} registers, {spill} bytes "
+            "spill stores")
     fu_ops = sass_opcodes(nvcc, build.build_info["gf_fused_u8"]["path"],
                           "gf_fused_u8_kernelILi4E")
     say("SASS gf_fused_u8_kernelILi4E opcodes (static): " + ", ".join(
@@ -6309,10 +6339,10 @@ def run(args, torch, here: str) -> int:
             old = (f"; one LOP3 a set bit: {row['bound_ms_unfolded']:.4f} "
                    f"ms, {100 * row['bound_share_unfolded']:.1f}%")
         if before is not None:  # printed only: the kernels line keeps
-            before_ms, before_by = bound(*before)  # one bound a row
-            old = (f"; counted as before (the first design's unpack and "
-                   f"pack added): {before_ms:.4f} ms ({before_by}), "
-                   f"{100 * before_ms / ms:.1f}%")
+            before, what = before  # one bound a row
+            before_ms, before_by = bound(*before)
+            old = (f"; counted as before ({what}): before={before_ms:.4f} "
+                   f"ms ({before_by}), {100 * before_ms / ms:.1f}%")
         timings[name].append(row)
         lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
         pl = "" if plain_ms is None else f", plain {plain_ms:.4f} ms"
@@ -6415,9 +6445,13 @@ def run(args, torch, here: str) -> int:
               lambda: gf_bitplane.gf_matmul(matrix, x),
               lambda: [gf_bitplane.gf_matmul_plain(matrix, x[:, i:i + chunk])
                        for i in range(0, n, chunk)],
-              bitplane_work(4, 10, n), before=bitplane_work_before(4, 10, n))
+              bitplane_work(4, 10, n),
+              before=(bitplane_work_before(4, 10, n),
+                      "the first design's unpack and pack added"))
         timed("gf_vpu", label, lambda: gf_vpu.gf_matmul(coeff, x),
-              lambda: gf_vpu.gf_matmul_plain(coeff, x), vpu_work(matrix, n))
+              lambda: gf_vpu.gf_matmul_plain(coeff, x), vpu_work(4, 10, n),
+              before=(vpu_work_before(matrix, n),
+                      "the first design's doublings and XORs a byte"))
         agree("gf_vpu", gf_vpu.gf_matmul(coeff, x),
               gf_vpu.gf_matmul_plain(coeff, x), label)
     parity10 = gf256.parity_matrix(10, 4)

@@ -220,10 +220,11 @@ def _converged(brokers, timeout=60.0):
 
 def test_multi_broker_distribution(filers):
     """Three port brokers over one filer (the reference's
-    ``test_multi_broker_consistent_distribution``): the reference's
-    ``owner_of`` spreads the topic's partitions, a publish through a
-    non-owner is proxied with sequential offsets, and every broker
-    serves the same subscription."""
+    ``test_multi_broker_consistent_distribution``): ``owner_of`` places
+    the partitions of 64 topics as the reference's does and spreads them
+    over every broker (all 256 on one broker by chance: 3^-255), a
+    publish through a non-owner is proxied with sequential offsets, and
+    every broker serves the same subscription."""
     bs = [port_broker.MessageBroker(filers["port"], flush_every=3)
           for _ in range(3)]
     for b in bs:
@@ -231,21 +232,28 @@ def test_multi_broker_distribution(filers):
     try:
         urls = sorted(b.url for b in bs)
         _converged(urls)
-        owners = {ref_broker.owner_of("default", "hrwtopic", p, urls)
-                  for p in range(4)}
-        assert len(owners) >= 2
+        topics = [f"hrwtopic{j}" for j in range(64)]
+        owners = {(t, p): port_broker.owner_of("default", t, p, urls)
+                  for t in topics for p in range(bs[0].partition_count)}
+        assert owners == {(t, p): ref_broker.owner_of("default", t, p, urls)
+                          for t, p in owners}
+        assert set(owners.values()) == set(urls), "ownership never spread"
+        # a topic whose partition of the first key another broker owns,
+        # so the publish through bs[1] is proxied
+        part = port_broker.partition_of(b"k0", bs[0].partition_count)
+        topic = next(t for t in topics if owners[t, part] != bs[1].url)
         offsets = [http.post_json(f"http://{bs[1].url}/publish",
-                                  {"topic": "hrwtopic", "key": f"k{i}",
+                                  {"topic": topic, "key": f"k{i}",
                                    "value": f"v{i}"})
                    for i in range(9)]
+        assert offsets[0]["partition"] == part
         per_part: dict[int, list[int]] = {}
         for o in offsets:
             per_part.setdefault(o["partition"], []).append(o["offset"])
         for seq in per_part.values():
             assert seq == list(range(len(seq)))
-        part = offsets[0]["partition"]
         views = [[(m["key"], m["value"]) for m in http.get_json(
-            f"http://{b.url}/subscribe?topic=hrwtopic&partition={part}"
+            f"http://{b.url}/subscribe?topic={topic}&partition={part}"
             "&offset=0")["messages"]] for b in bs]
         assert views[0] and views[0] == views[1] == views[2]
     finally:

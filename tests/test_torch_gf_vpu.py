@@ -3,10 +3,13 @@
 inputs, for host numpy and device (jax on the CPU) u8 input.
 
 On the CPU the route runs the kernel's plain version; the CUDA case runs
-the kernel against it and skips here. Tolerance 0: GF(2^8) arithmetic is
-exact.
+the kernel against it and skips here. The kernel's own algebra (split
+product tables looked up by byte permutes) is held to the same bytes
+through its step-by-step model, ``gf_vpu.gf_matmul_tables``. Tolerance
+0: GF(2^8) arithmetic is exact.
 """
 
+import re
 import zlib
 
 import jax
@@ -19,6 +22,7 @@ torch.set_num_threads(2)
 
 from seaweedfs_tpu.ops import gf256 as ref_gf256  # noqa: E402
 from seaweedfs_tpu.ops.pallas import gf_kernel as ref_kernel  # noqa: E402
+from seaweedfs_tpu_torch.ops import gf256  # noqa: E402
 from seaweedfs_tpu_torch.ops.kernels import (  # noqa: E402
     gf_kernel,
     gf_swar,
@@ -135,6 +139,99 @@ def test_host_input_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError):
         gf_kernel.gf_matmul_fused(ref_gf256.parity_matrix(10, 4),
                                   np.zeros((10, 64), np.uint8), method="vpu")
+
+
+def test_table_model_is_the_product_table():
+    """The kernel's tables and byte-permute lookups give c·x for all 256
+    coefficients and all 256 bytes: the port's GF(2^8) product table."""
+    matrix = np.arange(256, dtype=np.uint8).reshape(256, 1)
+    data = torch.arange(256, dtype=torch.uint8).reshape(1, 256)
+    got = gf_vpu.gf_matmul_tables(matrix, data)
+    np.testing.assert_array_equal(got.numpy(), gf256.mul_table())
+
+
+def test_selectors_never_replicate_a_sign():
+    """Bit 3 of every selector nibble is clear for every pair of bytes,
+    so PRMT always picks a table byte, and each nibble indexes its
+    piece's table within its length (8, 8 and 4 entries)."""
+    a = torch.arange(256, dtype=torch.int64).repeat_interleave(256)
+    b = torch.arange(256, dtype=torch.int64).repeat(256)
+    spread = a | a << 8 | a << 16 | a << 24, b | b << 8 | b << 16 | b << 24
+    sel = gf_vpu.pair_selectors(*spread)
+    for p, top in enumerate((7, 7, 3, 7, 7, 3)):
+        for j in range(8 if p < 3 else 4):
+            nib = (sel[p] >> (4 * j)) & 0xF
+            assert int(nib.max()) == top, (p, j)
+    assert torch.equal(sel[0] & 0xFFFF, (a & 7) | (b & 7) << 4
+                       | (a & 7) << 8 | (b & 7) << 12)
+
+
+def _random_16x64():
+    coeff = rng_for("tables", 16, 64).integers(0, 256, (16, 64),
+                                               dtype=np.uint8)
+    coeff[0, :3] = (0, 1, 255)
+    coeff[5, 7] = 0
+    coeff[:, 9] = 0
+    return coeff
+
+
+TABLE_CASES = {
+    "parity(10,4)": (lambda: ref_gf256.parity_matrix(10, 4), (10, 1000)),
+    **{f"lost={lost}": (lambda lost=lost: rec_matrix(lost), (10, 999))
+       for lost in LOSSES},
+    "parity(6,3)": (lambda: ref_gf256.parity_matrix(6, 3), (6, 1001)),
+    "parity(12,4)": (lambda: ref_gf256.parity_matrix(12, 4), (12, 1000)),
+    "parity(20,4)": (lambda: ref_gf256.parity_matrix(20, 4), (20, 777)),
+    "random 16x64": (_random_16x64, (64, 203)),
+    "parity(10,4) width 1": (lambda: ref_gf256.parity_matrix(10, 4),
+                             (10, 1)),
+    "parity(10,4) width 13": (lambda: ref_gf256.parity_matrix(10, 4),
+                              (10, 13)),
+    "parity(10,4) batch 3": (lambda: ref_gf256.parity_matrix(10, 4),
+                             (3, 10, 8192 + 17)),
+    "lost=(0, 5, 11, 13) batch 2": (lambda: rec_matrix((0, 5, 11, 13)),
+                                    (2, 10, 4095)),
+}
+
+
+@pytest.mark.parametrize("case", list(TABLE_CASES))
+def test_table_model_matches_reference(case):
+    """The kernel's table algebra, the plain version and the reference's
+    ``_vpu_kernel`` (interpret mode) give the same bytes."""
+    make, shape = TABLE_CASES[case]
+    coeff = make()
+    data = rng_for("tables", case).integers(0, 256, shape, dtype=np.uint8)
+    want = np.asarray(ref_kernel.gf_matmul_pallas(
+        coeff, data, method="vpu", interpret=True))
+    x = torch.from_numpy(data)
+    for c in (coeff, gf_swar.coeff_from_reference(coeff)):
+        np.testing.assert_array_equal(
+            gf_vpu.gf_matmul_tables(c, x).numpy(), want)
+    np.testing.assert_array_equal(gf_vpu.gf_matmul_plain(coeff, x).numpy(),
+                                  want)
+
+
+def test_chip_smoke_bound_is_the_function_and_lookups_counted():
+    """chip_smoke's gf_vpu bound counts bytes read and written once
+    (0.2805 ms at [10, 64 MiB] on the H100's 3.35 TB/s), the old count
+    (the first design's doublings and XORs a byte) stays beside it, and
+    its SASS check counts register-selector PRMTs, not the immediate
+    ones that put the interleaved columns back."""
+    import chip_smoke
+
+    n = 64 << 20
+    assert chip_smoke.vpu_work(4, 10, n) == (14 * n, 0, 0)
+    ms, by = chip_smoke.bound(*chip_smoke.vpu_work(4, 10, n))
+    assert by == "bytes" and ms == pytest.approx(0.2805, abs=1e-4)
+    before = {name: chip_smoke.bound(*chip_smoke.vpu_work_before(m, n))
+              for name, m in (("parity", ref_gf256.parity_matrix(10, 4)),
+                              ("rebuild", rec_matrix((0, 5, 11, 13))))}
+    assert before["parity"][0] == pytest.approx(1.1073, abs=1e-4)
+    assert before["rebuild"][0] == pytest.approx(1.1555, abs=1e-4)
+    listing = ("/*0a10*/ PRMT R4, R5, R6, R7 ;\n"
+               "/*0a20*/ PRMT R8, R9, R10, RZ ;\n"
+               "/*0a30*/ PRMT R11, R4, 0x6420, R8 ;\n")
+    assert len(re.findall(chip_smoke.VPU_LOOKUP, listing)) == 2
 
 
 @needs_card

@@ -26,6 +26,7 @@ from seaweedfs_tpu.command import benchmark as ref_bench  # noqa: E402
 from seaweedfs_tpu.server.harness import (  # noqa: E402
     ClusterHarness as RefHarness,
 )
+from seaweedfs_tpu.telemetry import snapshot as ref_snap  # noqa: E402
 from seaweedfs_tpu.util import http as ref_http  # noqa: E402
 from seaweedfs_tpu.util import retry as ref_retry  # noqa: E402
 from seaweedfs_tpu_torch import operation as port_operation  # noqa: E402
@@ -33,12 +34,25 @@ from seaweedfs_tpu_torch.command import benchmark as port_bench  # noqa: E402,E5
 from seaweedfs_tpu_torch.server.harness import (  # noqa: E402
     ClusterHarness as PortHarness,
 )
+from seaweedfs_tpu_torch.telemetry import snapshot as port_snap  # noqa: E402
 from seaweedfs_tpu_torch.util import http as port_http  # noqa: E402
 from seaweedfs_tpu_torch.util import retry as port_retry  # noqa: E402
 
 torch.set_num_threads(2)
 
 BENCH = {"ref": ref_bench, "port": port_bench}
+
+
+@pytest.fixture(autouse=True)
+def fresh_protocols(monkeypatch):
+    """A fresh persona ledger for each package's snapshot and load
+    generator (which binds ``PROTOCOLS`` by name) for the test's length:
+    a persona run here records sections that a later test in the same
+    process, of either package, must not find."""
+    for snap, bench in ((ref_snap, ref_bench), (port_snap, port_bench)):
+        ledger = snap.ProtocolAccounting()
+        monkeypatch.setattr(snap, "PROTOCOLS", ledger)
+        monkeypatch.setattr(bench, "PROTOCOLS", ledger)
 
 
 def _outcome(fn, *args):
