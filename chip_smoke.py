@@ -158,7 +158,7 @@ Run from the root of the repository, on a machine with a CUDA card and
     every ``.ec00–.ec13`` and the ``.ecx`` hashing equal to phase 10's
     (GB/s and the response's ``timing``), ``/admin/ec/mount`` and
     ``/admin/delete_volume``; ``/admin/ec/delete_shards`` of {0, 5, 11,
-    13} and 2,000 seeded live needles read byte-exact on 8 client
+    13} and 500 seeded live needles read byte-exact on 8 client
     threads (needles/s, p50/p99 ms) with the
     ``seaweedfs_codec_route_total`` delta, which must show link-aware
     routes and no ``static`` one; ``/admin/ec/rebuild`` (the same four
@@ -182,7 +182,7 @@ Run from the root of the repository, on a machine with a CUDA card and
     hashing equal to phase 10's wherever the spread put it);
     {0, 5, 11, 13} deleted from their holders and ``ec.rebuild`` with two
     reader threads beside it (rebuilt shards hashing equal); the four
-    deleted again and 2,000 needles read byte-exact through the client
+    deleted again and 500 needles read byte-exact through the client
     on 8 threads, the master answering the servers' ``/ec/lookup`` (the
     lookups, the failed ones, the remote shard reads and the
     reconstructions timed apart; p50/p99 by needle size); a second
@@ -236,8 +236,9 @@ Run from the root of the repository, on a machine with a CUDA card and
     and stay dead, on a fresh, probed link state. The round must
     converge with ``fleet_ec_GBps`` above zero, at least one warm volume
     encoded and the master's requests counted; the harness is kept up
-    after it, and every seeded needle of every encoded warm volume is
-    read back byte-exact through the client (regenerated from the seed,
+    after it, and a seeded sample of 1,000 of the seeded needles of the
+    encoded warm volumes is read back byte-exact through the client
+    (regenerated from the seed,
     shards on killed servers rebuilt), one volume's ``.ec10–.ec13``
     equal the plain version's parity of its ten data shards, gf_swar
     launched (split by form), and ``run_check`` of the round against its
@@ -389,6 +390,7 @@ import dataclasses
 import hashlib
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -400,6 +402,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -449,6 +452,11 @@ VPU_LOOKUP = r"PRMT R\d+, R\d+, R\d+, R(?:\d+|Z)"
 BITPLANE_SYMBOL = "gf_bitplane_kernelILi2ELi4EE"
 
 MIB = 1 << 20
+# needles read with four shards lost in phases 13 and 14 (the needle
+# volume holds about 2,000), and warm needles read back in phase 16: the
+# script's depth, cut so that it ends in about half its time limit
+DEGRADED_SAMPLE = 500
+WARM_READS = 1000
 GOLDEN_BLOCKS = dict(large_block_size=10_000, small_block_size=100,
                      batch_bytes=4096)
 
@@ -462,12 +470,24 @@ def say(*parts) -> None:
     print(*parts, flush=True)
 
 
+_SASS: dict[str, str] = {}
+
+
+def sass_dump(nvcc: str, lib_path: str) -> str:
+    """The whole SASS of a built library, dumped once: cuobjdump takes
+    seconds a library, and phase 1 reads each library's many times."""
+    if lib_path not in _SASS:
+        cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+        _SASS[lib_path] = subprocess.run(
+            [cuobjdump, "-sass", lib_path], capture_output=True, text=True,
+            check=True).stdout
+    return _SASS[lib_path]
+
+
 def sass_body(nvcc: str, lib_path: str, symbol: str) -> str:
     """The built SASS of the kernel whose mangled name contains
     ``symbol``."""
-    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
-                          text=True, check=True).stdout
+    sass = sass_dump(nvcc, lib_path)
     return sass.split(symbol, 1)[1].split("Function :", 1)[0]
 
 
@@ -1956,8 +1976,6 @@ def phase_volume_server(args, torch, smi, kept, reset_counts, counters):
     """Phase 13: one port ``VolumeServer`` on the card, with no master,
     driven only through HTTP requests. Returns the phase's row and the
     launch counts of its path."""
-    from concurrent.futures import ThreadPoolExecutor
-
     from seaweedfs_tpu_torch.ops import link
     from seaweedfs_tpu_torch.ops.codec import RSCodec
     from seaweedfs_tpu_torch.ops.kernels import gf_swar
@@ -2016,7 +2034,7 @@ def phase_volume_server(args, torch, smi, kept, reset_counts, counters):
         keys = sorted(live)
         rng = np.random.default_rng(args.seed)
         sample = [keys[j] for j in sorted(rng.choice(
-            len(keys), min(2000, len(keys)), replace=False))]
+            len(keys), min(DEGRADED_SAMPLE, len(keys)), replace=False))]
         cookies = needle_cookies(os.path.join(work, "1.dat"),
                                  os.path.join(work, "1.idx"), sample)
         fids1 = {str(FileId(1, k, cookies[k])): k for k in sample}
@@ -2298,8 +2316,6 @@ def phase_cluster(args, smi, kept, reset_counts, counters):
     topology and raft, four volume servers on ``cuda``, all in this
     process — driven only through the port's shell and ``operation``
     client. Returns the phase's row and the launch counts of its path."""
-    from concurrent.futures import ThreadPoolExecutor
-
     from seaweedfs_tpu_torch import operation
     from seaweedfs_tpu_torch.operation import client as op_client
     from seaweedfs_tpu_torch.ops import link
@@ -2407,7 +2423,7 @@ def phase_cluster(args, smi, kept, reset_counts, counters):
         keys = sorted(live)
         rng = np.random.default_rng(args.seed)
         sample = [keys[j] for j in sorted(rng.choice(
-            len(keys), min(2000, len(keys)), replace=False))]
+            len(keys), min(DEGRADED_SAMPLE, len(keys)), replace=False))]
         cookies = needle_cookies(os.path.join(src, "1.dat"),
                                  os.path.join(src, "1.idx"), sample)
         fids1 = {str(FileId(1, k, cookies[k])): k for k in sample}
@@ -3183,6 +3199,33 @@ def warm_needles(volumes, limit: int, seed: int):
     return out
 
 
+def record_probes(tl: dict, record_path: str, on_card) -> dict:
+    """The round's timeline against a reference record's: every probe
+    name of the record outside the ``m.``/``g.`` metric families is on
+    the port's timeline, and the master's aggregator-lock probe has a
+    finite peak, printed beside the record's (a CPU host's). Returns the
+    row's entry."""
+    name = os.path.basename(record_path)
+    with open(record_path) as f:
+        want = json.load(f)["detail"]["timeline"]["probes"]
+    names = sorted(n for n in want if not n.startswith(("m.", "g.")))
+    missing = [n for n in names if n not in tl["probes"]]
+    check(not missing, f"{name}'s probes {missing} are missing from the "
+          f"port's timeline: {sorted(tl['probes'])}")
+    probe = tl["probes"]["master_agg_lock_wait_ms"]
+    check(math.isfinite(probe["peak"]),
+          f"master_agg_lock_wait_ms has a finite peak: {probe}")
+    ref = want["master_agg_lock_wait_ms"]
+    on_card(f"master_agg_lock_wait_ms peak {probe['peak']} ms, mean "
+            f"{probe['mean']} ms over {tl['frames']} frames; {name} (a CPU "
+            f"host's record): peak {ref['peak']} ms, mean {ref['mean']} ms; "
+            f"the record's {len(names)} probe names all on the timeline")
+    return {"record": name, "probe_names": len(names),
+            "master_agg_lock_wait_ms": {
+                "peak": probe["peak"], "mean": probe["mean"],
+                "record_peak": ref["peak"], "record_mean": ref["mean"]}}
+
+
 def phase_fleet(args, torch, smi, reset_counts, counters):
     """Phase 16: the warm fleet round on the card — the reference's
     recorded warm round (``SCALE_r05.json``: spec 5x4x5, seed 5) through
@@ -3190,12 +3233,11 @@ def phase_fleet(args, torch, smi, reset_counts, counters):
     and one master in this process, eight warm volumes seeded past a
     64 MiB limit and EC-encoded by the maintenance plane while ten
     servers die under zipfian load. The cluster is kept up after the
-    round (its harness's stop is deferred) to read every seeded needle
-    of every encoded warm volume back and to hold one volume's parity
+    round (its harness's stop is deferred) to read a seeded sample of
+    the encoded warm volumes' seeded needles back and to hold one
+    volume's parity
     shards to the plain version. Returns the phase's row and the launch
     counts of its path."""
-    from concurrent.futures import ThreadPoolExecutor
-
     from seaweedfs_tpu_torch import operation
     from seaweedfs_tpu_torch.operation import client as op_client
     from seaweedfs_tpu_torch.ops import gf256, link
@@ -3207,6 +3249,7 @@ def phase_fleet(args, torch, smi, reset_counts, counters):
     from seaweedfs_tpu_torch.util import retry
 
     phase_t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
     spec = TopologySpec(5, 4, 5, volumes_per_server=8)
     settings = dict(seed=5, pulse_seconds=0.5, churn_kind="warm",
                     kill_fraction=0.1, load_seconds=8.0,
@@ -3302,6 +3345,8 @@ def phase_fleet(args, torch, smi, reset_counts, counters):
             for r in d["contention"]["top"][:5]]
         check("fleet_ec_gbps" in tl["probes"],
               f"the master's fleet_ec_gbps probe: {sorted(tl['probes'])}")
+        row["probes_vs_SCALE_r05"] = record_probes(
+            tl, os.path.join(here, "SCALE_r05.json"), on_card)
         on_card(f"fleet round {spec} seed {settings['seed']}: converged "
                 f"in {d['converge_seconds']:.3f} s ({d['converge_polls']} "
                 f"polls) after {len(d['churn']['killed'])} kills "
@@ -3332,13 +3377,18 @@ def phase_fleet(args, torch, smi, reset_counts, counters):
                 f"{swar['run_time']} run-time), {swar['host_dispatches']} "
                 f"host dispatches; routes {row['routes']}")
 
-        # every seeded needle of every encoded warm volume, byte-exact
+        # the seeded needles of the encoded warm volumes, byte-exact
         limit = h.master.topo.volume_size_limit
         needles = warm_needles(seeded, limit, settings["seed"])
         op_client._lookup_cache.clear()
         retry.BREAKERS.reset()
         m = h.master.url
         work = [(fid, data) for vid in warm for fid, data in needles[vid]]
+        seeded_n = len(work)
+        # a seeded sample of them, every encoded volume's needles in it
+        pick = np.random.default_rng([settings["seed"], 16]).choice(
+            seeded_n, min(WARM_READS, seeded_n), replace=False)
+        work = [work[j] for j in sorted(pick)]
 
         def read_one(item):
             fid, data = item
@@ -3350,11 +3400,13 @@ def phase_fleet(args, torch, smi, reset_counts, counters):
         read_s = time.perf_counter() - t0
         check(not bad, f"{len(bad)} warm needles differ: {bad[:5]}")
         read_bytes = sum(len(data) for _fid, data in work)
-        row["reads"] = {"needles": len(work), "bytes": read_bytes,
+        row["reads"] = {"needles": len(work), "of_seeded": seeded_n,
+                        "bytes": read_bytes,
                         "seconds": read_s,
                         "MBps": read_bytes / read_s / 1e6}
-        on_card(f"read back {len(work)} seeded needles ({read_bytes} "
-                f"bytes) of warm volumes {warm} byte-exact through the "
+        on_card(f"read back {len(work)} of the {seeded_n} seeded needles "
+                f"({read_bytes} bytes) of warm volumes {warm}, a seeded "
+                "sample, byte-exact through the "
                 f"client in {read_s:.3f} s = {row['reads']['MBps']:.1f} "
                 "MB/s on 8 threads")
 
@@ -3659,8 +3711,6 @@ def phase_cli_cluster(args, smi):
     ``device`` routes (``/metrics``) are kept beside them. Returns the
     phase's row and the launch counts of its path, summed over the
     servers."""
-    from concurrent.futures import ThreadPoolExecutor
-
     from seaweedfs_tpu_torch import operation
     from seaweedfs_tpu_torch.storage.erasure_coding import (
         constants as C,
@@ -3947,8 +3997,6 @@ def phase_filer(args, smi):
     gf_swar launches in the volume server processes, read from their own
     counters around each step. Returns the phase's row and the launch
     counts of its path, summed over the servers."""
-    from concurrent.futures import ThreadPoolExecutor
-
     from seaweedfs_tpu_torch.filer.sharding import FilerRing, ShardMap
     from seaweedfs_tpu_torch.storage.erasure_coding import (
         constants as C,
@@ -4423,6 +4471,8 @@ def phase_leader(args, smi, reset_counts, counters):
               f"midfailover_failure_rate in [0, 1]: {fo}")
         check("raft_term" in d["timeline"]["probes"],
               f"raft_term on the timeline: {sorted(d['timeline']['probes'])}")
+        row["probes_vs_SCALE_r06"] = record_probes(
+            d["timeline"], os.path.join(here, "SCALE_r06.json"), on_card)
         row.update(round_s=round_s, converged=d["converged"],
                    converge_seconds=d["converge_seconds"],
                    failover=fo,
@@ -4590,8 +4640,6 @@ def phase_s3(args, smi):
     server processes, read from their own counters around each step.
     Returns the phase's row and the launch counts of its path, summed
     over the servers."""
-    from concurrent.futures import ThreadPoolExecutor
-
     from seaweedfs_tpu_torch.filer import sharding
     from seaweedfs_tpu_torch.s3.auth import Identity
     from seaweedfs_tpu_torch.storage.erasure_coding import (
@@ -5057,8 +5105,6 @@ def phase_gateways(args, smi):
     processes, read from their own counters around each step. Returns
     the phase's row and the launch counts of its path, summed over the
     servers."""
-    from concurrent.futures import ThreadPoolExecutor
-
     from seaweedfs_tpu_torch.messaging.broker import partition_of
     from seaweedfs_tpu_torch.mount.wfs import WFS
     from seaweedfs_tpu_torch.storage.erasure_coding import (
@@ -5580,6 +5626,8 @@ def phase_persona_round(args, smi, reset_counts, counters):
         check(filer.get("shard_count") == 2
               and sorted(filer.get("shards") or {}) == ["shard0", "shard1"],
               f"detail.filer for both shards: {filer}")
+        row["probes_vs_SCALE_r07"] = record_probes(
+            d["timeline"], os.path.join(here, "SCALE_r07.json"), on_card)
         want_names = sorted(benchgate.flatten_scale(record))
         names = sorted(benchgate.flatten_scale(result))
         check(names == want_names, f"gated names {names} against the "
@@ -5897,6 +5945,14 @@ def run(args, torch, here: str) -> int:
                 r"Function properties for (\S+)\n\s+\d+ bytes stack frame, "
                 r"([1-9]\d*) bytes spill stores", info["ptxas"])
             check(spills == 0, f"{lib} spills {spills} bytes: {spilling}")
+    # every library's SASS dumped at once, one cuobjdump each
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda lib: sass_dump(nvcc, build.build_info[lib][
+            "path"]), libs))
+    say(f"SASS of {len(libs)} libraries dumped in "
+        f"{time.perf_counter() - t0:.3f} s wall, one cuobjdump each, in "
+        "parallel")
     # the SWAR kernels' symbols: <form (0 run-time, 1 RS(10,4) constants),
     # O, W>
     for lib, symbol in (("gf_swar", "gf_swar_kernelILi0ELi4ELi1EE"),

@@ -106,6 +106,21 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+def available() -> bool:
+    """Whether the host codec builds and loads here: True when
+    :func:`library` loads, False when it raises :class:`NativeUnavailable`.
+
+    It only reports (a bench names its baseline's presence with it). No
+    path of the port consults it to route around the host codec or the
+    card: a caller that needs the codec calls :func:`library` and a
+    failed build raises there, with nothing in its place."""
+    try:
+        library()
+        return True
+    except NativeUnavailable:
+        return False
+
+
 def _as_u8(data) -> np.ndarray:
     """A C-contiguous uint8 view of ``data`` (bytes, bytearray,
     memoryview or array), copying only an array that is not one."""

@@ -209,3 +209,17 @@ def gf_matmul_cpu(coeff: np.ndarray, data: np.ndarray) -> np.ndarray:
 def encode_cpu(data: np.ndarray, parity_shards: int) -> np.ndarray:
     """parity[m, N] from data[k, N] — the numpy oracle for the kernels."""
     return gf_matmul_cpu(parity_matrix(data.shape[0], parity_shards), data)
+
+
+def reconstruct_cpu(
+    shards: dict[int, np.ndarray], data_shards: int, parity_shards: int
+) -> dict[int, np.ndarray]:
+    """Rebuild all missing shards from a dict of present {shard_id: bytes}."""
+    r, missing = reconstruction_matrix(
+        data_shards, parity_shards, tuple(sorted(shards))
+    )
+    if not missing:
+        return {}
+    use = sorted(shards)[:data_shards]
+    rebuilt = gf_matmul_cpu(r, np.stack([shards[i] for i in use], axis=0))
+    return {sid: rebuilt[i] for i, sid in enumerate(missing)}

@@ -22,12 +22,6 @@ from .layout import (  # noqa: F401
     shard_file_size,
     to_shard_id_and_offset,
 )
-from .encoder import (  # noqa: F401
-    write_ec_files,
-    write_ec_files_batch,
-    write_sorted_file_from_idx,
-)
-from .rebuild import rebuild_ec_files  # noqa: F401
 from .decoder import (  # noqa: F401
     find_dat_file_size,
     iterate_ecj_file,
@@ -35,3 +29,27 @@ from .decoder import (  # noqa: F401
     write_dat_file,
     write_idx_file_from_ec_index,
 )
+
+# the encoder and the rebuild import torch; a client that only needs the
+# constants or the layout (``weed shell``, through the maintenance plane)
+# starts without it
+_LAZY = {
+    "write_ec_files": "encoder",
+    "write_ec_files_batch": "encoder",
+    "write_sorted_file_from_idx": "encoder",
+    "rebuild_ec_files": "rebuild",
+}
+
+
+def __getattr__(name: str):
+    """The encoder's and the rebuild's public names, imported at first
+    use."""
+    module = _LAZY.get(name)
+    if module is None:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    value = getattr(importlib.import_module(f".{module}", __name__), name)
+    globals()[name] = value
+    return value

@@ -10,6 +10,9 @@ parses as strided numpy columns.
 
 from __future__ import annotations
 
+import os
+from typing import BinaryIO, Callable, Iterator
+
 import numpy as np
 
 from . import types as t
@@ -58,6 +61,34 @@ def pack_entries(entries: np.ndarray) -> bytes:
         entries["size"].astype(">i4").view(np.uint8).reshape(n, 4)
     )
     return raw.tobytes()
+
+
+def walk_index_file(
+    f: BinaryIO | str | os.PathLike,
+    fn: Callable[[int, int, int], None] | None = None,
+) -> Iterator[tuple[int, int, int]] | None:
+    """Iterate (key, byte offset, size) over an .idx file, a path or a
+    binary file object.
+
+    With `fn`, calls it per entry (upstream's WalkIndexFile semantics);
+    without, returns a generator.
+    """
+    if isinstance(f, (str, os.PathLike)):
+        with open(f, "rb") as fh:
+            data = fh.read()
+    else:
+        data = f.read()
+    entries = parse_entries(data)
+
+    def gen():
+        for e in entries:
+            yield int(e["key"]), int(e["offset"]), int(e["size"])
+
+    if fn is None:
+        return gen()
+    for key, off, size in gen():
+        fn(key, off, size)
+    return None
 
 
 def sort_by_key(entries: np.ndarray) -> np.ndarray:

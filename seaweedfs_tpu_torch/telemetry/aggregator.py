@@ -463,3 +463,12 @@ class ClusterTelemetry:
         with self._view_cache_lock:
             self._view_cache = (now, view)
         return view
+
+    def probe_lock_wait_seconds(self) -> float:
+        """Flight-recorder probe: how long ONE bare acquisition of the
+        aggregator lock takes right now — a direct read on the
+        contention the view cache exists to remove."""
+        t0 = time.perf_counter()
+        with self._lock:
+            pass
+        return time.perf_counter() - t0

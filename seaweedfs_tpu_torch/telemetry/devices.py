@@ -85,6 +85,10 @@ _DEVICE_BACKENDS = {"cuda"}
 # volume readers: lanes past the cap share one overflow label
 _LANE_CAP = 16
 
+# the cluster.health threshold: a (max-min) busy spread above this
+# fraction of the mean is worth a devices: line on the health screen
+IMBALANCE_THRESHOLD = 0.20
+
 
 def _lane_label(lane) -> str:
     try:

@@ -591,3 +591,38 @@ def test_weed_server_filer_copy_cat_matches_reference(tmp_path):
         f"<tmp>/files/doc{i}.bin -> /docs/in/doc{i}.bin" for i in range(3)]
     for p in paths:
         assert cats[os.path.basename(p)] == open(p, "rb").read()
+
+
+@pytest.mark.parametrize("module", [
+    "seaweedfs_tpu_torch.shell",
+    "seaweedfs_tpu_torch.shell.command_ec",
+    "seaweedfs_tpu_torch.maintenance",
+])
+def test_shell_client_starts_without_torch(module):
+    """``weed shell`` runs its commands on the servers: importing it (the
+    maintenance plane and the EC constants included) loads no torch, so
+    each ``weed shell -c`` starts in well under a second."""
+    code = (f"import sys, {module}\n"
+            "assert 'torch' not in sys.modules, "
+            "[m for m in sys.modules if m.startswith('torch')][:5]\n")
+    p = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert p.returncode == 0, p.stderr
+
+
+def test_erasure_coding_names_resolve_at_first_use():
+    """The package's encoder and rebuild names, imported lazily, are the
+    same objects as the submodules' and import the way they always did."""
+    from seaweedfs_tpu_torch.storage import erasure_coding as ec
+    from seaweedfs_tpu_torch.storage.erasure_coding import (
+        encoder,
+        rebuild,
+        write_ec_files,
+    )
+
+    assert write_ec_files is encoder.write_ec_files
+    assert ec.write_ec_files_batch is encoder.write_ec_files_batch
+    assert ec.write_sorted_file_from_idx is encoder.write_sorted_file_from_idx
+    assert ec.rebuild_ec_files is rebuild.rebuild_ec_files
+    with pytest.raises(AttributeError):
+        ec.no_such_name  # noqa: B018

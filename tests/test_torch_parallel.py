@@ -19,12 +19,14 @@ torch.set_num_threads(2)
 
 import jax  # noqa: E402
 
+from seaweedfs_tpu.ops import link as ref_link  # noqa: E402
 from seaweedfs_tpu.parallel import ec_sharded as ref_sharded  # noqa: E402
 from seaweedfs_tpu.parallel import make_mesh as ref_make_mesh  # noqa: E402
 from seaweedfs_tpu.storage.erasure_coding import (  # noqa: E402
     write_ec_files_batch as ref_write_ec_files_batch,
 )
 from seaweedfs_tpu_torch.ops import codec  # noqa: E402
+from seaweedfs_tpu_torch.ops import link as port_link  # noqa: E402
 from seaweedfs_tpu_torch.parallel import (  # noqa: E402
     ec_sharded,
     encode_batch_parity,
@@ -227,7 +229,12 @@ def test_shard_views_are_the_references(shape, pad_to):
 @pytest.mark.parametrize("n_lanes,lane_bytes", [
     (1, 0), (8, 10 << 20), (4, 1 << 16), (64, 3 << 20),
 ])
-def test_choose_lane_plan_is_the_references_cold_link(n_lanes, lane_bytes):
+def test_choose_lane_plan_is_the_references_cold_link(monkeypatch, n_lanes,
+                                                     lane_bytes):
+    # both links cold: a test run earlier in this process may have probed
+    # either package's process-wide link state
+    monkeypatch.setattr(ref_link, "STATE", ref_link.LinkState())
+    monkeypatch.setattr(port_link, "STATE", port_link.LinkState())
     assert ec_sharded.choose_lane_plan(n_lanes, lane_bytes) == \
         ref_sharded.choose_lane_plan(n_lanes, lane_bytes)
 
