@@ -338,8 +338,10 @@ phase 11 runs the link-aware default.
     the credentials of a ``backend.json`` made from ``weed scaffold
     -config backend``, every needle read through its volume server from
     the ``S3Backend``, and ``volume.tier.download``, the ``.dat`` hashing
-    equal to the one uploaded. Launches are the server processes' own
-    counters. Its ``s3`` JSON line.
+    equal to the one uploaded; then every volume server's heartbeat
+    must still arrive (a snapshot of each, taken after the moves, in the
+    master's ``/cluster/telemetry``). Launches are the server processes'
+    own counters. Its ``s3`` JSON line.
 21. the gateways over a degraded volume: phase 17's cluster of ``weed``
     processes with its volume servers on the sqlite needle map
     (``-index sqlite``), one ``weed filer -store sqlite -collection
@@ -372,6 +374,23 @@ phase 11 runs the link-aware default.
     record) are printed, not gated; it seeds no warm volume, so its
     launches are printed, not required. Its ``persona_round`` JSON line.
 
+Phases 16, 19 and 22 print their servers' 5xx answers by component
+(``SPAN_ERRORS``), each 5xx a handler built sorted by cause (a closed
+file, a short read, a record that does not parse, or listed by
+traceback), the native load's failures by HTTP status, and the
+contention rows of the volume and EC-shard locks (``ServerErrorTap``).
+When a step of phases 17, 18, 20 or 21 fails, the script keeps what it
+needs before stopping the children (``WeedCluster.keep_failure``): each
+child's ``/debug/stacks`` and ``/debug/slow``, a ``SIGABRT`` to those
+that serve no ``/debug`` (their faulthandler writes their stacks to
+their logs), and every log whole, in a ``chip_smoke-failed-<phase>-*``
+directory under ``--workdir`` (the temporary directory without it);
+it prints the directory, every stack dump and each log's last 8 KB.
+A run that fails ends its standard error with the traceback, then a
+digest of each kept failure (the directory, every child's slowest
+requests and the innermost frames of its threads that were inside a
+request), then the error's one-line summary.
+
 It prints ``read_decode``, ``routing``, ``multigpu``, ``volume_server``,
 ``cluster``, ``maintenance``, ``fleet``, ``cli_cluster``, ``filer``,
 ``leader``, ``s3``, ``gateways`` and ``persona_round`` JSON lines,
@@ -394,6 +413,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import socket
 import statistics
 import struct
@@ -402,6 +422,7 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -468,6 +489,28 @@ def check(cond: bool, msg: str) -> None:
 
 def say(*parts) -> None:
     print(*parts, flush=True)
+
+
+# what ``WeedCluster.keep_failure`` found, short enough for the end of
+# standard error (``main`` prints it after the traceback)
+FAILURE_DIGESTS: list[str] = []
+
+
+def busy_frames(stacks: str, depth: int = 6) -> list[str]:
+    """The innermost ``depth`` frames of each thread of a ``/debug/stacks``
+    dump that was inside a request (a router's ``dispatch`` is on its
+    stack) other than the dump's own, one line a thread: ``file:line
+    func`` a frame, innermost first."""
+    out = []
+    for block in stacks.split("\n-- Thread ")[1:]:
+        if "in dispatch" not in block or "in handle_stacks" in block:
+            continue
+        frames = re.findall(r'File "([^"]+)", line (\d+), in (\S+)', block)
+        name = block.split(" (", 1)[0]
+        out.append(f"  {name}: " + " <- ".join(
+            f"{os.path.basename(f)}:{n} {fn}"
+            for f, n, fn in reversed(frames[-depth:])))
+    return out
 
 
 _SASS: dict[str, str] = {}
@@ -3226,6 +3269,131 @@ def record_probes(tl: dict, record_path: str, on_card) -> dict:
                 "record_peak": ref["peak"], "record_mean": ref["mean"]}}
 
 
+class ServerErrorTap:
+    """What answered 5xx in this process's servers during one in-process
+    round, and why. Around the round: the 5xx counts of
+    ``tracing/recorder.SPAN_ERRORS`` by component; each 5xx a handler
+    built through ``Response.error`` with the traceback in flight
+    (sorted into the races a volume swap can cause: a closed file, a
+    short read, a record that does not parse, and the rest); the native
+    load's failures by HTTP status (404s from a new leader's lookups
+    apart from 5xx); and the contention-table rows of the volume and
+    EC-shard locks. ``report`` prints them and returns them for the
+    phase's JSON line."""
+
+    RACES = (("closed-file", re.compile(r"closed file|VolumeClosedError")),
+             ("short-read", re.compile(r"short read")),
+             ("parse", re.compile(r"_parse_body|parse_header|from_record"
+                                  r"|struct\.error|unpack requires")))
+    COMPONENTS = (("volume", "seaweedfs_tpu_torch/server/volume.py"),
+                  ("filer", "seaweedfs_tpu_torch/server/filer.py"),
+                  ("s3", "seaweedfs_tpu_torch/s3/"),
+                  ("broker", "seaweedfs_tpu_torch/messaging/"),
+                  ("master", "seaweedfs_tpu_torch/server/master.py"))
+    LOCK_SITES = ("storage/volume.py:", "storage/ec_volume.py:")
+
+    def __enter__(self):
+        from seaweedfs_tpu_torch.command import benchmark
+        from seaweedfs_tpu_torch.telemetry import recorder as flight
+        from seaweedfs_tpu_torch.tracing import recorder
+        from seaweedfs_tpu_torch.util import http
+
+        self.spans0 = dict(recorder.SPAN_ERRORS.values())
+        self.lock0 = flight.contention_baseline()
+        self.causes: list[tuple[str, str]] = []
+        self.native: dict[str, int] = {}
+        self._error = http.Response.__dict__["error"]
+        self._run = benchmark._Workload.run
+        build, run, tap = self._error.__func__, self._run, self
+
+        def error(cls, msg, status=500):
+            if status >= 500:
+                text = (traceback.format_exc() if sys.exc_info()[0]
+                        else "".join(traceback.format_stack(
+                            sys._getframe(1), limit=12)))
+                tap.causes.append((tap.component_of(text),
+                                   f"{msg}\n{text}"))
+            return build(cls, msg, status)
+
+        def counted_run(wl, op, rnd):
+            try:
+                return run(wl, op, rnd)
+            except Exception as e:
+                status = getattr(e, "status", None)
+                key = str(status) if status else type(e).__name__
+                tap.native[key] = tap.native.get(key, 0) + 1
+                raise
+
+        http.Response.error = classmethod(error)
+        benchmark._Workload.run = counted_run
+        return self
+
+    def __exit__(self, *exc):
+        from seaweedfs_tpu_torch.command import benchmark
+        from seaweedfs_tpu_torch.telemetry import recorder as flight
+        from seaweedfs_tpu_torch.tracing import recorder
+        from seaweedfs_tpu_torch.util import http
+
+        http.Response.error = self._error
+        benchmark._Workload.run = self._run
+        self.spans = {}
+        for (comp, cls), v in recorder.SPAN_ERRORS.values().items():
+            n = int(v - self.spans0.get((comp, cls), 0))
+            if cls == "5xx" and n:
+                self.spans[comp] = n
+        self.locks = [
+            {k: r[k] for k in ("site", "acquires", "blocked",
+                               "total_wait_s", "p99_wait_s", "max_wait_s")}
+            for r in flight.contention_table(baseline=self.lock0)
+            if any(m in r["site"] for m in self.LOCK_SITES)]
+        return False
+
+    @classmethod
+    def component_of(cls, text):
+        for name, marker in cls.COMPONENTS:
+            if marker in text:
+                return name
+        return "other"
+
+    @classmethod
+    def race_of(cls, text):
+        for name, pattern in cls.RACES:
+            if pattern.search(text):
+                return name
+        return "other"
+
+    def report(self, on_card) -> dict:
+        races: dict[str, dict[str, int]] = {}
+        others: dict[str, int] = {}
+        for comp, text in self.causes:
+            race = self.race_of(text)
+            by = races.setdefault(comp, {})
+            by[race] = by.get(race, 0) + 1
+            if race == "other":
+                # the message and the innermost frames name the cause
+                key = "\n".join([text.splitlines()[0]]
+                                 + text.rstrip().splitlines()[-4:])
+                others[f"{comp}: {key}"] = others.get(
+                    f"{comp}: {key}", 0) + 1
+        volume = races.get("volume", {})
+        out = {"span_5xx": self.spans, "handler_5xx": races,
+               "volume_races": {r: volume.get(r, 0)
+                                for r, _ in self.RACES},
+               "native_failures": self.native, "locks": self.locks}
+        on_card(f"5xx by component (SPAN_ERRORS): {self.spans or 'none'}; "
+                f"built by handlers, by cause: {races or 'none'}")
+        on_card(f"volume-server 5xx from a closed file, a short read or a "
+                f"record that does not parse: {out['volume_races']}")
+        on_card(f"native load failures by status: {self.native or 'none'}")
+        for text, n in sorted(others.items(), key=lambda kv: -kv[1])[:10]:
+            on_card(f"other 5xx x{n}: {text!r}")
+        for r in self.locks:
+            on_card(f"lock {r['site']}: {r['acquires']} acquires, "
+                    f"{r['blocked']} blocked, wait {r['total_wait_s']} s, "
+                    f"p99 {r['p99_wait_s']} s, max {r['max_wait_s']} s")
+        return out
+
+
 def phase_fleet(args, torch, smi, reset_counts, counters):
     """Phase 16: the warm fleet round on the card — the reference's
     recorded warm round (``SCALE_r05.json``: spec 5x4x5, seed 5) through
@@ -3287,15 +3455,17 @@ def phase_fleet(args, torch, smi, reset_counts, counters):
         round_mod.ScaleHarness = KeptHarness
         t0 = time.perf_counter()
         try:
-            result = round_mod.run_scale_round(
-                spec=spec, device="cuda", json_path=json_path,
-                out=lines.append, **settings)
+            with ServerErrorTap() as tap:
+                result = round_mod.run_scale_round(
+                    spec=spec, device="cuda", json_path=json_path,
+                    out=lines.append, **settings)
         finally:
             round_mod.ScaleHarness = ScaleHarness
         round_s = time.perf_counter() - t0
         path = {name: counter.value for name, counter in counters.items()}
         for line in lines:
             on_card(f"  | {line}")
+        row["server_errors"] = tap.report(on_card)
         check(len(kept) == 1, f"the round's harness: {kept}")
         h = kept[0]
         d = result["detail"]
@@ -3493,17 +3663,25 @@ class WeedCluster:
     through ``--counted-weed`` so that it serves its own launch
     counters; a phase spawns whatever else it needs beside them. The
     step helpers read those counters and the servers' codec routes
-    around each step. ``close`` stops every child and prints each log's
-    tail. Phases 17, 18, 20 and 21 drive the main path through it."""
+    around each step. A phase that fails calls ``keep_failure`` before
+    ``close``; ``close`` stops every child and prints each log's tail.
+    Phases 17, 18, 20 and 21 drive the main path through it."""
 
     def __init__(self, args, smi, name: str):
         self.smi = smi
+        self.name = name
+        self.workdir = args.workdir
         self.root = tempfile.mkdtemp(prefix=f"chip_smoke-{name}-",
                                      dir=args.workdir)
         here = os.path.dirname(os.path.abspath(__file__))
-        self.env = dict(os.environ, PYTHONPATH=here, PYTHONUNBUFFERED="1")
+        # faulthandler in every child: a SIGABRT writes its threads'
+        # stacks to its log (keep_failure)
+        self.env = dict(os.environ, PYTHONPATH=here, PYTHONUNBUFFERED="1",
+                        PYTHONFAULTHANDLER="1")
         self.weed = [sys.executable, "-m", "seaweedfs_tpu_torch"]
         self.children: list = []
+        # child name -> the address where it serves /debug/*
+        self.debug: dict[str, str] = {}
         self.m = ""
         self.urls: list[str] = []
         self.counts_url: dict[str, str] = {}
@@ -3511,7 +3689,9 @@ class WeedCluster:
     def on_card(self, text):
         say(f"[{self.smi}] {text}")
 
-    def spawn(self, name, argv, prefix=None):
+    def spawn(self, name, argv, prefix=None, debug=None):
+        """Start child ``name``, its output in ``<name>.log``; ``debug``
+        is the address where it serves ``/debug/*``, if it does."""
         log = open(os.path.join(self.root, f"{name}.log"), "wb")
         try:
             proc = subprocess.Popen((prefix or self.weed) + argv,
@@ -3520,6 +3700,8 @@ class WeedCluster:
         finally:
             log.close()
         self.children.append((name, proc))
+        if debug:
+            self.debug[name] = debug
         return proc
 
     def cli(self, *argv, timeout=600):
@@ -3543,7 +3725,7 @@ class WeedCluster:
         t0 = time.perf_counter()
         self.spawn("master", ["master", "-ip", "127.0.0.1", "-port",
                               str(mport), "-volumeSizeLimitMB",
-                              str(volume_mib)])
+                              str(volume_mib)], debug=self.m)
         ports = [free_port() for _ in range(4)]
         for i, port in enumerate(ports):
             os.makedirs(os.path.join(self.root, f"vs{i}"))
@@ -3555,7 +3737,7 @@ class WeedCluster:
                 os.path.join(self.root, f"vs{i}"), "-max", "8",
                 "-index", index, "-device", "cuda"],
                 [sys.executable, os.path.abspath(__file__), "--counted-weed",
-                 str(cport)])
+                 str(cport)], debug=f"127.0.0.1:{port}")
         self.urls = [f"127.0.0.1:{port}" for port in ports]
         deadline = time.time() + 120
         while True:
@@ -3598,9 +3780,10 @@ class WeedCluster:
     def start_filer(self, name, port, *flags):
         """One ``weed filer`` child on ``port`` over this cluster's
         master, up once its root lists."""
-        proc = self.spawn(name, ["filer", "-ip", "127.0.0.1", "-port",
-                                 str(port), "-master", self.m, *flags])
         url = f"127.0.0.1:{port}"
+        proc = self.spawn(name, ["filer", "-ip", "127.0.0.1", "-port",
+                                 str(port), "-master", self.m, *flags],
+                          debug=url)
         self.wait_answer(name, proc, f"{url}/?limit=1")
         return proc, url
 
@@ -3679,6 +3862,116 @@ class WeedCluster:
                   f"{what}: {out}: launches on the card, one gf_swar "
                   f"launch a device route, every launch {form}")
         return out
+
+    def heartbeats_since(self, t_mark: float, timeout: float = 30.0):
+        """Wait until the master's ``/cluster/telemetry`` holds a
+        snapshot taken after ``t_mark`` (this host's clock) from every
+        volume server: each one's heartbeat, which carries it, still
+        arrives. Returns each server's snapshot age in seconds."""
+        from seaweedfs_tpu_torch.util import http
+
+        deadline = time.time() + timeout
+        while True:
+            view = http.get_json(f"{self.m}/cluster/telemetry")
+            rows = {s.get("url", "").split("://")[-1]: s
+                    for s in view.get("servers", ())
+                    if s.get("component") == "volume"}
+            late = [u for u in self.urls
+                    if rows.get(u, {}).get("time", 0.0) <= t_mark]
+            if not late:
+                return {u: rows[u]["age_seconds"] for u in self.urls}
+            check(time.time() < deadline,
+                  f"no heartbeat from {late} in the {timeout:.0f} s since "
+                  f"the mark: {[(u, rows.get(u, {}).get('age_seconds')) for u in late]}")
+            time.sleep(0.2)
+
+    def keep_failure(self, err: BaseException) -> None:
+        """``_keep_failure``, whose own fault is printed and never hides
+        the step's."""
+        try:
+            self._keep_failure(err)
+        except Exception as e:  # noqa: BLE001
+            say(f"weed cluster {self.name}: keeping its logs failed: "
+                f"{type(e).__name__}: {e}")
+
+    def _keep_failure(self, err: BaseException) -> None:
+        """A failed step's evidence, kept before ``close`` stops the
+        children: each live child's thread stacks and slow requests from
+        its ``/debug/stacks`` and ``/debug/slow``, or, for a child that
+        serves no ``/debug`` (WebDAV, ``filer.meta.tail``,
+        ``filer.sync``), a ``SIGABRT`` whose faulthandler writes them to
+        its log; then every log, whole, into a directory kept under
+        ``--workdir``. Prints the directory, every stack dump, the first
+        4 KB of each slow ledger and the last 8 KB of each log."""
+        from seaweedfs_tpu_torch.util import http
+
+        kept = tempfile.mkdtemp(prefix=f"chip_smoke-failed-{self.name}-",
+                                dir=self.workdir)
+        say(f"weed cluster {self.name}: a step failed "
+            f"({type(err).__name__}: {str(err)[:300]}); its logs and "
+            f"stacks are kept in {kept}")
+        live = [(n, p) for n, p in self.children if p.poll() is None]
+
+        def fetch(name, route):
+            try:
+                body = http.request(
+                    "GET", f"{self.debug[name]}/debug/{route}", timeout=10)
+            except (http.HttpError, OSError) as e:
+                body = f"GET /debug/{route}: {e}".encode()
+            with open(os.path.join(kept, f"{name}.{route}.txt"), "wb") as f:
+                f.write(body)
+            return name, route, body
+
+        asks = [(n, r) for n, _p in live if n in self.debug
+                for r in ("stacks", "slow")]
+        with ThreadPoolExecutor(max(1, len(asks))) as pool:
+            dumps = list(pool.map(lambda a: fetch(*a), asks))
+        aborted = [(n, p) for n, p in live if n not in self.debug]
+        for name, proc in aborted:
+            proc.send_signal(signal.SIGABRT)
+        for name, proc in aborted:
+            try:
+                proc.wait(15)
+            except subprocess.TimeoutExpired:
+                say(f"weed {name} still running 15 s after SIGABRT")
+        for name, route, body in dumps:
+            text = body.decode("utf-8", "replace")
+            if route == "slow" and len(text) > 4096:
+                text = text[:4096] + " ... (whole in the directory)"
+            say(f"weed {name} /debug/{route}:\n{text}")
+        for name, _proc in self.children:
+            log = os.path.join(self.root, f"{name}.log")
+            if not os.path.exists(log):
+                continue
+            shutil.copy2(log, kept)
+            with open(log, "rb") as f:
+                f.seek(max(0, os.path.getsize(log) - 8192))
+                tail = f.read().decode("utf-8", "replace")
+            say(f"weed {name} log, last 8 KB of "
+                f"{os.path.getsize(log)} bytes (whole in {kept}):\n{tail}")
+        FAILURE_DIGESTS.append(self._digest(kept, dumps))
+
+    def _digest(self, kept, dumps) -> str:
+        """A few lines for the end of standard error: the kept
+        directory, each child's three slowest requests, and the
+        innermost frames of its threads that were inside a request."""
+        lines = [f"weed cluster {self.name}: kept in {kept}"]
+        for name, route, body in dumps:
+            text = body.decode("utf-8", "replace")
+            if route == "slow":
+                try:
+                    slow = json.loads(text).get("slow", [])
+                except ValueError:
+                    lines.append(f" {name} /debug/slow: {text[:120]}")
+                    continue
+                top = sorted(slow, key=lambda r: -r.get("duration", 0))[:3]
+                lines.append(f" {name} slowest: " + "; ".join(
+                    f"{r.get('component')}/{r.get('op')} "
+                    f"{r.get('duration', 0):.3f} s {r.get('status')}"
+                    for r in top))
+            else:
+                lines += [f" {name}{line}" for line in busy_frames(text)]
+        return "\n".join(lines)
 
     def close(self):
         for name, proc in self.children:
@@ -3972,6 +4265,9 @@ def phase_cli_cluster(args, smi):
             on_card(f"  | {line}")
         row["phase_s"] = time.perf_counter() - phase_t0
         on_card(f"phase 17 took {row['phase_s']:.1f} s")
+    except BaseException as err:
+        wc.keep_failure(err)
+        raise
     finally:
         wc.close()
     return row, path
@@ -4407,6 +4703,9 @@ def phase_filer(args, smi):
         row["phase_s"] = time.perf_counter() - phase_t0
         on_card(f"the path's launch counts in the servers {path}; phase "
                 f"18 took {row['phase_s']:.1f} s")
+    except BaseException as err:
+        wc.keep_failure(err)
+        raise
     finally:
         wc.close()
     return row, path
@@ -4451,13 +4750,15 @@ def phase_leader(args, smi, reset_counts, counters):
         retry.BREAKERS.reset()
         op_client._lookup_cache.clear()
         t0 = time.perf_counter()
-        result = round_mod.run_scale_round(
-            device="cuda", json_path=json_path, out=lines.append,
-            **settings)
+        with ServerErrorTap() as tap:
+            result = round_mod.run_scale_round(
+                device="cuda", json_path=json_path, out=lines.append,
+                **settings)
         round_s = time.perf_counter() - t0
         path = {name: counter.value for name, counter in counters.items()}
         for line in lines:
             on_card(f"  | {line}")
+        row["server_errors"] = tap.report(on_card)
         d = result["detail"]
         fo = d["failover"]
         check(d["converged"], f"the round converged: {d['last_reasons']}")
@@ -4712,7 +5013,7 @@ def phase_s3(args, smi):
         s3_url = f"127.0.0.1:{sport}"
         t0 = time.perf_counter()
         s3_proc = wc.spawn("s3", ["s3", "-filer", fs_url, "-port",
-                                  str(sport)])
+                                  str(sport)], debug=s3_url)
         wc.wait_answer("s3", s3_proc, f"{s3_url}/metrics")
         row["s3_start_s"] = time.perf_counter() - t0
         counts0 = wc.counts_now("POST")
@@ -5052,11 +5353,22 @@ def phase_s3(args, smi):
               f"volume.tier.download: {out}")
         check(sha256_file(tdat) == tier_sha,
               "the downloaded .dat differs from the one uploaded")
+        # every volume server's heartbeat still arrives after the two
+        # moves (a heartbeat that stats a volume the move closed must
+        # not end the server's heartbeat thread)
+        t_mark = time.time()
+        hb_ages = wc.heartbeats_since(t_mark)
+        hb_wait = time.time() - t_mark
         row["tier"] = {"volume": tvid, "dat_bytes": tier_bytes,
                        "needles": len(uploaded), "upload_shell_s": up_s,
                        "read_s": tier_read_s,
                        "read_MBps": tier_read / tier_read_s / 1e6,
-                       "download_shell_s": down_s}
+                       "download_shell_s": down_s,
+                       "heartbeat_ages_s": hb_ages,
+                       "heartbeat_wait_s": hb_wait}
+        on_card(f"after the tier moves every volume server's heartbeat "
+                f"arrives: a snapshot from each within {hb_wait:.2f} s, "
+                f"ages {hb_ages}")
         on_card(f"volume.tier.upload of tier volume {tvid} ({tier_bytes} "
                 f"bytes) to {dest} through this gateway (credentials from "
                 f"backend.json): {up_s:.2f} s of shell; its {len(uploaded)} "
@@ -5072,6 +5384,9 @@ def phase_s3(args, smi):
         row["phase_s"] = time.perf_counter() - phase_t0
         on_card(f"the path's launch counts in the servers {path}; phase "
                 f"20 took {row['phase_s']:.1f} s")
+    except BaseException as err:
+        wc.keep_failure(err)
+        raise
     finally:
         wc.close()
     return row, path
@@ -5230,7 +5545,7 @@ def phase_gateways(args, smi):
             "webdav", "-filer", fs_url, "-port", str(dport)])
         procs["broker"] = wc.spawn(f"msgBroker{tag}", [
             "msgBroker", "-filer", fs_url, "-port", str(bport),
-            "-master", m])
+            "-master", m], debug=broker_url)
         wc.wait_answer("webdav", procs["webdav"], f"{dav_url}/")
         wc.wait_answer("msgBroker", procs["broker"],
                        f"{broker_url}/cluster")
@@ -5549,6 +5864,9 @@ def phase_gateways(args, smi):
         row["phase_s"] = time.perf_counter() - phase_t0
         on_card(f"the path's launch counts in the servers {path}; phase "
                 f"21 took {row['phase_s']:.1f} s")
+    except BaseException as err:
+        wc.keep_failure(err)
+        raise
     finally:
         wc.close()
     return row, path
@@ -5603,13 +5921,15 @@ def phase_persona_round(args, smi, reset_counts, counters):
         retry.BREAKERS.reset()
         op_client._lookup_cache.clear()
         t0 = time.perf_counter()
-        result = round_mod.run_scale_round(
-            device="cuda", json_path=json_path, out=lines.append,
-            **settings)
+        with ServerErrorTap() as tap:
+            result = round_mod.run_scale_round(
+                device="cuda", json_path=json_path, out=lines.append,
+                **settings)
         round_s = time.perf_counter() - t0
         path = {name: counter.value for name, counter in counters.items()}
         for line in lines:
             on_card(f"  | {line}")
+        row["server_errors"] = tap.report(on_card)
         d = result["detail"]
         fo = d["failover"]
         check(d["converged"], f"the round converged: {d['last_reasons']}")
@@ -5721,6 +6041,15 @@ def main() -> int:
     os.environ["SEAWEEDFS_TPU_TORCH_AUTOTUNE"] = "1"
     try:
         return run(args, torch, here)
+    except Exception as err:  # noqa: BLE001
+        # the traceback, then what a failed step kept, then the error:
+        # the end of standard error names the stalled hop
+        traceback.print_exc()
+        for digest in FAILURE_DIGESTS:
+            print(digest, file=sys.stderr)
+        print(f"chip_smoke: failed: {type(err).__name__}: "
+              f"{str(err)[:300]}", file=sys.stderr, flush=True)
+        return 1
     finally:
         shutil.rmtree(tune_dir, ignore_errors=True)
 

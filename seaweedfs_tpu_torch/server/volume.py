@@ -338,7 +338,13 @@ class VolumeServer:
         while self._running:
             time.sleep(self.pulse_seconds)
             if self._running:
-                self.heartbeat_once()
+                # one bad pulse is logged, never the end of the thread:
+                # a master that hears nothing drops a live server
+                try:
+                    self.heartbeat_once()
+                except Exception as e:  # noqa: BLE001
+                    glog.warningf("volume server %s: heartbeat failed: "
+                                  "%s: %s", self.url, type(e).__name__, e)
 
     # -- fid helpers -----------------------------------------------------
 
@@ -374,17 +380,21 @@ class VolumeServer:
             fid = self._parse_fid_path(req.path)
         except ValueError as e:
             return Response.error(str(e), 400)
-        vol = self.store.find_volume(fid.volume_id)
-        if vol is not None:
+        if self.store.find_volume(fid.volume_id) is not None:
             try:
-                n = vol.read_needle(fid.key, fid.cookie)
+                n = self.store.read_volume_needle(
+                    fid.volume_id, fid.key, fid.cookie
+                )
             except NotFoundError:
                 return Response.error("not found", 404)
             except DeletedError:
                 return Response.error("deleted", 404)
             except needle_mod.ChecksumError as e:
                 return Response.error(str(e), 500)
-            return self._needle_response(n, req)
+            except KeyError:
+                pass  # unmounted since the lookup: answer as if never here
+            else:
+                return self._needle_response(n, req)
         ev = self.store.find_ec_volume(fid.volume_id)
         if ev is not None:
             try:
@@ -1452,16 +1462,27 @@ class VolumeServer:
         vif = backend_mod.load_volume_info(vol.base_file_name)
         vif.update({"version": vol.version, "remote": remote})
         backend_mod.save_volume_info(vol.base_file_name, vif)
-        collection, directory = vol.collection, vol.dir
-        # reload in remote mode
-        for loc in self.store.locations:
-            if vid in loc.volumes:
-                loc.volumes[vid].close()
-                if not keep_local:
-                    os.remove(dat_path)
-                loc.volumes[vid] = Volume(directory, collection, vid)
-                break
+        # reload in remote mode: the replacement first, then the swap,
+        # then the old volume's close, so a reader or a heartbeat that
+        # found the old one meets a volume that is open or closed, never
+        # a half-built one
+        self._swap_volume(vol, Volume(vol.dir, vol.collection, vid))
+        if not keep_local:
+            os.remove(dat_path)
         return Response.json({"ok": True, "size": size})
+
+    def _swap_volume(self, old, new) -> None:
+        """Put ``new`` in ``old``'s place under the store lock, then
+        close ``old``."""
+        with self.store._lock:
+            for loc in self.store.locations:
+                if loc.volumes.get(old.id) is old:
+                    loc.volumes[old.id] = new
+                    break
+            else:
+                new.close()
+                raise KeyError(f"volume {old.id} not found")
+        old.close()
 
     def _h_tier_download(self, req: Request) -> Response:
         """VolumeTierMoveDatFromRemote: pull the .dat back to disk."""
@@ -1484,13 +1505,9 @@ class VolumeServer:
                 for piece in r.iter(1 << 20):
                     f.write(piece)
         os.remove(vol.base_file_name + ".vif")
-        collection, directory = vol.collection, vol.dir
-        for loc in self.store.locations:
-            if vid in loc.volumes:
-                loc.volumes[vid].close()
-                loc.volumes[vid] = Volume(directory, collection, vid)
-                loc.volumes[vid].readonly = False
-                break
+        local = Volume(vol.dir, vol.collection, vid)
+        local.readonly = False
+        self._swap_volume(vol, local)
         return Response.json({"ok": True})
 
     def _h_tail(self, req: Request) -> Response:

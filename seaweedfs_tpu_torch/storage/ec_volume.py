@@ -38,25 +38,40 @@ from .super_block import SUPER_BLOCK_SIZE, SuperBlock
 
 
 class EcShard:
-    """One local `.ecNN` file."""
+    """One local `.ecNN` file. A read and a close take the shard's lock,
+    so a read never lands on a closed descriptor (or on another file
+    that reused its number); a shard closed under a reader reads as
+    absent, and the reader falls back to a remote copy or a
+    reconstruction."""
 
     def __init__(self, base_file_name: str, shard_id: int):
         self.base = base_file_name
         self.shard_id = shard_id
         self.path = base_file_name + C.to_ext(shard_id)
+        self._lock = threading.Lock()
         self._f = open(self.path, "rb")
         self.size = os.path.getsize(self.path)
 
     def read_at(self, offset: int, n: int) -> bytes:
-        return os.pread(self._f.fileno(), n, offset)
+        with self._lock:
+            if self._f is None:
+                return b""
+            return os.pread(self._f.fileno(), n, offset)
 
     def read_into(self, offset: int, out: np.ndarray) -> int:
         """Read ``out.nbytes`` bytes at ``offset`` into ``out``; returns
-        the bytes read (fewer past the end of the file)."""
-        return os.preadv(self._f.fileno(), [memoryview(out)], offset)
+        the bytes read (fewer past the end of the file, 0 once the shard
+        is closed)."""
+        with self._lock:
+            if self._f is None:
+                return 0
+            return os.preadv(self._f.fileno(), [memoryview(out)], offset)
 
     def close(self) -> None:
-        self._f.close()
+        with self._lock:
+            if self._f is not None:
+                self._f.close()
+                self._f = None
 
     def destroy(self) -> None:
         self.close()
@@ -146,9 +161,9 @@ class EcVolume:
 
     @property
     def shard_size(self) -> int:
-        if not self.shards:
-            return 0
-        return next(iter(self.shards.values())).size
+        return next(
+            (s.size for s in list(self.shards.values())), 0
+        )
 
     # -- needle lookup (ec_volume.go:205-250) ----------------------------
 
@@ -211,8 +226,11 @@ class EcVolume:
         remote_read: Callable[[int, int, int], bytes | None] | None,
     ) -> bytes:
         sid, off = to_shard_id_and_offset(iv)
-        if sid in self.shards:
-            buf = self.shards[sid].read_at(off, iv.size)
+        # one lookup: a shard unmounted under this read is absent (its
+        # close makes read_at answer nothing), never a KeyError
+        shard = self.shards.get(sid)
+        if shard is not None:
+            buf = shard.read_at(off, iv.size)
             if len(buf) == iv.size:
                 return buf
         if remote_read is not None:
@@ -238,8 +256,9 @@ class EcVolume:
             if sid == missing_sid:
                 continue
             row = stack[len(got)]
-            if sid in self.shards:
-                ok = self.shards[sid].read_into(off, row) == n
+            shard = self.shards.get(sid)
+            if shard is not None:
+                ok = shard.read_into(off, row) == n
             elif remote_read is not None:
                 buf = remote_read(sid, off, n)
                 ok = buf is not None and len(buf) == n

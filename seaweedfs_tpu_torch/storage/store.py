@@ -34,7 +34,7 @@ from . import types as t
 from .ec_volume import EcVolume, ShardBits
 from .erasure_coding import constants as C
 from .needle import Needle
-from .volume import Volume
+from .volume import Volume, VolumeClosedError
 
 _DAT_RE = re.compile(r"^(?:(?P<col>.+)_)?(?P<vid>\d+)\.dat$")
 _ECX_RE = re.compile(r"^(?:(?P<col>.+)_)?(?P<vid>\d+)\.ecx$")
@@ -294,10 +294,19 @@ class Store:
     def read_volume_needle(
         self, vid: int, key: int, cookie: int | None = None
     ) -> Needle:
-        vol = self.find_volume(vid)
-        if vol is None:
-            raise KeyError(f"volume {vid} not found")
-        return vol.read_needle(key, cookie)
+        """A needle of a local volume. A volume closed between the
+        lookup and the read (a tier move swapped it, or it was unmounted)
+        is looked up once more; if it is gone, the answer is the same
+        ``KeyError`` as for a volume never mounted here."""
+        for _ in range(2):
+            vol = self.find_volume(vid)
+            if vol is None:
+                break
+            try:
+                return vol.read_needle(key, cookie)
+            except VolumeClosedError:
+                continue
+        raise KeyError(f"volume {vid} not found")
 
     def delete_volume_needle(self, vid: int, key: int) -> int:
         vol = self.find_volume(vid)
@@ -379,8 +388,14 @@ class Store:
         with self._lock:
             volumes, max_key = [], 0
             for loc in self.locations:
-                for vol in loc.volumes.values():
-                    volumes.append(self._volume_message(vol))
+                for vol in list(loc.volumes.values()):
+                    try:
+                        volumes.append(self._volume_message(vol))
+                    except VolumeClosedError:
+                        # closed under this pulse (its swap or unmount
+                        # is mid-way): left out of this one heartbeat,
+                        # never reported at size 0
+                        continue
                     max_key = max(max_key, vol.nm.metrics.maximum_key)
             ec_shards = []
             for loc in self.locations:

@@ -8,7 +8,12 @@ disturb the append head.
 
 The port's copy of ``seaweedfs_tpu/storage/volume.py``. It stamps
 ``time.time_ns()`` into every appended record, as the reference does, so
-two volumes are byte-identical only under one clock.
+two volumes are byte-identical only under one clock. One difference: a
+read takes its needle-map lookup and its ``pread`` inside a gate that
+the vacuum commit's swap and ``close()`` take alone (``_ReadGate``), so
+a read never parses one generation's offset in another's ``.dat``; and
+a closed volume raises ``VolumeClosedError`` where the reference's
+raises whatever its closed file gives.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from __future__ import annotations
 import os
 import threading
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 
 from . import needle as needle_mod
@@ -35,6 +41,54 @@ class DeletedError(KeyError):
 
 class VolumeReadOnlyError(RuntimeError):
     pass
+
+
+class VolumeClosedError(RuntimeError):
+    """The volume was closed (unmounted, deleted, or replaced by a tier
+    move) between a caller's lookup and its read or stat."""
+
+
+class _ReadGate:
+    """Shared by reads, taken alone by a swap of the volume's files.
+
+    A read holds it from its needle-map lookup through its ``pread``, so
+    both come from one generation of ``(needle map, .dat)``; any number
+    of reads share it, and none waits for an append. A vacuum commit's
+    swap and ``close()`` take it alone, after the reads in flight end.
+    Only a holder of the volume's ``_lock`` takes it alone, so a writer
+    that reads under ``_lock`` (the dedupe check) never waits for one."""
+
+    def __init__(self):
+        self._cond = threading.Condition(threading.Lock())
+        self._readers = 0  # guarded-by: self._cond
+        self._alone = False  # guarded-by: self._cond
+
+    @contextmanager
+    def shared(self):
+        with self._cond:
+            while self._alone:
+                self._cond.wait()
+            self._readers += 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._readers -= 1
+                if not self._readers:
+                    self._cond.notify_all()
+
+    @contextmanager
+    def alone(self):
+        with self._cond:
+            self._alone = True
+            while self._readers:
+                self._cond.wait()
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._alone = False
+                self._cond.notify_all()
 
 
 @dataclass
@@ -65,7 +119,11 @@ class Volume:
         self.last_io_error: Exception | None = None
         self.last_append_at_ns = 0
         self.is_compacting = False
+        self.closed = False
+        # appends, deletes, stats, the vacuum commit and close
         self._lock = threading.RLock()
+        # reads against the commit's swap and close (_ReadGate)
+        self._gate = _ReadGate()
         self.last_compact_index_offset = 0
         self.last_compact_revision = 0
 
@@ -151,11 +209,13 @@ class Volume:
 
     def data_file_size(self) -> int:
         if self.remote_backend is not None:
+            self._check_open()
             return self.remote_backend.size()
         # under the volume lock: commit_compact swaps self._dat while
         # holding it, and a lock-free fstat can land on the closed
         # handle mid-swap (heartbeat stat racing a background vacuum)
         with self._lock:
+            self._check_open()
             return os.fstat(self._dat.fileno()).st_size
 
     @property
@@ -225,7 +285,12 @@ class Volume:
 
     # -- io helpers ------------------------------------------------------
 
+    def _check_open(self) -> None:
+        if self.closed:
+            raise VolumeClosedError(f"volume {self.id} is closed")
+
     def _pread(self, offset: int, n: int) -> bytes:
+        self._check_open()
         if self.remote_backend is not None:
             return self.remote_backend.read_at(offset, n)
         return os.pread(self._dat.fileno(), n, offset)
@@ -254,6 +319,7 @@ class Volume:
     ) -> tuple[int, int]:
         """Append a needle; returns (offset, stored size)."""
         with self._lock:
+            self._check_open()
             if self.readonly:
                 raise VolumeReadOnlyError(f"volume {self.id} is readonly")
             if offset := self._unchanged_offset(n):
@@ -290,13 +356,19 @@ class Volume:
     def read_needle(
         self, key: int, cookie: int | None = None
     ) -> needle_mod.Needle:
-        nv = self.nm.get(key)
-        if nv is None or nv.offset == 0:
-            raise NotFoundError(f"needle {key:x} not found")
-        if t.size_is_deleted(nv.size):
-            raise DeletedError(f"needle {key:x} deleted")
-        total = needle_mod.get_actual_size(nv.size, self.version)
-        record = self._pread(nv.offset, total)
+        # the lookup and the pread inside the gate, so both come from
+        # the same (needle map, .dat) generation: commit_compact swaps
+        # the pair and close() drops it only with the gate alone, and a
+        # read that straddled either would parse another file's bytes
+        with self._gate.shared():
+            self._check_open()
+            nv = self.nm.get(key)
+            if nv is None or nv.offset == 0:
+                raise NotFoundError(f"needle {key:x} not found")
+            if t.size_is_deleted(nv.size):
+                raise DeletedError(f"needle {key:x} deleted")
+            total = needle_mod.get_actual_size(nv.size, self.version)
+            record = self._pread(nv.offset, total)
         if len(record) < total:
             raise needle_mod.ChecksumError(
                 f"short read for needle {key:x}"
@@ -316,6 +388,7 @@ class Volume:
         """Append a tombstone record; returns freed bytes
         (volume_read_write.go:246-284)."""
         with self._lock:
+            self._check_open()
             if self.readonly:
                 raise VolumeReadOnlyError(f"volume {self.id} is readonly")
             nv = self.nm.get(key)
@@ -338,6 +411,7 @@ class Volume:
         (volume_grpc_admin.go VolumeConfigure; the superblock is the
         first bytes of the .dat)."""
         with self._lock:
+            self._check_open()
             if self._dat is None:
                 raise VolumeReadOnlyError(
                     f"volume {self.id} is remote-tiered; bring it "
@@ -406,23 +480,25 @@ class Volume:
         volume_vacuum.go:179+), then atomically swap files."""
         with self._lock:
             try:
+                self._check_open()
                 self._makeup_diff()
-                self.nm.close()
-                self._dat.close()
-                os.replace(
-                    self.base_file_name + ".cpd", self.data_file_name
-                )
-                os.replace(
-                    self.base_file_name + ".cpx", self.index_file_name
-                )
-                self._dat = open(self.data_file_name, "r+b")
-                with open(self.data_file_name, "rb") as f:
-                    self.super_block = sb_mod.SuperBlock.from_bytes(
-                        f.read(sb_mod.SUPER_BLOCK_SIZE + 0xFFFF)
+                with self._gate.alone():
+                    self.nm.close()
+                    self._dat.close()
+                    os.replace(
+                        self.base_file_name + ".cpd", self.data_file_name
                     )
-                self.nm = nm_mod.new_needle_map(
-            self.index_file_name, self.needle_map_kind
-        )
+                    os.replace(
+                        self.base_file_name + ".cpx", self.index_file_name
+                    )
+                    self._dat = open(self.data_file_name, "r+b")
+                    with open(self.data_file_name, "rb") as f:
+                        self.super_block = sb_mod.SuperBlock.from_bytes(
+                            f.read(sb_mod.SUPER_BLOCK_SIZE + 0xFFFF)
+                        )
+                    self.nm = nm_mod.new_needle_map(
+                        self.index_file_name, self.needle_map_kind
+                    )
             finally:
                 self.is_compacting = False
 
@@ -511,10 +587,16 @@ class Volume:
         self.nm.sync()
 
     def close(self) -> None:
-        with self._lock:
+        """Close the files; a later read, write or stat raises
+        ``VolumeClosedError``. Idempotent."""
+        with self._lock, self._gate.alone():
+            if self.closed:
+                return
+            self.closed = True
             self.nm.close()
             if self._dat is not None:
                 self._dat.close()
+                self._dat = None
             if self.remote_backend is not None:
                 self.remote_backend.close()
 

@@ -10,7 +10,11 @@ objectives (error rate and p99 latency). `weed shell cluster.health`
 and `cluster.stats` render this view.
 
 The port's copy of ``seaweedfs_tpu/telemetry/aggregator.py``: the same
-views and JSON bodies.
+views and JSON bodies, with one difference. The p99 objective (a
+server's ``p99`` mark and the rollup's ``p99_seconds``) counts only
+servers whose rolling window holds requests (``window_total``); the
+reference counts any server that ever served one, so a server idle
+past its window is judged on its lifetime histogram and stays degraded.
 """
 
 from __future__ import annotations
@@ -324,8 +328,12 @@ class ClusterTelemetry:
         rate = req.get("error_rate")
         if rate is not None and rate > err_obj:
             degraded.append("error-rate")
+        # latency is judged on the rolling window only: an idle
+        # server's p99 is its lifetime histogram's (snapshot.collect),
+        # and a server slow once under load would read degraded for ever
         p99 = req.get("p99_seconds")
-        if p99 is not None and req.get("total", 0) > 0 and p99 > p99_obj:
+        if p99 is not None and req.get("window_total", 0) > 0 \
+                and p99 > p99_obj:
             degraded.append("p99")
         # maintenance backlog: queued work older than 3 detector
         # intervals means the plane is not keeping up (dead workers,
@@ -384,7 +392,7 @@ class ClusterTelemetry:
             delta += req.get("delta", 0)
             errors += req.get("errors", 0)
             error_delta += req.get("error_delta", 0)
-            if req.get("total", 0) > 0:
+            if req.get("window_total", 0) > 0:
                 worst_p99 = max(worst_p99, req.get("p99_seconds", 0.0))
             # max, not sum: in-proc clusters share one fault registry,
             # so every server reports the same process-global counters

@@ -96,11 +96,12 @@ def _request(rng):
 def test_v4_and_v2_signatures_equal(seed):
     for i in range(25):
         got = {}
+        amz = _amz()  # one clock reading for both packages
         for name, pkg in PKGS.items():
             rng = random.Random(seed * 1000 + i)
             method, path, query, headers, body = _request(rng)
+            headers["X-Amz-Date"] = amz
             ident = pkg.Identity(*KEYS[i % 2])
-            amz = headers["X-Amz-Date"]
             got[name] = (
                 pkg.sign_request_v4(ident, method, path, query, headers,
                                     body, amz),
@@ -118,16 +119,16 @@ def test_v4_and_v2_signatures_equal(seed):
 def test_presigned_urls_equal(seed):
     for i in range(10):
         got = {}
+        # one clock reading for both packages
+        amz, expires = _amz(), int(time.time()) + 600
         for name, pkg in PKGS.items():
             rng = random.Random(seed * 1000 + i)
             method, path, query, headers, _ = _request(rng)
             ident = pkg.Identity(*KEYS[i % 2])
             got[name] = (
-                pkg.presign_url_v2(ident, method, path,
-                                   int(time.time()) + 600, query),
+                pkg.presign_url_v2(ident, method, path, expires, query),
                 pkg.presign_url_v4(ident, method, headers["Host"], path,
-                                   headers["X-Amz-Date"],
-                                   rng.randrange(1, 604801)),
+                                   amz, rng.randrange(1, 604801)),
             )
         assert got["port"] == got["ref"]
 

@@ -272,7 +272,7 @@ def test_slo_burn_and_staleness(fresh):
         "requests": {
             "total": 100, "delta": 100, "errors": 5,
             "error_delta": 5, "error_rate": 0.05,
-            "p99_seconds": 1.0,
+            "window_total": 100, "p99_seconds": 1.0,
         },
     }
     for agg in aggs.values():
@@ -298,6 +298,78 @@ def test_slo_burn_and_staleness(fresh):
         assert agg.view()["servers"] == []
 
 
+class _Clock:
+    """A monotonic clock the test moves by hand, in place of the
+    ``time`` module a collector reads its window from."""
+
+    def __init__(self):
+        self.now = 1000.0
+
+    def monotonic(self):
+        return self.now
+
+    def time(self):
+        return time.time()
+
+
+@pytest.mark.parametrize("errors", [False, True],
+                         ids=["slow-burst", "error-burst"])
+def test_idle_server_judged_on_its_window(fresh, monkeypatch, errors):
+    """A burst of requests over the p99 objective, then the server idle
+    past ``window_seconds``: the port's view reads it healthy on latency,
+    where the reference's keeps the lifetime p99 and marks it degraded.
+    While the burst is in the window both mark it, and a burst of 5xx
+    keeps its error-rate mark in both, idle or not."""
+    clock = _Clock()
+    views = {}
+    for name, (snap, agg_mod, _s, tracing, _r, _m) in PKGS.items():
+        monkeypatch.setattr(snap, "time", clock)
+        clock.now = 1000.0
+        # a component of its own: spans also reach process-wide
+        # ledgers that later tests read
+        col = snap.TelemetryCollector("unit-idle-component", url="v1",
+                                      window_seconds=30.0)
+        agg = agg_mod.ClusterTelemetry(slo_error_rate=0.01,
+                                       slo_p99_seconds=0.05,
+                                       stale_after=60.0)
+        agg.ingest(col.collect())  # the baseline scrape
+        for i in range(40):
+            _finish(tracing, "unit-idle-component", "op", 0.2,
+                    status=503 if errors and i % 4 == 0 else 200)
+        clock.now += 5.0
+        busy = col.collect()
+        agg.ingest(busy)
+        views[name, "busy"] = agg.view()
+        clock.now += 31.0  # past the window, no request since
+        idle = col.collect()
+        agg.ingest(idle)
+        views[name, "idle"] = agg.view()
+        assert busy["requests"]["window_total"] == 40
+        assert idle["requests"]["window_total"] == 0
+        # the snapshot keeps the lifetime p99 for display
+        assert idle["requests"]["p99_seconds"] > 0.05
+    busy_marks = {"p99", "error-rate"} if errors else {"p99"}
+    for name in PKGS:
+        [srv] = views[name, "busy"]["servers"]
+        assert set(srv["degraded"]) == busy_marks
+        assert not views[name, "busy"]["healthy"]
+    # spans timed by the clock: compare the judgement, not the means
+    for key in ("healthy", "slo"):
+        assert views["port", "busy"][key] == views["ref", "busy"][key]
+    [ref_idle] = views["ref", "idle"]["servers"]
+    [port_idle] = views["port", "idle"]["servers"]
+    assert "p99" in ref_idle["degraded"]
+    assert views["ref", "idle"]["slo"]["p99_burn"] > 1
+    assert "p99" not in port_idle["degraded"]
+    assert views["port", "idle"]["slo"]["p99_seconds"] == 0.0
+    # the error-rate rule is the reference's, idle or not
+    assert ("error-rate" in port_idle["degraded"]) == errors
+    assert ("error-rate" in ref_idle["degraded"]) == errors
+    assert views["port", "idle"]["healthy"] is (not errors)
+    assert (views["port", "idle"]["slo"]["error_burn"]
+            == views["ref", "idle"]["slo"]["error_burn"])
+
+
 def test_view_with_own_and_maintenance_backlog(fresh):
     """The master's own row, a maintenance backlog flag, faults by max,
     breakers open, freshest-wins protocol and filer sections, the filer
@@ -310,7 +382,7 @@ def test_view_with_own_and_maintenance_backlog(fresh):
            "breakers": {"x:1": {"state": "open"}},
            "requests": {"total": 3, "delta": 1, "errors": 0,
                         "error_delta": 0, "error_rate": 0.0,
-                        "p99_seconds": 0.01}}
+                        "window_total": 1, "p99_seconds": 0.01}}
     rows = [
         {"component": "volume", "url": "v1", "faults": {"a/error": 3.0},
          "protocols": {"s3": {"ops_s": 2.0}}},
