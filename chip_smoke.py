@@ -282,7 +282,13 @@ phase 11 runs the link-aware default.
     filerdata`` beside it: files of 1–24 MiB made from ``--seed``
     written by four ``weed filer.copy`` processes into one grown volume
     of the collection until its ``.dat`` holds at least 95 % of the
-    limit; every file back through ``weed filer.cat``, byte-exact;
+    limit, and the slowest write printed with each try's assign and
+    upload seconds (the filer's ``/debug/slow``) and the spans its trace
+    left on the master and the volume servers; a write storm: eight
+    threads writing seeded 1–24 MiB files through the filer into a
+    collection of their own for 30 s, each file read back byte-exact,
+    none outliving its client's 30 s (then that collection deleted);
+    every file back through ``weed filer.cat``, byte-exact;
     ``fs.ls``, ``fs.du``, ``fs.cat`` and ``fs.meta.save`` through one
     ``weed shell``, their totals equal to what was written; ``ec.encode``
     through ``weed shell`` (every ``.ec00–.ec13`` and ``.ecx`` hashing
@@ -351,7 +357,8 @@ phase 11 runs the link-aware default.
     broker's four partitions (every one persisted to its segments
     before going on), files of 1–24 MiB written through the port's
     ``WFS`` API (then random-offset rewrites, a truncate, a rename, a
-    symlink and a hard link) and files of 1–24 MiB PUT through WebDAV;
+    symlink and a hard link) and files of 1–24 MiB PUT through WebDAV,
+    the filer's slowest write printed with its hops as in phase 18;
     ``ec.encode`` hashed against ``write_ec_files`` (every launch
     compile-time); shards {0, 5, 11, 13} deleted, the filer, the
     gateway and the broker restarted, and every byte read back
@@ -378,8 +385,11 @@ Phases 16, 19 and 22 print their servers' 5xx answers by component
 (``SPAN_ERRORS``), each 5xx a handler built sorted by cause (a closed
 file, a short read, a record that does not parse, or listed by
 traceback), the native load's failures by HTTP status, and the
-contention rows of the volume and EC-shard locks (``ServerErrorTap``).
-When a step of phases 17, 18, 20 or 21 fails, the script keeps what it
+contention rows of the volume and EC-shard locks (``ServerErrorTap``),
+and their convergence: its seconds and polls, and the reasons of the
+last unhealthy poll with each marked server's own marks and requests
+(``ConvergeTap``; each server's snapshot counts the requests it
+answered). When a step of phases 17, 18, 20 or 21 fails, the script keeps what it
 needs before stopping the children (``WeedCluster.keep_failure``): each
 child's ``/debug/stacks`` and ``/debug/slow``, a ``SIGABRT`` to those
 that serve no ``/debug`` (their faulthandler writes their stacks to
@@ -3394,6 +3404,77 @@ class ServerErrorTap:
         return out
 
 
+class ConvergeTap:
+    """Each unhealthy poll of an in-process round's convergence wait,
+    read through ``scale/converge.check_view``: the reasons, and each
+    marked server's own requests (a server's snapshot counts only the
+    requests it answered). ``report`` prints the wait's
+    seconds and polls, and the servers' marks at the last unhealthy
+    poll, and returns them for the phase's JSON line."""
+
+    def __enter__(self):
+        from seaweedfs_tpu_torch.scale import converge
+
+        self.polls = 0
+        self.unhealthy = 0
+        self.last: dict | None = None
+        self._check = converge.check_view
+        check_view, tap = self._check, self
+
+        def checked(view, *a, **kw):
+            reasons = check_view(view, *a, **kw)
+            tap.polls += 1
+            if reasons:
+                tap.unhealthy += 1
+                tap.last = {"poll": tap.polls, "reasons": reasons[:20],
+                            "slo": view.get("slo"),
+                            "marks": ConvergeTap.marks(view)}
+            return reasons
+
+        converge.check_view = checked
+        return self
+
+    def __exit__(self, *exc):
+        from seaweedfs_tpu_torch.scale import converge
+
+        converge.check_view = self._check
+        return False
+
+    @staticmethod
+    def marks(view) -> list[dict]:
+        out = []
+        for s in view.get("servers", ()):
+            if not s.get("degraded"):
+                continue
+            req = s.get("requests") or {}
+            out.append({"server": f"{s.get('component')}@{s.get('url')}",
+                        "marks": s["degraded"],
+                        **{k: req.get(k) for k in (
+                            "total", "delta", "errors", "error_rate",
+                            "window_total", "p99_seconds")}})
+        return out
+
+    def report(self, on_card, detail) -> dict:
+        out = {"converged": detail["converged"],
+               "converge_seconds": detail["converge_seconds"],
+               "polls": self.polls, "unhealthy_polls": self.unhealthy,
+               "last_unhealthy": self.last}
+        verdict = ("converged" if detail["converged"]
+                   else "DID NOT CONVERGE")
+        on_card(f"converge: {verdict} in {detail['converge_seconds']} s, "
+                f"{self.polls} polls, {self.unhealthy} unhealthy")
+        if self.last is not None:
+            on_card(f"last unhealthy poll (#{self.last['poll']}): "
+                    + "; ".join(self.last["reasons"][:8]))
+            for mk in self.last["marks"][:12]:
+                on_card(f"  own marks {mk['server']}: {mk['marks']}; "
+                        f"requests {mk['total']} (delta {mk['delta']}), "
+                        f"5xx {mk['errors']}, error_rate "
+                        f"{mk['error_rate']}, window {mk['window_total']}"
+                        f", p99 {mk['p99_seconds']} s")
+        return out
+
+
 def phase_fleet(args, torch, smi, reset_counts, counters):
     """Phase 16: the warm fleet round on the card — the reference's
     recorded warm round (``SCALE_r05.json``: spec 5x4x5, seed 5) through
@@ -3455,7 +3536,7 @@ def phase_fleet(args, torch, smi, reset_counts, counters):
         round_mod.ScaleHarness = KeptHarness
         t0 = time.perf_counter()
         try:
-            with ServerErrorTap() as tap:
+            with ServerErrorTap() as tap, ConvergeTap() as conv:
                 result = round_mod.run_scale_round(
                     spec=spec, device="cuda", json_path=json_path,
                     out=lines.append, **settings)
@@ -3466,6 +3547,7 @@ def phase_fleet(args, torch, smi, reset_counts, counters):
         for line in lines:
             on_card(f"  | {line}")
         row["server_errors"] = tap.report(on_card)
+        row["converge"] = conv.report(on_card, result["detail"])
         check(len(kept) == 1, f"the round's harness: {kept}")
         h = kept[0]
         d = result["detail"]
@@ -3632,10 +3714,36 @@ ROUTE_RE = re.compile(
     re.M)
 
 
+_NEXT_PORT: list[int] = []
+
+
 def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A port for a child to listen on: one no socket holds, below the
+    kernel's ephemeral range, never handed out twice in a run. The child
+    binds it later; a port from the ephemeral range could meanwhile
+    become some connection's source port and the bind fail with
+    EADDRINUSE (``weed volume``'s counter port once did). Below 16000
+    and below the start of ``/proc/sys/net/ipv4/ip_local_port_range``:
+    the card's hosts hand out source ports from 16000 up, whatever that
+    file says."""
+    low = 16000
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = min(low, int(f.read().split()[0]))
+    except (OSError, ValueError, IndexError):
+        pass
+    if not _NEXT_PORT:
+        _NEXT_PORT.append(max(1024, low - 8000))
+    while _NEXT_PORT[0] < low:
+        port = _NEXT_PORT[0]
+        _NEXT_PORT[0] += 1
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError(f"no free port below {low}")
 
 
 def server_routes(url: str) -> dict[tuple[str, str], int]:
@@ -3983,13 +4091,20 @@ class WeedCluster:
             except subprocess.TimeoutExpired:
                 proc.kill()
                 proc.wait()
+        retried = {}
         for name, _proc in self.children:
             log = os.path.join(self.root, f"{name}.log")
             if os.path.exists(log):
                 with open(log, "rb") as f:
-                    tail = f.read()[-1500:].decode("utf-8", "replace")
+                    text = f.read()
+                tail = text[-1500:].decode("utf-8", "replace")
                 if tail.strip():
                     say(f"weed {name} log (tail): {tail!r}")
+                if n := text.count(b"a new socket"):
+                    retried[name] = n
+        # util/http.py logs each connect it abandoned unanswered
+        self.on_card(f"weed cluster {self.name}: connects tried again on "
+                     f"a new socket, by child: {retried or 'none'}")
         shutil.rmtree(self.root, ignore_errors=True)
 
 
@@ -4273,6 +4388,163 @@ def phase_cli_cluster(args, smi):
     return row, path
 
 
+def filer_fill(wc, fs_url: str, limit: int, seed: int,
+               fill: int = 18):
+    """Phase 18's fill step: seeded files of 1-24 MiB, 97.5 % of
+    ``limit`` bytes in all, written under ``<wc.root>/files`` and copied
+    into the filer at ``fs_url`` by four ``weed filer.copy`` processes
+    (``/data/p0`` .. ``/data/p3``). Fails if a copy fails. Returns
+    {name: bytes}, the bytes and the copy's wall seconds."""
+    rng = np.random.default_rng([seed, fill])
+    files: dict[str, bytes] = {}
+    local: dict[str, str] = {}
+    total, target = 0, int(0.975 * limit)
+    while total < target:
+        n = min(int(rng.integers(MIB, 24 * MIB + 1)), target - total)
+        k = len(files)
+        name = f"/data/p{k % 4}/f{k:04d}.bin"
+        data = np.random.default_rng([seed, fill, k]).bytes(n)
+        path = os.path.join(wc.root, "files", f"p{k % 4}", f"f{k:04d}.bin")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(data)
+        files[name], local[name] = data, path
+        total += n
+    groups = [[local[n] for n in files if n.startswith(f"/data/p{j}/")]
+              for j in range(4)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        wc.weed + ["filer.copy", "-filer", fs_url] + group
+        + [f"/data/p{j}"], cwd=wc.root, env=wc.env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for j, group in enumerate(groups) if group]
+    for proc in procs:
+        out, err = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"weed filer.copy: {err[-3000:]}")
+    return files, total, time.perf_counter() - t0
+
+
+def slowest_filer_write(fs_url: str, servers: dict[str, str]) -> dict:
+    """The slowest write in the filer's ``/debug/slow``, with each
+    try's assign and upload seconds (its ``hops``) and the spans that
+    its trace left on the servers in ``servers`` (name -> address)."""
+    from seaweedfs_tpu_torch.util import http
+
+    writes = [e for e in http.get_json(f"{fs_url}/debug/slow")["slow"]
+              if e.get("component") == "filer" and e.get("op") == "write"]
+    if not writes:
+        return {}
+    top = max(writes, key=lambda e: e["duration"])
+    hops = top.get("hops") or []
+    spans = []
+    for name, url in servers.items():
+        try:
+            got = http.get_json(f"{url}/debug/traces?traceId="
+                                f"{top['trace_id']}", timeout=10)["spans"]
+        except (http.HttpError, OSError):
+            continue
+        spans += [{"server": name, "op": f"{sp['component']}.{sp['op']}",
+                   "seconds": sp["duration"], "status": sp["status"]}
+                  for sp in got]
+    return {"seconds": top["duration"], "status": top["status"],
+            "trace_id": top["trace_id"], "pieces": len(
+                {h.get("piece") for h in hops}),
+            "tries": len(hops), "hops": hops, "server_spans": spans}
+
+
+def say_slowest_write(on_card, label: str, w: dict) -> None:
+    if not w:
+        on_card(f"{label}: the filer's ledger holds no write")
+        return
+    worst = max(w["hops"], default={}, key=lambda h: (
+        (h.get("assign_s") or 0) + (h.get("upload_s") or 0)))
+    failed = [h for h in w["hops"] if "error" in h]
+    on_card(f"{label}: slowest filer write {w['seconds']:.3f} s (status "
+            f"{w['status']}), {w['pieces']} pieces in {w['tries']} tries, "
+            f"{len(failed)} failed; its slowest try: assign "
+            f"{worst.get('assign_s')} s, upload {worst.get('upload_s')} s; "
+            "server spans: " + ", ".join(
+                f"{sp['server']} {sp['op']} {sp['seconds']:.3f} s"
+                for sp in sorted(w["server_spans"],
+                                 key=lambda sp: -sp["seconds"])[:6]))
+    for h in failed[:4]:
+        on_card(f"  failed try of piece {h.get('piece')}: "
+                f"{h.get('error')}")
+
+
+STORM_SECONDS = 30.0
+STORM_CLIENT_TIMEOUT = 30.0  # the filer's clients' socket timeout
+
+
+def filer_storm(fs_url: str, seed: int, collection: str) -> dict:
+    """Eight threads writing seeded 1-24 MiB files through the filer
+    (into ``collection``) for ``STORM_SECONDS``, each reading back its
+    previous file byte-exact between writes and its last one at the end.
+    Fails if a write or a read fails, a byte differs, or a write
+    outlives its client's 30 s; returns the counts and latencies."""
+    from seaweedfs_tpu_torch.util import http
+
+    stop = time.perf_counter() + STORM_SECONDS
+    lock = threading.Lock()
+    lat: list[float] = []
+    failures: list[str] = []
+    moved = [0]
+
+    def writer(t):
+        prev = None
+        k = 0
+        while time.perf_counter() < stop and not failures:
+            rng = np.random.default_rng([seed, 18, 3, t, k])
+            data = rng.bytes(int(rng.integers(MIB, 24 * MIB + 1)))
+            name = f"/storm/t{t}/f{k:04d}.bin"
+            t0 = time.perf_counter()
+            try:
+                http.request("POST", f"{fs_url}{name}?collection="
+                             f"{collection}", data,
+                             timeout=STORM_CLIENT_TIMEOUT)
+            except (http.HttpError, OSError) as e:
+                with lock:
+                    failures.append(f"write {name} after "
+                                    f"{time.perf_counter() - t0:.1f} s: {e}")
+                return
+            with lock:
+                lat.append(time.perf_counter() - t0)
+                moved[0] += len(data)
+            if prev is not None and not read_back(*prev):
+                return
+            prev, k = (name, data), k + 1
+        if prev is not None:
+            read_back(*prev)
+
+    def read_back(name, data):
+        try:
+            ok = http.request("GET", f"{fs_url}{name}") == data
+        except (http.HttpError, OSError) as e:
+            ok, why = False, f"read {name}: {e}"
+        else:
+            why = f"{name} differs"
+        if not ok:
+            with lock:
+                failures.append(why)
+        return ok
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=writer, args=(t,)) for t in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    check(not failures, f"write storm: {failures[:5]}")
+    check(max(lat, default=0.0) < STORM_CLIENT_TIMEOUT,
+          f"a storm write took {max(lat)} s")
+    return {"threads": 8, "seconds": wall, "files": len(lat),
+            "bytes": moved[0], "MBps": moved[0] / wall / 1e6,
+            "p50_ms": percentile_ms(lat, 50),
+            "p99_ms": percentile_ms(lat, 99),
+            "max_ms": max(lat) * 1e3}
+
+
 def phase_filer(args, smi):
     """Phase 18: the filer on the card — phase 17's cluster of ``weed``
     processes (through ``WeedCluster``) with one ``weed filer -store
@@ -4280,7 +4552,10 @@ def phase_filer(args, smi):
     filer's HTTP and the port's ``FilerRing``: seeded files of 1–24 MiB
     (most span several 8 MiB chunks) written by four ``weed filer.copy``
     processes into one grown volume of ``<c>`` until its ``.dat`` holds
-    at least 95 % of ``--volume-mib``; every file read back through
+    at least 95 % of ``--volume-mib`` (``filer_fill``), with the
+    slowest write's hops; a 30 s write storm of eight threads through
+    the same filer into its own collection, every file read back
+    (``filer_storm``); every file read back through
     ``weed filer.cat``; ``fs.ls``, ``fs.du``, ``fs.cat`` and
     ``fs.meta.save`` through one ``weed shell``; ``ec.encode`` of the
     volume hashed against ``write_ec_files`` of its ``.dat``; shards {0,
@@ -4355,37 +4630,10 @@ def phase_filer(args, smi):
         # 1. fill: one grown volume of the collection, through the filer
         check(http.get_json(f"{m}/vol/grow?count=1&collection={col}")
               == {"count": 1}, f"grow one volume of {col}")
-        rng = np.random.default_rng([args.seed, 18])
-        files: dict[str, bytes] = {}
-        local: dict[str, str] = {}
-        total, target = 0, int(0.975 * limit)
-        while total < target:
-            n = min(int(rng.integers(MIB, 24 * MIB + 1)), target - total)
-            k = len(files)
-            name = f"/data/p{k % 4}/f{k:04d}.bin"
-            data = np.random.default_rng([args.seed, 18, k]).bytes(n)
-            path = os.path.join(root, "files", f"p{k % 4}",
-                                f"f{k:04d}.bin")
-            os.makedirs(os.path.dirname(path), exist_ok=True)
-            with open(path, "wb") as f:
-                f.write(data)
-            files[name], local[name] = data, path
-            total += n
+        files, total, copy_s = filer_fill(wc, fs_url, limit, args.seed)
         manifest = "".join(
             f"{name} {len(data)} {hashlib.sha256(data).hexdigest()}\n"
             for name, data in files.items()).encode()
-        groups = [[local[n] for n in files if n.startswith(f"/data/p{j}/")]
-                  for j in range(4)]
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            wc.weed + ["filer.copy", "-filer", fs_url] + group
-            + [f"/data/p{j}"], cwd=root, env=wc.env,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for j, group in enumerate(groups) if group]
-        for proc in procs:
-            out, err = proc.communicate(timeout=600)
-            check(proc.returncode == 0, f"weed filer.copy: {err[-3000:]}")
-        copy_s = time.perf_counter() - t0
         man_path = os.path.join(root, "files", "MANIFEST.txt")
         with open(man_path, "wb") as f:
             f.write(manifest)
@@ -4413,6 +4661,27 @@ def phase_filer(args, smi):
                 f"{row['fill']['MBps']:.1f} MB/s; .dat {dat_bytes} bytes = "
                 f"{row['fill']['full_percent']:.2f} % of {args.volume_mib} "
                 "MiB")
+        servers = {"master": m, **{f"volume{i}": u
+                                   for i, u in enumerate(urls)}}
+        row["fill"]["slowest_write"] = slowest_filer_write(fs_url, servers)
+        say_slowest_write(on_card, "fill", row["fill"]["slowest_write"])
+
+        # 1b. a write storm through the same filer, its own collection
+        row["storm"] = filer_storm(fs_url, args.seed, "storm")
+        row["storm"]["slowest_write"] = slowest_filer_write(fs_url,
+                                                            servers)
+        on_card(f"write storm: {row['storm']['files']} seeded files "
+                f"({row['storm']['bytes']} bytes) on 8 threads in "
+                f"{row['storm']['seconds']:.1f} s = "
+                f"{row['storm']['MBps']:.1f} MB/s, each read back "
+                f"byte-exact; write p50/p99/max "
+                f"{row['storm']['p50_ms']:.1f} / "
+                f"{row['storm']['p99_ms']:.1f} / "
+                f"{row['storm']['max_ms']:.1f} ms")
+        say_slowest_write(on_card, "phase 18 (fill and storm)",
+                          row["storm"]["slowest_write"])
+        # the storm's volumes are not the phase's: give back their disk
+        http.get_json(f"{m}/col/delete?collection=storm")
 
         # 2. read back through weed filer.cat, then the fs.* readers
         def cat(name):
@@ -4750,7 +5019,7 @@ def phase_leader(args, smi, reset_counts, counters):
         retry.BREAKERS.reset()
         op_client._lookup_cache.clear()
         t0 = time.perf_counter()
-        with ServerErrorTap() as tap:
+        with ServerErrorTap() as tap, ConvergeTap() as conv:
             result = round_mod.run_scale_round(
                 device="cuda", json_path=json_path, out=lines.append,
                 **settings)
@@ -4759,6 +5028,7 @@ def phase_leader(args, smi, reset_counts, counters):
         for line in lines:
             on_card(f"  | {line}")
         row["server_errors"] = tap.report(on_card)
+        row["converge"] = conv.report(on_card, result["detail"])
         d = result["detail"]
         fo = d["failover"]
         check(d["converged"], f"the round converged: {d['last_reasons']}")
@@ -5726,7 +5996,11 @@ def phase_gateways(args, smi):
               "the volume's sqlite needle map is on disk")
         row["webdav"] = {"files": len(dav_files), "bytes": dav_bytes,
                          "put_s": dav_put_s,
-                         "MBps": dav_bytes / dav_put_s / 1e6}
+                         "MBps": dav_bytes / dav_put_s / 1e6,
+                         "slowest_write": slowest_filer_write(fs_url, {
+                             "master": wc.m, **{
+                                 f"volume{i}": u
+                                 for i, u in enumerate(wc.urls)}})}
         row["fill"] = {"volume": vid, "dat_bytes": dat_bytes,
                        "full_percent": 100 * dat_bytes / limit,
                        "dat_after_broker": after_broker}
@@ -5740,6 +6014,8 @@ def phase_gateways(args, smi):
                 f"rewrites, a truncate, a rename, a symlink, a hard link) "
                 f"and {len(dav_files)} WebDAV PUTs ({dav_bytes} bytes, "
                 f"{row['webdav']['MBps']:.1f} MB/s)")
+        say_slowest_write(on_card, "phase 21 (WFS, broker and WebDAV)",
+                          row["webdav"]["slowest_write"])
 
         # 4. ec.encode of the volume through weed shell
         expect_dir = os.path.join(root, "expect")
@@ -5921,7 +6197,7 @@ def phase_persona_round(args, smi, reset_counts, counters):
         retry.BREAKERS.reset()
         op_client._lookup_cache.clear()
         t0 = time.perf_counter()
-        with ServerErrorTap() as tap:
+        with ServerErrorTap() as tap, ConvergeTap() as conv:
             result = round_mod.run_scale_round(
                 device="cuda", json_path=json_path, out=lines.append,
                 **settings)
@@ -5930,6 +6206,7 @@ def phase_persona_round(args, smi, reset_counts, counters):
         for line in lines:
             on_card(f"  | {line}")
         row["server_errors"] = tap.report(on_card)
+        row["converge"] = conv.report(on_card, result["detail"])
         d = result["detail"]
         fo = d["failover"]
         check(d["converged"], f"the round converged: {d['last_reasons']}")

@@ -145,6 +145,7 @@ class MessageBroker:
             self._telemetry_reporter = TelemetryReporter(
                 "broker", self.url, self.master_url,
                 interval=self.telemetry_interval,
+                tally=self.server.router.tally,
             )
             self._telemetry_reporter.start()
         self._register()

@@ -12,11 +12,14 @@ leader failover instead of re-asking the dead master until their
 budget dies and surfacing a RuntimeError the outer caller can't
 classify as retriable.
 
-The port's copy of ``seaweedfs_tpu/operation/client.py``.
+The port's copy of ``seaweedfs_tpu/operation/client.py``. One
+difference: under a deadline budget, ``upload_data`` cuts a stalled
+first try off with time left for a fresh assignment (see there).
 """
 
 from __future__ import annotations
 
+import contextlib
 import random
 import time
 import urllib.parse
@@ -132,6 +135,11 @@ def lookup(master_url, vid: str, refresh: bool = False) -> list[dict]:
     return locations
 
 
+# the share of a deadline budget the first upload try leaves for a
+# fresh assignment, should that try stall
+FRESH_TRY_RESERVE = 0.25
+
+
 def upload_data(
     master_url,
     data: bytes,
@@ -141,29 +149,57 @@ def upload_data(
     replication: str = "",
     ttl: str = "",
     retries: int = 3,
+    hops: list | None = None,
 ) -> tuple[str, int]:
     """Assign + upload; returns (fid, stored size). Re-assigns on
     failure like upload_content.go's retry loop, with the shared
     backoff policy pacing re-assigns (full jitter, no fixed sleep).
     Non-retriable statuses (401 bad auth, 404 bad fid — every 4xx)
     surface immediately: a fresh assignment cannot fix a rejected
-    request."""
+    request.
+
+    Under a deadline budget (``retry.deadline_scope`` or an inherited
+    ``X-Seaweed-Deadline``) the first try runs under what is left of it
+    less ``FRESH_TRY_RESERVE`` of that, and each later try under all
+    that is left: a try stalled on one hop is cut off with time left
+    for a fresh assignment, and the call fails before the budget ends
+    instead of outliving the caller waiting on it. ``hops``, when
+    given, gets one row a try: its assign and upload seconds (None for
+    a hop not reached) and its error."""
     policy = retry_mod.UPLOAD
     last_err: Exception | None = None
+    tries = 0
     for attempt in range(retries):
+        left = retry_mod.remaining()
+        if left is not None and left <= 0:
+            break
+        tries += 1
+        hop: dict = {"assign_s": None, "upload_s": None}
+        t0 = time.perf_counter()
         try:
-            a = assign(
-                master_url,
-                collection=collection,
-                replication=replication,
-                ttl=ttl,
-            )
-            size = upload(
-                a.url, a.fid, data, name=name, mime=mime, ttl=ttl,
-                jwt=a.auth,
-            )
+            with (
+                contextlib.nullcontext() if left is None
+                else retry_mod.deadline_scope(
+                    left * (1 - FRESH_TRY_RESERVE) if attempt == 0
+                    else left
+                )
+            ):
+                a = assign(
+                    master_url,
+                    collection=collection,
+                    replication=replication,
+                    ttl=ttl,
+                )
+                t1 = time.perf_counter()
+                hop["assign_s"] = round(t1 - t0, 6)
+                size = upload(
+                    a.url, a.fid, data, name=name, mime=mime, ttl=ttl,
+                    jwt=a.auth,
+                )
+                hop["upload_s"] = round(time.perf_counter() - t1, 6)
             return a.fid, size
         except http.HttpError as e:
+            hop["error"] = str(e)[:200]
             # every 4xx (401 bad auth, 404 bad fid) is a definitive
             # answer — a fresh assignment cannot fix it; 5xx and
             # transport failures get a new volume + backoff
@@ -172,10 +208,21 @@ def upload_data(
             last_err = e
         except RuntimeError as e:
             # assign refused (no writable volume yet / growing)
+            hop["error"] = str(e)[:200]
             last_err = e
+        finally:
+            if hops is not None:
+                hops.append(hop)
         if attempt + 1 < retries:
-            time.sleep(policy.backoff(attempt))
-    raise RuntimeError(f"upload failed after {retries} tries: {last_err}")
+            delay = policy.backoff(attempt)
+            left = retry_mod.remaining()
+            if left is not None and left <= delay:
+                break  # the budget can't fund another try
+            time.sleep(delay)
+    raise RuntimeError(
+        f"upload failed after {tries} tries: "
+        f"{last_err or 'deadline budget spent'}"
+    )
 
 
 def upload(

@@ -17,7 +17,10 @@ run on the card or on the native host codec; this module decides which:
 Unlike the reference, a probe that fails raises: the reference routes to
 the host (``"noprobe"``) when it finds no device, but a ``cuda`` codec
 has a card by construction, so a failing probe is a fault to surface,
-not a reason to hide the card.
+not a reason to hide the card. And :func:`reprobe`, which the reference
+lacks, measures the link again and seeds the card path's estimate anew;
+the port's volume server calls it as each bulk EC job (generate,
+rebuild) starts.
 
 Decisions are counted in ``seaweedfs_codec_route_total{path,reason}`` and
 the live estimates shown in ``seaweedfs_codec_link_gbps{path}``, both in
@@ -99,19 +102,39 @@ class LinkState:
         res = _measure_link(device)
         with self._lock:
             self.probe_result = res
-            # Seed the device estimate from the probe: project a 1 MiB
-            # dispatch's round trip (H2D + compute + D2H at parity ratio).
             if "h2d_gbps" in res and "device" not in self._gbps:
-                nb = 1 << 20
-                t = (
-                    nb / max(res["h2d_gbps"], 1e-6) / 1e9
-                    + nb / _DEVICE_COMPUTE_GBPS_PRIOR / 1e9
-                    + 0.4 * nb / max(res["d2h_gbps"], 1e-6) / 1e9
-                    + res.get("rtt_s", 0.0)
-                )
-                self._gbps["device"] = nb / t / 1e9
-                LINK_GBPS.set(self._gbps["device"], "device")
+                self._seed_device(res)
         return res
+
+    def reprobe(self, device=None) -> dict[str, float]:
+        """Measure the link again and seed the card path's estimate from
+        it anew, in place of what earlier dispatches taught it; a bulk
+        job starts so. Those dispatches may all have been small ones
+        made under contention (a server's degraded reads on many
+        threads), which say little of a job's large slabs; from such an
+        estimate the job ran on the host until its 32nd dispatch."""
+        res = _measure_link(device)
+        with self._lock:
+            self.probe_result = res
+            self._since_device = 0
+            self._seed_device(res)
+        return res
+
+    def _seed_device(  # weedcheck: holds[self._lock]
+        self, res: dict[str, float]
+    ) -> None:
+        """Seed the device estimate from a probe: project a 1 MiB
+        dispatch's round trip (H2D + compute + D2H at parity ratio).
+        Caller holds the lock."""
+        nb = 1 << 20
+        t = (
+            nb / max(res["h2d_gbps"], 1e-6) / 1e9
+            + nb / _DEVICE_COMPUTE_GBPS_PRIOR / 1e9
+            + 0.4 * nb / max(res["d2h_gbps"], 1e-6) / 1e9
+            + res.get("rtt_s", 0.0)
+        )
+        self._gbps["device"] = nb / t / 1e9
+        LINK_GBPS.set(self._gbps["device"], "device")
 
     # -- decision --------------------------------------------------------
 
@@ -211,6 +234,10 @@ def choose(in_bytes: int, device=None) -> tuple[bool, str]:
 
 def probe(device=None, force: bool = False) -> dict[str, float]:
     return STATE.probe(device, force)
+
+
+def reprobe(device=None) -> dict[str, float]:
+    return STATE.reprobe(device)
 
 
 def snapshot() -> dict[str, float | None]:

@@ -199,6 +199,7 @@ class S3ApiServer:
             self._telemetry_reporter = TelemetryReporter(
                 "s3", self.url, self.master_url,
                 interval=self.telemetry_interval,
+                tally=self.server.router.tally,
             )
             self._telemetry_reporter.start()
 

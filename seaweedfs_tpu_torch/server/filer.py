@@ -8,7 +8,12 @@ Seaweed-* headers, /meta/events for subscribers.
 
 The port's copy of ``seaweedfs_tpu/server/filer.py``. ``filer_peers``
 is the meta aggregator: one ``replication/sync.py`` ``FilerSync`` from
-each peer into this filer.
+each peer into this filer. One difference: a write uploads each piece
+under a budget (``WRITE_BUDGET_SECONDS``; ``operation.upload_data``
+leaves a quarter of it for a fresh assignment), so no piece holds the
+writing client past its own timeout; a write that
+fails deletes the chunks it had uploaded, and its span carries each
+try's hop seconds (``hops``, shown in ``/debug/slow``).
 """
 
 from __future__ import annotations
@@ -36,7 +41,14 @@ from ..telemetry.snapshot import (
 )
 from ..tracing import middleware as trace_mw
 from ..util import http
+from ..util import retry as retry_mod
 from ..util.http import Request, Response, Router
+
+
+# seconds one piece's upload (assign, volume write, and any re-assigns)
+# may take: well inside the 30 s the filer's clients wait on a silent
+# socket, since the client is blocked sending the next piece meanwhile
+WRITE_BUDGET_SECONDS = 20.0
 
 
 class FilerServer:
@@ -137,6 +149,7 @@ class FilerServer:
                 "filer", self.url, self.master_url,
                 interval=self.telemetry_interval,
                 extra=extra,
+                tally=self.server.router.tally,
             )
             self._telemetry_reporter.start()
         if self.watch_locations:
@@ -366,6 +379,11 @@ class FilerServer:
         use_cipher = req.param("cipher") == "true"
         mime_hdr = req.headers.get("Content-Type", "")
         chunks: list[FileChunk] = []
+        # one row a try of each piece's upload, on the request's span
+        hops: list[dict] = []
+        span = tracing.current()
+        if span is not None:
+            span.attrs["hops"] = hops
         md5 = hashlib.md5()
         # Incremental auto-chunking: read one chunk at a time off the
         # socket and upload it before reading the next, so filer memory
@@ -394,13 +412,29 @@ class FilerServer:
                 key = cipher.gen_cipher_key()
                 piece = cipher.encrypt(piece, key)
                 cipher_key_b64 = base64.b64encode(key).decode()
-            fid, _ = operation.upload_data(
-                self.master_ring,
-                piece,
-                collection=req.param("collection") or self.collection,
-                replication=req.param("replication") or self.replication,
-                ttl=req.param("ttl"),
-            )
+            tries: list[dict] = []
+            try:
+                with retry_mod.deadline_scope(WRITE_BUDGET_SECONDS):
+                    fid, _ = operation.upload_data(
+                        self.master_ring,
+                        piece,
+                        collection=(
+                            req.param("collection") or self.collection
+                        ),
+                        replication=(
+                            req.param("replication") or self.replication
+                        ),
+                        ttl=req.param("ttl"),
+                        hops=tries,
+                    )
+            except (http.HttpError, RuntimeError) as e:
+                # nothing of a failed write stays behind it
+                self._delete_chunks(chunks)
+                return Response.error(f"{type(e).__name__}: {e}", 500)
+            finally:
+                hops.extend(
+                    dict(t, piece=len(chunks)) for t in tries
+                )
             chunks.append(
                 FileChunk(
                     file_id=fid,

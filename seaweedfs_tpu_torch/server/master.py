@@ -145,7 +145,6 @@ class MasterServer:
             # heartbeat interval anyway
             view_cache_ttl=pulse_seconds,
         )
-        self._telemetry_collector = TelemetryCollector("master")
         # (name, fn, kind) probes registered on the flight recorder in
         # start() and removed (by identity) in stop()
         self._recorder_probes: list[tuple] = []
@@ -213,6 +212,10 @@ class MasterServer:
         self.server = http.HttpServer(
             trace_mw.instrument(router, "master"),
             host, port, ssl_context=ssl_context,
+        )
+        # the master's snapshot counts its own requests
+        self._telemetry_collector = TelemetryCollector(
+            "master", tally=self.server.router.tally
         )
         self._reaper = threading.Thread(
             target=self._reap_dead_nodes, daemon=True

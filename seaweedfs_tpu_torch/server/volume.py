@@ -41,6 +41,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from .. import fault, resolve_device, tracing
+from ..ops import link
 from ..ops.codec import DEVICE_MIN_BYTES, RSCodec
 from ..storage import needle as needle_mod
 from ..storage import types as t
@@ -216,7 +217,9 @@ class VolumeServer:
         self._ec_loc_cache: dict[int, tuple[float, dict]] = {}
         # telemetry snapshot piggybacked on every heartbeat; the url
         # is filled in at start() once the listener port is bound
-        self._telemetry = TelemetryCollector("volume")
+        self._telemetry = TelemetryCollector(
+            "volume", tally=self.server.router.tally
+        )
 
     # -- lifecycle -------------------------------------------------------
 
@@ -1077,12 +1080,19 @@ class VolumeServer:
 
     def _codec(self) -> RSCodec:
         """A fresh RS(10,4) codec on this server's device and routing
-        options: one a call, as the reference builds one."""
-        return RSCodec(
+        options for a bulk EC job: one a call, as the reference builds
+        one. A link-aware codec on the card starts the job on a fresh
+        probe of the link (``link.reprobe``): the estimate this
+        server's reads left may come from small, contended dispatches
+        (deliberate difference, ROADMAP)."""
+        rs = RSCodec(
             C.DATA_SHARDS, C.PARITY_SHARDS, self.device,
             device_min_bytes=self.device_min_bytes,
             link_aware=self.link_aware,
         )
+        if rs.backend == "cuda" and rs.link_aware:
+            link.reprobe(rs.device)
+        return rs
 
     @staticmethod
     def _batch_bytes(body: dict) -> int | None:

@@ -28,8 +28,11 @@ class TelemetryReporter:
         master_url: str,
         interval: float = 10.0,
         extra: dict | None = None,
+        *,
+        tally,
     ):
-        self.collector = TelemetryCollector(component, url)
+        # `tally`: the server's own RequestTally (its TracedRouter's)
+        self.collector = TelemetryCollector(component, url, tally=tally)
         self.master_url = master_url
         self.interval = interval
         # static fields merged into every pushed snapshot — e.g. a

@@ -12,7 +12,9 @@ commands.
 Leaf module (stdlib only): imported by the tracing middleware, which
 sits under every server's router.
 
-The port's copy of ``seaweedfs_tpu/telemetry/slow.py``.
+The port's copy of ``seaweedfs_tpu/telemetry/slow.py``. One
+difference: an entry carries its span's ``hops`` attribute where it
+has one (a filer write's upload tries, ``server/filer.py``).
 """
 
 from __future__ import annotations
@@ -73,6 +75,8 @@ class SlowLedger:
                 k: v for k, v in attrs.items() if k.startswith("fault.")
             },
         }
+        if "hops" in attrs:
+            entry["hops"] = attrs["hops"]
         return self.offer(entry)
 
     def entries(self, limit: int = 0) -> list[dict]:

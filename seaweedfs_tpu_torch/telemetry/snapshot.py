@@ -19,7 +19,14 @@ The port's copy of ``seaweedfs_tpu/telemetry/snapshot.py``, on the
 port's registry, span recorder, breakers, fault switchboard and
 ``ops/link.py``. ``seaweedfs_build_info`` keeps its three label names;
 its third, ``jax_backend``, carries the port's platform (``cuda`` or
-``cpu``, :func:`backend`).
+``cpu``, :func:`backend`). Two differences. A collector given its
+server's ``RequestTally`` (every port server gives one) counts that
+server's own requests, where the reference's counts every server of its
+component in the process; its latency leaves out the untimed routes
+(``tracing/middleware.UNTIMED``: streams and bulk jobs), its counts keep
+them. And a snapshot whose interval holds no request reports an error
+rate of 0, where the reference's reports the lifetime rate, so a server
+that failed once and went idle would read over the objective for ever.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ from collections import deque
 
 from .. import __version__
 from ..stats.metrics import REGISTRY, Histogram
-from ..tracing.recorder import SPAN_ERRORS, SPAN_SECONDS
+from ..tracing.recorder import SPAN_ERRORS, SPAN_SECONDS, RequestTally
 from ..util import retry as retry_mod
 from . import slow
 
@@ -396,13 +403,20 @@ class TelemetryCollector:
     stops). Latency percentiles come from a ROLLING WINDOW of bucket
     deltas for the same reason: p99 must answer "how slow are requests
     NOW", like a prometheus `rate(...[30s])`, not a lifetime average a
-    long-lived server can never move."""
+    long-lived server can never move.
+
+    ``tally`` is the server's own :class:`RequestTally` (its
+    ``TracedRouter``'s); without one the collector reads the process's
+    span families for its component. The error rate is the interval's,
+    0 when it holds no request (see the module's docstring)."""
 
     def __init__(self, component: str, url: str = "",
-                 window_seconds: float = 30.0):
+                 window_seconds: float = 30.0,
+                 tally: RequestTally | None = None):
         self.component = component
         self.url = url
         self.window_seconds = window_seconds
+        self.tally = tally
         self._lock = threading.Lock()
         self._prev: dict[str, float] = {}  # guarded-by: self._lock
         # interval arithmetic runs on the monotonic clock
@@ -438,17 +452,30 @@ class TelemetryCollector:
             win = [a + b for a, b in zip(win, d)]
         return win, sum(win)
 
-    def collect(self) -> dict:
-        now = time.time()  # display timestamp on the snapshot
-        mono = time.monotonic()
-        update_uptime()
+    def _requests(self) -> tuple[list[int], int, float, int, dict]:
+        """(latency bucket counts, requests timed, seconds summed,
+        requests answered, errors by class) of the requests this
+        collector reports."""
+        if self.tally is not None:
+            counts, timed, sm = merge_histogram(self.tally.seconds)
+            total, errors = self.tally.counts()
+            return counts, timed, sm, total, {
+                "4xx": float(errors["4xx"]), "5xx": float(errors["5xx"])
+            }
         counts, total, sm = merge_histogram(SPAN_SECONDS, self.component)
-        # the SLO error rate counts server errors (5xx) only: a 404
-        # from a routine existence probe is an answer, not a failure
         by_class = {"4xx": 0.0, "5xx": 0.0}
         for key, v in SPAN_ERRORS.values().items():
             if key and key[0] == self.component and key[1] in by_class:
                 by_class[key[1]] += v
+        return counts, total, sm, total, by_class
+
+    def collect(self) -> dict:
+        now = time.time()  # display timestamp on the snapshot
+        mono = time.monotonic()
+        update_uptime()
+        counts, timed, sm, total, by_class = self._requests()
+        # the SLO error rate counts server errors (5xx) only: a 404
+        # from a routine existence probe is an answer, not a failure
         errors = by_class["5xx"]
         with self._lock:
             d_total = total - self._prev.get("requests", 0)
@@ -465,13 +492,10 @@ class TelemetryCollector:
         if win_total > 0:
             q_counts, q_total = win_counts, win_total
         else:
-            q_counts, q_total = counts, total
-        if d_total > 0:
-            error_rate = d_errors / d_total
-        elif total > 0:
-            error_rate = errors / total
-        else:
-            error_rate = 0.0
+            q_counts, q_total = counts, timed
+        # an interval without requests has no errors to rate: the
+        # lifetime's rate would hold one old failure for ever
+        error_rate = d_errors / d_total if d_total > 0 else 0.0
         uptime = component_uptimes().get(self.component, 0.0)
         snap = {
             "component": self.component,
@@ -495,7 +519,7 @@ class TelemetryCollector:
                 "p99_seconds": quantile(
                     SPAN_SECONDS.buckets, q_counts, q_total, 0.99
                 ),
-                "mean_seconds": round(sm / total, 6) if total else 0.0,
+                "mean_seconds": round(sm / timed, 6) if timed else 0.0,
             },
             "codec": link_snapshot(),
             "ec": self.ec.snapshot(),

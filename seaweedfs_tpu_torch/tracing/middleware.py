@@ -23,8 +23,12 @@ Handlers refine the provisional `METHOD /path` op via
 `tracing.set_op(...)`; the data plane MUST (fid/object paths are
 unbounded label values for the span histogram otherwise).
 
-The port's copy of ``seaweedfs_tpu/tracing/middleware.py``; the port's
-master and volume server route through it.
+The port's copy of ``seaweedfs_tpu/tracing/middleware.py``; every port
+server routes through it. One difference: each `TracedRouter` also
+keeps its server's own `RequestTally` (`.tally`), fed with every
+request span it finishes, for that server's telemetry snapshot. A
+request to a route of `UNTIMED` counts in the tally's requests and
+errors but leaves its duration out of the tally's latency.
 """
 
 from __future__ import annotations
@@ -36,13 +40,44 @@ from ..util.http import Request, Response, Router
 from . import recorder
 from .span import Span, extract, set_current
 
+# (component, method, path) of the routes whose time is not an answer's:
+# streams open as long as their connection (the heartbeat stream, the
+# cluster watch, the filer's event subscription) and bulk jobs whose
+# time grows with the bytes they move (EC generate, rebuild, copy and
+# decode, vacuum, volume copy, tier moves, the tail). Upstream serves
+# them as gRPC streams and admin calls, outside its HTTP request
+# latency; here each counts in its server's requests and errors, and
+# its duration stays out of that server's latency (the p99 objective).
+UNTIMED = frozenset({
+    ("master", "POST", "/heartbeat/stream"),
+    ("master", "GET", "/cluster/watch"),
+    ("master", "GET", "/vol/vacuum"),
+    ("master", "POST", "/vol/vacuum"),
+    ("filer", "GET", "/meta/events"),
+    ("volume", "POST", "/admin/vacuum/compact"),
+    ("volume", "POST", "/admin/ec/generate"),
+    ("volume", "POST", "/admin/ec/generate_batch"),
+    ("volume", "POST", "/admin/ec/rebuild"),
+    ("volume", "POST", "/admin/ec/copy"),
+    ("volume", "GET", "/admin/ec/download"),
+    ("volume", "POST", "/admin/ec/to_volume"),
+    ("volume", "POST", "/admin/volume_copy"),
+    ("volume", "POST", "/admin/tier/upload"),
+    ("volume", "POST", "/admin/tier/download"),
+    ("volume", "GET", "/admin/tail"),
+})
 
-def _finish(span: Span, status: int | None = None) -> None:
-    """Finish a request span and offer it to the slow ledger exactly
-    once (streamed responses may race close() with exhaustion)."""
+
+def _finish(span: Span, tally: recorder.RequestTally, timed: bool,
+            status: int | None = None) -> None:
+    """Finish a request span, offer it to the slow ledger and count it
+    in its server's tally exactly once (streamed responses may race
+    close() with exhaustion); an untimed one's duration stays out of
+    the tally's latency."""
     if span._recorded:
         return
     recorder.finish(span, status=status)
+    tally.observe(span.duration if timed else None, span.status)
     LEDGER.offer_span(span)
 
 
@@ -53,9 +88,12 @@ class _SpanStream:
     a streamed response's duration covers the full write-out, not just
     the handler that returned the iterator."""
 
-    def __init__(self, inner, span: Span):
+    def __init__(self, inner, span: Span, tally: recorder.RequestTally,
+                 timed: bool):
         self._inner = iter(inner)
         self._span = span
+        self._tally = tally
+        self._timed = timed
 
     def __iter__(self) -> "_SpanStream":
         return self
@@ -65,10 +103,10 @@ class _SpanStream:
         try:
             return next(self._inner)
         except StopIteration:
-            _finish(self._span)
+            _finish(self._span, self._tally, self._timed)
             raise
         except Exception:
-            _finish(self._span, status=500)
+            _finish(self._span, self._tally, self._timed, status=500)
             raise
         finally:
             set_current(prev)
@@ -77,16 +115,18 @@ class _SpanStream:
         close = getattr(self._inner, "close", None)
         if close:
             close()
-        _finish(self._span)
+        _finish(self._span, self._tally, self._timed)
 
 
 class TracedRouter:
     """Router wrapper: extract traceparent, dispatch under a server
-    span, finish the span with the response."""
+    span, finish the span with the response; `tally` counts the
+    requests this router's server answered."""
 
     def __init__(self, inner: Router, component: str):
         self.inner = inner
         self.component = component
+        self.tally = recorder.RequestTally()
 
     def dispatch(self, req: Request) -> Response:
         parent = extract(req.headers)
@@ -103,19 +143,20 @@ class TracedRouter:
                 span.attrs["peer"] = f"{peer[0]}:{peer[1]}"
             except (OSError, IndexError):
                 pass
+        timed = (self.component, req.method, req.path) not in UNTIMED
         prev = set_current(span)
         try:
             resp = self.inner.dispatch(req)
         except Exception:
-            _finish(span, status=500)
+            _finish(span, self.tally, timed, status=500)
             raise
         finally:
             set_current(prev)
         span.status = resp.status
         if resp.stream is not None:
-            resp.stream = _SpanStream(resp.stream, span)
+            resp.stream = _SpanStream(resp.stream, span, self.tally, timed)
         else:
-            _finish(span)
+            _finish(span, self.tally, timed)
         resp.headers.setdefault("X-Trace-Id", span.trace_id)
         return resp
 

@@ -6,6 +6,11 @@ land in one process-wide ring buffer (newest last) and feed the
 span latency shows next to the codec's counters. The ring is the Dapper
 "recent traces" store scaled down to one process: bounded memory, no
 sampling daemon, always on.
+
+One difference: :class:`RequestTally`. The families above are keyed by
+component, so every server of one role in a process adds to the same
+counts; each server's tracing middleware also keeps a tally of the
+requests that server answered, which its telemetry snapshot reads.
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ import threading
 import time
 from collections import deque
 
-from ..stats.metrics import REGISTRY
+from ..stats.metrics import REGISTRY, Histogram
 from .span import Span, current, set_current
 
 SPAN_SECONDS = REGISTRY.histogram(
@@ -31,6 +36,49 @@ SPAN_ERRORS = REGISTRY.counter(
 )
 
 _CAPACITY = 4096
+
+
+def status_class(status: int) -> str | None:
+    """``5xx``, ``4xx`` or None: the error family's class label."""
+    if status >= 500:
+        return "5xx"
+    if status >= 400:
+        return "4xx"
+    return None
+
+
+class RequestTally:
+    """The request spans ONE server answered: how many, their 4xx and
+    5xx counts, and the latency buckets (the span family's bounds, in a
+    histogram no registry exposes) of those that were timed. Fed by
+    that server's tracing middleware beside the process-wide families;
+    read by its telemetry collector, so each server of an in-process
+    fleet reports its own requests, as a server in its own process
+    does."""
+
+    def __init__(self):
+        self.seconds = Histogram(
+            SPAN_SECONDS.name, SPAN_SECONDS.help
+        )
+        self._lock = threading.Lock()
+        self._total = 0  # guarded-by: self._lock
+        self._classes = {"4xx": 0, "5xx": 0}  # guarded-by: self._lock
+
+    def observe(self, seconds: float | None, status: int) -> None:
+        """One answered request; ``seconds`` None leaves its duration
+        out of the latency buckets (a stream, a bulk job)."""
+        if seconds is not None:
+            self.seconds.observe(seconds)
+        cls = status_class(status)
+        with self._lock:
+            self._total += 1
+            if cls is not None:
+                self._classes[cls] += 1
+
+    def counts(self) -> tuple[int, dict[str, int]]:
+        """(requests answered, their 4xx and 5xx by class) so far."""
+        with self._lock:
+            return self._total, dict(self._classes)
 
 
 class SpanRecorder:
@@ -77,10 +125,9 @@ def finish(span: Span, status: int | None = None) -> None:
         span.status = status
     span.duration = time.perf_counter() - span._t0
     SPAN_SECONDS.observe(span.duration, span.component, span.op)
-    if span.status >= 500:
-        SPAN_ERRORS.inc(span.component, "5xx")
-    elif span.status >= 400:
-        SPAN_ERRORS.inc(span.component, "4xx")
+    cls = status_class(span.status)
+    if cls is not None:
+        SPAN_ERRORS.inc(span.component, cls)
     RECORDER.add(span)
 
 

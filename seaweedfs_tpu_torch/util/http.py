@@ -1,7 +1,9 @@
 """Minimal threaded HTTP server + client plumbing for the control plane.
 
 The port's copy of ``seaweedfs_tpu/util/http.py``, on the port's own
-``fault`` registry and ``tracing.span``.
+``fault`` registry and ``tracing.span``. One difference: a server
+listens with a backlog of ``socket.SOMAXCONN``, not the standard
+library's 5.
 
 The reference runs goroutine-per-request net/http servers
 (weed/server/volume_server.go:84-100); the Python equivalent is a
@@ -42,6 +44,7 @@ from typing import Callable, Iterable, Iterator
 # stay out of this import chain
 from .. import fault
 from ..tracing import span as trace_span
+from . import glog
 from . import retry as retry_mod
 from .retry import Policy  # re-exported: request(..., retry=Policy(...))
 
@@ -379,6 +382,13 @@ class HttpServer:
             do_GET = do_POST = do_PUT = do_DELETE = do_HEAD = _serve
 
         class _Server(ThreadingHTTPServer):
+            # the listen backlog: the standard library's 5 overflows
+            # when the accepting thread is held off (a busy process,
+            # many servers in one interpreter), and the kernel drops
+            # each SYN past it, so the client waits 1, 3, 7, 15 s on
+            # its retransmits; Go's net/http listens with somaxconn
+            request_queue_size = socket.SOMAXCONN
+
             def handle_error(self, request, client_address):
                 # keep-alive connections severed mid-read (client
                 # process exit, test teardown) are routine, not errors
@@ -484,6 +494,79 @@ def list_filer_dir(
     return entries
 
 
+# A connect that has not completed in this many seconds is abandoned and
+# tried again on a new socket (a new source port) while the caller's
+# timeout lasts. In chip_smoke.py's phase-18 fill on an H100 host, about
+# one loopback connect to the filer in several thousand got no answer at
+# all (no established socket, no server span) until the client's 30 s
+# ran out. Safe to repeat: a connect that never completed sent nothing.
+CONNECT_TRY_SECONDS = 5.0
+_create_connection = socket.create_connection
+
+
+def _connect(address, timeout=socket._GLOBAL_DEFAULT_TIMEOUT,
+             source_address=None):
+    """``socket.create_connection`` whose connect tries last at most
+    ``CONNECT_TRY_SECONDS`` each, within ``timeout`` in all; the socket
+    it returns has ``timeout`` for what follows."""
+    if not isinstance(timeout, (int, float)) or \
+            timeout <= CONNECT_TRY_SECONDS:
+        return _create_connection(address, timeout, source_address)
+    end = time.monotonic() + timeout
+    while True:
+        left = end - time.monotonic()
+        try:
+            sock = _create_connection(
+                address, min(CONNECT_TRY_SECONDS, left), source_address
+            )
+        except TimeoutError:
+            if end - time.monotonic() <= 0.05:
+                raise
+            glog.warningf(
+                "connect to %s:%s: no answer in %.1f s, a new socket",
+                address[0], address[1], min(CONNECT_TRY_SECONDS, left),
+            )
+            continue
+        sock.settimeout(timeout)
+        return sock
+
+
+class _HTTPConnection(http.client.HTTPConnection):
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._create_connection = _connect
+
+
+class _HTTPSConnection(http.client.HTTPSConnection):
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._create_connection = _connect
+
+
+class _HTTPHandler(urllib.request.HTTPHandler):
+    def http_open(self, req):
+        return self.do_open(_HTTPConnection, req)
+
+
+class _HTTPSHandler(urllib.request.HTTPSHandler):
+    def https_open(self, req):
+        return self.do_open(_HTTPSConnection, req, context=self._context)
+
+
+_openers: dict[int, tuple] = {}  # id(tls context) -> (context, opener)
+
+
+def _opener(ctx) -> urllib.request.OpenerDirector:
+    """urllib's opener with the connect above, one a TLS context."""
+    hit = _openers.get(id(ctx))
+    if hit is None or hit[0] is not ctx:
+        opener = urllib.request.build_opener(
+            _HTTPHandler, _HTTPSHandler(context=ctx)
+        )
+        hit = _openers[id(ctx)] = (ctx, opener)
+    return hit[1]
+
+
 def _is_conn_refused(e: Exception) -> bool:
     if isinstance(e, ConnectionRefusedError):
         return True
@@ -561,9 +644,7 @@ def _send_once(
     )
     ctx = _client_tls["context"] if tls == "cluster" else None
     try:
-        with urllib.request.urlopen(
-            req, timeout=timeout, context=ctx
-        ) as resp:
+        with _opener(ctx).open(req, timeout=timeout) as resp:
             data = resp.read()
     except urllib.error.HTTPError as e:
         # an HTTP status is PROOF the peer is alive: transport ok
@@ -713,6 +794,7 @@ def request_stream(
         conn = http.client.HTTPConnection(
             parts.netloc, timeout=timeout
         )
+    conn._create_connection = _connect
     target = parts.path or "/"
     if parts.query:
         target += "?" + parts.query

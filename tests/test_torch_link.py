@@ -190,3 +190,55 @@ def test_estimates_never_probe(monkeypatch):
     assert link.estimates() == {"device": None, "host": None,
                                 "rtt_s": None}
     assert encoder.choose_pipeline(30 * 10**9) == (8 * MIB, 3)
+
+
+def test_reprobe_seeds_the_device_estimate_anew(states, monkeypatch):
+    """Small dispatches made under contention pull the card's estimate
+    far below the host's, and both packages then send a large slab to
+    the host until the 32nd dispatch. The port's ``reprobe`` measures
+    the link again and seeds the card path's estimate as a fresh
+    state's first probe does, so the next slab takes the card; the
+    host's estimate stays. The reference's forced probe keeps the
+    observed estimate."""
+    port, ref = states
+    monkeypatch.setattr(link, "_measure_link", lambda device=None: PROBE)
+    monkeypatch.setattr(ref_link, "_measure_link", lambda: PROBE)
+    fresh = link.LinkState()
+    fresh.probe()
+    for st in states:
+        for _ in range(20):
+            st.observe("device", 256 << 10, 0.05)
+            st.observe("host", 256 << 10, 1e-3)
+    assert port.choose(10 * MIB) == ref.choose(10 * MIB) == (False, "link")
+    host = port.estimate("host")
+    assert link.reprobe() == PROBE
+    assert port.estimate("device") == fresh.estimate("device")
+    assert port.estimate("host") == host
+    assert port.choose(10 * MIB) == (True, "link")
+    ref_link.probe(force=True)
+    assert ref.choose(10 * MIB) == (False, "link")
+
+
+def test_volume_server_bulk_jobs_reprobe(monkeypatch):
+    """The volume server's bulk EC jobs (generate, generate_batch,
+    rebuild) take their codec from ``_codec``, which reprobes the link
+    for a link-aware codec on the card, and only for one."""
+    from types import SimpleNamespace
+
+    from seaweedfs_tpu_torch.server import volume as volume_mod
+
+    class Codec:
+        def __init__(self, k, m, device, device_min_bytes, link_aware):
+            self.backend = device.split(":")[0]
+            self.device = device
+            self.link_aware = link_aware
+
+    probed = []
+    monkeypatch.setattr(volume_mod, "RSCodec", Codec)
+    monkeypatch.setattr(volume_mod.link, "reprobe", probed.append)
+    for device, aware in (("cuda:0", True), ("cuda:0", False),
+                          ("cpu", True)):
+        srv = SimpleNamespace(device=device, device_min_bytes=0,
+                              link_aware=aware)
+        assert volume_mod.VolumeServer._codec(srv).device == device
+    assert probed == ["cuda:0"]

@@ -318,8 +318,11 @@ def test_idle_server_judged_on_its_window(fresh, monkeypatch, errors):
     """A burst of requests over the p99 objective, then the server idle
     past ``window_seconds``: the port's view reads it healthy on latency,
     where the reference's keeps the lifetime p99 and marks it degraded.
-    While the burst is in the window both mark it, and a burst of 5xx
-    keeps its error-rate mark in both, idle or not."""
+    While the burst is in the window both mark it. A burst of 5xx keeps
+    its error-rate mark in the reference's, idle or not; the port's
+    reports an idle interval's error rate as 0 and drops the mark, and
+    the rollup, which reads the servers' lifetime counts when no
+    interval holds a request, burns in both."""
     clock = _Clock()
     views = {}
     for name, (snap, agg_mod, _s, tracing, _r, _m) in PKGS.items():
@@ -362,12 +365,46 @@ def test_idle_server_judged_on_its_window(fresh, monkeypatch, errors):
     assert views["ref", "idle"]["slo"]["p99_burn"] > 1
     assert "p99" not in port_idle["degraded"]
     assert views["port", "idle"]["slo"]["p99_seconds"] == 0.0
-    # the error-rate rule is the reference's, idle or not
-    assert ("error-rate" in port_idle["degraded"]) == errors
+    # an idle interval has no error rate, where the reference keeps the
+    # lifetime rate
+    assert "error-rate" not in port_idle["degraded"]
+    assert port_idle["requests"]["error_rate"] == 0.0
     assert ("error-rate" in ref_idle["degraded"]) == errors
     assert views["port", "idle"]["healthy"] is (not errors)
     assert (views["port", "idle"]["slo"]["error_burn"]
             == views["ref", "idle"]["slo"]["error_burn"])
+
+
+def test_idle_error_rate_is_the_intervals(fresh, monkeypatch):
+    """47 answers and one 5xx (a shard copy from a killed peer), then
+    the server idle: the interval that holds them reads their error
+    rate and the view marks it, in both packages; an idle interval
+    reads 0 in the port's and the mark goes, inside the p99 window or
+    past it, where the reference's reports the lifetime rate and keeps
+    the mark for ever."""
+    clock = _Clock()
+    rows = {}
+    for name, (snap, agg_mod, _s, tracing, _r, _m) in PKGS.items():
+        monkeypatch.setattr(snap, "time", clock)
+        clock.now = 1000.0
+        col = snap.TelemetryCollector("unit-idle-errors", url="v1",
+                                      window_seconds=30.0)
+        agg = agg_mod.ClusterTelemetry(slo_error_rate=0.01,
+                                       slo_p99_seconds=10.0,
+                                       stale_after=600.0)
+        col.collect()  # the baseline scrape
+        for i in range(48):
+            _finish(tracing, "unit-idle-errors", "op", 0.01,
+                    status=500 if i == 47 else 200)
+        rows[name] = []
+        for step in (5.0, 5.0, 31.0):  # busy, idle, idle past the window
+            clock.now += step
+            agg.ingest(col.collect())
+            [srv] = agg.view()["servers"]
+            rows[name].append((srv["requests"]["error_rate"],
+                               "error-rate" in srv["degraded"]))
+    assert rows["ref"] == [(0.020833, True)] * 3
+    assert rows["port"] == [(0.020833, True), (0.0, False), (0.0, False)]
 
 
 def test_view_with_own_and_maintenance_backlog(fresh):
