@@ -388,8 +388,15 @@ traceback), the native load's failures by HTTP status, and the
 contention rows of the volume and EC-shard locks (``ServerErrorTap``),
 and their convergence: its seconds and polls, and the reasons of the
 last unhealthy poll with each marked server's own marks and requests
+and its three slowest timed answers of the window, with route, seconds,
+and an assign's grow-lock wait and allocations or a filer write's hops
 (``ConvergeTap``; each server's snapshot counts the requests it
-answered). When a step of phases 17, 18, 20 or 21 fails, the script keeps what it
+answered), and, marked or not, each master's and filer's three
+slowest answers seen during the wait. Phase 16 also prints the
+master's assigns that waited on a grow (how many, summed and largest
+wait), and names each contention row's lock
+(``MasterServer._grow_lock``) beside its site. When a step of phases
+17, 18, 20 or 21 fails, the script keeps what it
 needs before stopping the children (``WeedCluster.keep_failure``): each
 child's ``/debug/stacks`` and ``/debug/slow``, a ``SIGABRT`` to those
 that serve no ``/debug`` (their faulthandler writes their stacks to
@@ -433,6 +440,7 @@ import tempfile
 import threading
 import time
 import traceback
+import urllib.parse
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -3404,13 +3412,71 @@ class ServerErrorTap:
         return out
 
 
+def lock_name(site: str) -> str | None:
+    """``Class.attribute`` of the lock created at ``site`` (the
+    contention table's ``path.py:line``, relative to the port's package
+    or absolute), read from that line of the source:
+    ``MasterServer._grow_lock`` for the master's grow lock."""
+    import seaweedfs_tpu_torch
+
+    path, _, line = site.rpartition(":")
+    path = os.path.join(os.path.dirname(seaweedfs_tpu_torch.__file__), path)
+    try:
+        lines = open(path).read().splitlines()
+        at = int(line) - 1
+        attr = re.search(r"self\.(\w+)\s*(?::[^=]*)?=", lines[at])
+    except (OSError, ValueError, IndexError):
+        return None
+    if attr is None:
+        return None
+    owner = next((m.group(1) for text in reversed(lines[:at])
+                  if (m := re.match(r"class (\w+)", text))), None)
+    return f"{owner}.{attr.group(1)}" if owner else attr.group(1)
+
+
+ALLOCATION = "POST /admin/assign_volume"
+
+
+def slow_answer(entry: dict, allocations: dict | None = None) -> dict:
+    """One answer of a server's window of slow answers, as the phases
+    print it: route, seconds, and the grow-lock wait and allocations of
+    an assign that found its layout empty (each with the allocated
+    server's own answer's hops where ``allocations`` has them, by url),
+    an assign's sequencer seconds, a follower's forward to its leader,
+    or a filer write's upload tries."""
+    out = {"route": entry["op"], "seconds": round(entry["duration"], 4),
+           "status": entry["status"]}
+    grow = entry.get("grow")
+    if grow is not None:
+        out["grow_wait_s"] = grow["wait_s"]
+        out["allocations"] = [
+            (a["url"], a["seconds"], *(allocations or {}).get(a["url"], ()))
+            for a in grow["allocations"]]
+    for key in ("hops", "keys_s", "proxy"):
+        if key in entry:
+            out[key] = entry[key]
+    return out
+
+
 class ConvergeTap:
     """Each unhealthy poll of an in-process round's convergence wait,
     read through ``scale/converge.check_view``: the reasons, and each
     marked server's own requests (a server's snapshot counts only the
-    requests it answered). ``report`` prints the wait's
-    seconds and polls, and the servers' marks at the last unhealthy
-    poll, and returns them for the phase's JSON line."""
+    requests it answered) with its three slowest timed answers of the
+    window (``tracing/middleware.slow_answers``: the server's own, not
+    the process's ``/debug/slow``). A mark can outlive the answer's
+    30 s in the live window by the age of the server's last snapshot,
+    so every poll adds each server's window to what the tap has seen,
+    and a server's slowest answers are the slowest it was seen to hold.
+    ``report`` prints the wait's seconds and polls, the servers' marks
+    at the last unhealthy poll, and the masters' and filers' slowest
+    answers, marked or not, and returns them for the phase's JSON
+    line."""
+
+    # components whose slowest answers are printed marked or not: what
+    # a master's assign or a filer's write waited on shows even where
+    # it held no mark
+    WATCH = ("master", "filer")
 
     def __enter__(self):
         from seaweedfs_tpu_torch.scale import converge
@@ -3418,17 +3484,20 @@ class ConvergeTap:
         self.polls = 0
         self.unhealthy = 0
         self.last: dict | None = None
+        # (component, port) -> {(trace id, op): answer}
+        self.seen: dict[tuple[str, int], dict] = {}
         self._check = converge.check_view
         check_view, tap = self._check, self
 
         def checked(view, *a, **kw):
             reasons = check_view(view, *a, **kw)
             tap.polls += 1
+            tap.note_answers()
             if reasons:
                 tap.unhealthy += 1
                 tap.last = {"poll": tap.polls, "reasons": reasons[:20],
                             "slo": view.get("slo"),
-                            "marks": ConvergeTap.marks(view)}
+                            "marks": tap.marks(view)}
             return reasons
 
         converge.check_view = checked
@@ -3440,8 +3509,34 @@ class ConvergeTap:
         converge.check_view = self._check
         return False
 
+    def note_answers(self) -> None:
+        from seaweedfs_tpu_torch.tracing import middleware
+
+        for key, answers in middleware.slow_answers().items():
+            kept = self.seen.setdefault(key, {})
+            for e in answers:
+                kept[(e["trace_id"], e["op"])] = e
+
+    def slowest(self, component: str, port: int | None) -> list[dict]:
+        """The three slowest answers seen of one server, each with the
+        allocated servers' own answers where it grew a layout."""
+        answers = sorted(self.seen.get((component, port), {}).values(),
+                         key=lambda e: e["duration"], reverse=True)[:3]
+        allocations = {}
+        for (comp, vport), kept in self.seen.items():
+            own = [e for e in kept.values() if e["op"] == ALLOCATION]
+            if comp == "volume" and own:
+                top = max(own, key=lambda e: e["duration"])
+                allocations[f"127.0.0.1:{vport}"] = (
+                    round(top["duration"], 4), top.get("hops"))
+        return [slow_answer(e, allocations) for e in answers]
+
     @staticmethod
-    def marks(view) -> list[dict]:
+    def port_of(url: str) -> int | None:
+        return urllib.parse.urlsplit(
+            url if "//" in url else f"//{url}").port
+
+    def marks(self, view) -> list[dict]:
         out = []
         for s in view.get("servers", ()):
             if not s.get("degraded"):
@@ -3451,14 +3546,23 @@ class ConvergeTap:
                         "marks": s["degraded"],
                         **{k: req.get(k) for k in (
                             "total", "delta", "errors", "error_rate",
-                            "window_total", "p99_seconds")}})
+                            "window_total", "p99_seconds")},
+                        "slowest": self.slowest(
+                            s.get("component", ""),
+                            self.port_of(s.get("url", "")))})
         return out
+
+    def watched(self) -> dict[str, list[dict]]:
+        return {f"{comp}@127.0.0.1:{port}": self.slowest(comp, port)
+                for comp, port in sorted(self.seen)
+                if comp in self.WATCH}
 
     def report(self, on_card, detail) -> dict:
         out = {"converged": detail["converged"],
                "converge_seconds": detail["converge_seconds"],
                "polls": self.polls, "unhealthy_polls": self.unhealthy,
-               "last_unhealthy": self.last}
+               "last_unhealthy": self.last,
+               "slowest_seen": self.watched()}
         verdict = ("converged" if detail["converged"]
                    else "DID NOT CONVERGE")
         on_card(f"converge: {verdict} in {detail['converge_seconds']} s, "
@@ -3472,7 +3576,28 @@ class ConvergeTap:
                         f"5xx {mk['errors']}, error_rate "
                         f"{mk['error_rate']}, window {mk['window_total']}"
                         f", p99 {mk['p99_seconds']} s")
+                for a in mk["slowest"]:
+                    on_card(self.describe(a))
+        for server, answers in out["slowest_seen"].items():
+            on_card(f"  {server}'s slowest answers seen:")
+            for a in answers:
+                on_card(self.describe(a))
         return out
+
+    @staticmethod
+    def describe(a: dict) -> str:
+        text = f"    slow {a['route']} {a['seconds']} s ({a['status']})"
+        if "grow_wait_s" in a:
+            text += (f", grow-lock wait {a['grow_wait_s']} s, "
+                     f"{len(a['allocations'])} allocations: " + "; ".join(
+                         f"{url} {secs} s" + (
+                             f" (its slowest allocation answer {rest[0]}"
+                             f" s, hops {rest[1]})" if rest else "")
+                         for url, secs, *rest in a["allocations"]))
+        for key in ("keys_s", "proxy", "hops"):
+            if key in a:
+                text += f", {key} {a[key]}"
+        return text
 
 
 def phase_fleet(args, torch, smi, reset_counts, counters):
@@ -3592,9 +3717,12 @@ def phase_fleet(args, torch, smi, reset_counts, counters):
                              for k in ("sites", "total_wait_s",
                                        "p99_wait_s")}
         row["contention_top"] = [
-            {k: r[k] for k in ("site", "kind", "blocked", "total_wait_s",
-                               "p99_wait_s", "max_wait_s")}
+            {**{k: r[k] for k in ("site", "kind", "blocked", "total_wait_s",
+                                  "p99_wait_s", "max_wait_s")},
+             "lock": lock_name(r["site"])}
             for r in d["contention"]["top"][:5]]
+        # the master's assigns that waited on a grow
+        row["grow_waits"] = h.master.grow_waits()
         check("fleet_ec_gbps" in tl["probes"],
               f"the master's fleet_ec_gbps probe: {sorted(tl['probes'])}")
         row["probes_vs_SCALE_r05"] = record_probes(
@@ -3620,8 +3748,12 @@ def phase_fleet(args, torch, smi, reset_counts, counters):
                 f"{tl['sample_cost_ms']}; probes "
                 + ", ".join(f"{n}={p['peak']}" for n, p in
                             sorted(tl["probes"].items())))
+        gw = row["grow_waits"]
+        on_card(f"master assigns that waited on a grow: {gw['assigns']}, "
+                f"summed {gw['seconds']:.4f} s, largest {gw['max_s']:.4f} s")
         for r in row["contention_top"]:
-            on_card(f"contention: {r['site']} ({r['kind']}) blocked "
+            on_card(f"contention: {r['lock'] or '-'} at {r['site']} "
+                    f"({r['kind']}) blocked "
                     f"{r['blocked']}, total wait {r['total_wait_s']} s, "
                     f"p99 {r['p99_wait_s']} s, max {r['max_wait_s']} s")
         on_card(f"gf_swar {swar['launches']} launches "

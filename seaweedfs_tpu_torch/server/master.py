@@ -23,6 +23,19 @@ The master registers its flight-recorder probes at start, its own
 snapshot carries ``benchmark`` and ``contention``, and it routes through
 the request-tracing middleware. ``/`` and ``/ui`` serve the status page
 of ``server/ui.py``.
+
+Two deliberate differences in the assign's grow, with the reference's
+answers. An assign takes the grow lock only when its layout has no
+writable volume, and checks again inside it (upstream's
+``dirAssignHandler``); the reference takes it on every assign, so an
+assign to a layout with writable volumes waited behind any grow. And
+the grow runs outside the lock, which it signals after each volume it
+registers: an assign waiting on its layout's grow goes on with the
+first writable volume, not after the whole grow. An assign's span
+carries ``grow`` when it found its layout empty (its wait and the
+allocations of the grow it ran, with their seconds) and ``keys_s``, the
+sequencer's seconds; a request a follower forwards carries ``proxy``
+(the leader and the seconds it took).
 """
 
 from __future__ import annotations
@@ -120,8 +133,16 @@ class MasterServer:
         self.default_replication = default_replication
         self.pulse_seconds = pulse_seconds
         self.garbage_threshold = garbage_threshold
-        self.vg = VolumeGrowth(self._allocate_volume)
+        self.vg = VolumeGrowth(
+            self._allocate_volume, registered=self._volume_registered
+        )
         self._grow_lock = threading.Lock()
+        # signalled after each volume a grow registers, and at its end
+        self._grow_cond = threading.Condition(self._grow_lock)
+        self._growing = False  # guarded-by: self._grow_lock
+        # assigns that waited on a grow: how many, and their summed
+        # and largest wait  # guarded-by: self._grow_lock
+        self._grow_waits = {"assigns": 0, "seconds": 0.0, "max_s": 0.0}
         self._admin_lock_holder: str | None = None
         self._admin_lock_ts = 0.0
         self._lock = threading.Lock()
@@ -427,11 +448,18 @@ class MasterServer:
             f"{k}={v}" for k, vs in req.query.items() for v in vs
         )
         url = f"{leader}{req.path}" + (f"?{qs}" if qs else "")
+        t0 = time.perf_counter()
         try:
             body = http.request(req.method, url, req.body or None)
             return Response(status=200, body=body)
         except http.HttpError as e:
             return Response(status=e.status or 502, body=e.body)
+        finally:
+            span = tracing.current()
+            if span is not None:
+                span.attrs["proxy"] = {
+                    "leader": leader,
+                    "seconds": round(time.perf_counter() - t0, 6)}
 
     def _handle_raft_vote(self, req: Request) -> Response:
         if self.raft is None:
@@ -477,16 +505,73 @@ class MasterServer:
     # -- growth plumbing -------------------------------------------------
 
     def _allocate_volume(self, dn, vid: int, option: VolumeGrowOption):
-        http.post_json(
-            f"{dn.url}/admin/assign_volume",
-            {
-                "volume": vid,
-                "collection": option.collection,
-                "replication": str(option.replica_placement),
-                "ttl": str(option.ttl),
-            },
-            timeout=30,
-        )
+        t0 = time.perf_counter()
+        try:
+            http.post_json(
+                f"{dn.url}/admin/assign_volume",
+                {
+                    "volume": vid,
+                    "collection": option.collection,
+                    "replication": str(option.replica_placement),
+                    "ttl": str(option.ttl),
+                },
+                timeout=30,
+            )
+        finally:
+            # each allocation of an assign's grow, on the assign's span
+            span = tracing.current()
+            grow = span.attrs.get("grow") if span is not None else None
+            if grow is not None:
+                grow["allocations"].append({
+                    "url": dn.url, "volume": vid,
+                    "seconds": round(time.perf_counter() - t0, 6)})
+
+    def grow_waits(self) -> dict:
+        """The assigns that waited on a grow since start: how many,
+        their summed and their largest wait in seconds."""
+        return dict(self._grow_waits)
+
+    def _volume_registered(self) -> None:
+        with self._grow_lock:
+            self._grow_cond.notify_all()
+
+    def _grow_for_assign(
+        self, layout, option: VolumeGrowOption
+    ) -> Exception | None:
+        """Grow `layout`, which an assign found without a writable
+        volume, unless a grow gives it one first: one grow runs at a
+        time, and a waiter goes on as soon as a volume of its layout
+        registers. Returns the grow's error. The assign's span carries
+        ``grow``: the seconds it waited and, when it grew, each
+        allocation (url, volume, seconds)."""
+        t0 = time.perf_counter()
+        with self._grow_lock:
+            waited = False
+            while layout.active_volume_count == 0 and self._growing:
+                waited = True
+                self._grow_cond.wait()  # weedcheck: ignore[lock-held-across-blocking]: a condition wait releases the grow lock while it waits
+            wait_s = time.perf_counter() - t0
+            if waited:
+                w = self._grow_waits
+                w["assigns"] += 1
+                w["seconds"] += wait_s
+                w["max_s"] = max(w["max_s"], wait_s)
+            span = tracing.current()
+            if span is not None:
+                span.attrs["grow"] = {"wait_s": round(wait_s, 6),
+                                      "allocations": []}
+            if layout.active_volume_count:
+                return None
+            self._growing = True
+        try:
+            self.vg.automatic_grow_by_type(option, self.topo)
+        except Exception as e:
+            return e
+        finally:
+            with self._grow_lock:
+                self._growing = False
+                self._grow_cond.notify_all()
+        return None
 
     # -- handlers --------------------------------------------------------
 
@@ -772,18 +857,17 @@ class MasterServer:
             collection, option.replica_placement, option.ttl
         )
         grow_err: Exception | None = None
-        with self._grow_lock:
-            if layout.active_volume_count == 0:
-                try:
-                    self.vg.automatic_grow_by_type(option, self.topo)
-                except Exception as e:
-                    # a PARTIAL grow (fewer free slots than the target
-                    # growth count) may still have produced writable
-                    # volumes — the assign must use them; only a grow
-                    # that yielded nothing writable is fatal
-                    # (master_server_handlers.go:96-137 retries
-                    # PickForWrite after growth errors the same way)
-                    grow_err = e
+        # upstream's double-checked grow (dirAssignHandler,
+        # master_server_handlers.go:96-137): a layout with a writable
+        # volume never waits on a grow, whatever other layout grows;
+        # one without checks again under the grow lock, so concurrent
+        # assigns to an empty layout grow it once. A PARTIAL grow
+        # (fewer free slots than the target growth count) may still
+        # have produced writable volumes — the assign must use them;
+        # only a grow that yielded nothing writable is fatal (upstream
+        # retries PickForWrite after growth errors the same way)
+        if layout.active_volume_count == 0:
+            grow_err = self._grow_for_assign(layout, option)
         try:
             vid, locations = layout.pick_for_write()
         except NoWritableVolumeError as e:
@@ -810,10 +894,18 @@ class MasterServer:
             return Response.error(str(e), 404)
         from .raft import NoQuorumError
 
+        t_keys = time.perf_counter()
         try:
             key = self.sequencer.next_file_id(count)
         except NoQuorumError as e:
             return Response.error(f"no quorum: {e}", 503)
+        finally:
+            # the sequencer's share of the answer (a raft commit when
+            # the leased block of keys runs out)
+            span = tracing.current()
+            if span is not None:
+                span.attrs["keys_s"] = round(
+                    time.perf_counter() - t_keys, 6)
         # batched assign (upstream's `n` count param): one round-trip
         # reserves `count` consecutive keys on the SAME volume, each
         # with its own cookie, so a load generator at scale pays one

@@ -26,7 +26,10 @@ with the EC-encode ledger each generate folds its ``timing`` into, and
 filter of ``query/`` and ``/admin/tier/{upload,download}`` move a .dat to
 a plain-HTTP or an S3 tier and back. A chunk-manifest
 needle resolves through the port's ``operation/`` client, as the reference's does. The server routes
-through the request-tracing middleware, which serves ``/debug/*``.
+through the request-tracing middleware, which serves ``/debug/*``. An
+``/admin/assign_volume`` answer carries ``hops`` on its span: the
+seconds of the volume's files, of the wait for the heartbeat in flight
+and of the heartbeat that reports the volume.
 """
 
 from __future__ import annotations
@@ -957,13 +960,26 @@ class VolumeServer:
 
     def _h_assign_volume(self, req: Request) -> Response:
         body = req.json()
+        t0 = time.perf_counter()
         self.store.add_volume(
             int(body["volume"]),
             body.get("collection", ""),
             body.get("replication") or "000",
             body.get("ttl", ""),
         )
-        self.heartbeat_once()
+        t1 = time.perf_counter()
+        with self._hb_lock:
+            t2 = time.perf_counter()
+            self._heartbeat_once()  # weedcheck: ignore[lock-held-across-blocking]: the lock EXISTS to serialize heartbeat sends on the one stream connection; a contender must wait its turn
+        span = tracing.current()
+        if span is not None:
+            # where an allocation of a master's grow spends its time:
+            # the volume's files, the wait for the heartbeat in flight,
+            # and the heartbeat that reports the volume
+            span.attrs["hops"] = [{
+                "add_volume_s": round(t1 - t0, 6),
+                "hb_lock_wait_s": round(t2 - t1, 6),
+                "heartbeat_s": round(time.perf_counter() - t2, 6)}]
         return Response.json({"ok": True})
 
     def _h_delete_volume(self, req: Request) -> Response:

@@ -12,17 +12,26 @@ commands.
 Leaf module (stdlib only): imported by the tracing middleware, which
 sits under every server's router.
 
-The port's copy of ``seaweedfs_tpu/telemetry/slow.py``. One
-difference: an entry carries its span's ``hops`` attribute where it
-has one (a filer write's upload tries, ``server/filer.py``).
+The port's copy of ``seaweedfs_tpu/telemetry/slow.py``. Two
+differences: an entry carries its span's ``hops`` (a filer write's
+upload tries, ``server/filer.py``; a volume allocation's parts,
+``server/volume.py``), ``grow``, ``keys_s`` and ``proxy`` (an assign's
+wait for the master's grow and the grow's allocations, its sequencer
+seconds, a follower's forward to the leader; ``server/master.py``)
+where the span has them; and ``WindowSlow`` keeps one
+server's slowest timed answers of its telemetry window, so an
+in-process fleet can name what each marked server's ``p99`` holds.
 """
 
 from __future__ import annotations
 
 import heapq
 import threading
+import time
 
 _CAPACITY = 64
+# span attributes an entry carries where the span has them
+_CARRIED = ("hops", "grow", "keys_s", "proxy")
 
 
 class SlowLedger:
@@ -75,8 +84,9 @@ class SlowLedger:
                 k: v for k, v in attrs.items() if k.startswith("fault.")
             },
         }
-        if "hops" in attrs:
-            entry["hops"] = attrs["hops"]
+        for key in _CARRIED:
+            if key in attrs:
+                entry[key] = attrs[key]
         return self.offer(entry)
 
     def entries(self, limit: int = 0) -> list[dict]:
@@ -91,6 +101,60 @@ class SlowLedger:
     def clear(self) -> None:
         with self._lock:
             self._heap = []
+
+
+class WindowSlow:
+    """One server's slowest timed answers of its telemetry window: at
+    most ``capacity`` entries, the fastest displaced first. An answer
+    enters the window at the collect that counts it (``stamp``, called
+    by the server's ``TelemetryCollector`` with the collect's monotonic
+    time), as the snapshot's latency buckets do, and leaves it
+    ``window_seconds`` later; until that collect it is pending, and
+    shown."""
+
+    def __init__(self, capacity: int = 16, window_seconds: float = 30.0):
+        self.capacity = capacity
+        self.window_seconds = window_seconds
+        self._lock = threading.Lock()
+        # [collect time or None, duration, entry]  # guarded-by: self._lock
+        self._items: list[list] = []
+
+    def _kept(self, now: float) -> list[list]:  # weedcheck: holds[self._lock]
+        horizon = now - self.window_seconds
+        return [it for it in self._items
+                if it[0] is None or it[0] >= horizon]
+
+    def offer_span(self, span) -> None:
+        attrs = getattr(span, "attrs", {}) or {}
+        entry = {"op": span.op, "duration": span.duration,
+                 "status": span.status, "trace_id": span.trace_id}
+        for key in _CARRIED:
+            if key in attrs:
+                entry[key] = attrs[key]
+        with self._lock:
+            items = self._kept(time.monotonic())
+            items.append([None, float(span.duration), entry])
+            if len(items) > self.capacity:
+                items.remove(min(items, key=lambda it: it[1]))
+            self._items = items
+
+    def stamp(self, now: float) -> None:
+        """A collect at monotonic ``now`` counted the pending answers."""
+        with self._lock:
+            for it in self._items:
+                if it[0] is None:
+                    it[0] = now
+            self._items = self._kept(now)
+
+    def entries(self, limit: int = 0,
+                now: float | None = None) -> list[dict]:
+        """The window's answers and the pending ones, slowest first;
+        `limit` trims."""
+        with self._lock:
+            items = self._kept(time.monotonic() if now is None else now)
+        out = [e for _t, _d, e in sorted(
+            items, key=lambda it: it[1], reverse=True)]
+        return out[:limit] if limit > 0 else out
 
 
 # process-wide ledger, shared by every in-proc server (the same scoping

@@ -487,6 +487,9 @@ class TelemetryCollector:
             win_counts, win_total = self._windowed_counts(
                 mono, counts
             )
+        if self.tally is not None:
+            # the answers this collect counted enter the window now
+            self.tally.slow.stamp(mono)
         # percentiles over the rolling window when it has data, over
         # the lifetime histogram otherwise (first scrape, idle server)
         if win_total > 0:

@@ -5,7 +5,9 @@ weighted pick (data center → rack → server) enforces the "xyz" spread; the
 actual allocation RPC is a callable so the master server, the in-proc test
 harness, and fakes all inject their own.
 
-The port's copy of ``seaweedfs_tpu/topology/volume_growth.py``.
+The port's copy of ``seaweedfs_tpu/topology/volume_growth.py``, with
+one addition: a ``registered`` callback after each replica a grow
+registers, which the master's assign waits on.
 """
 
 from __future__ import annotations
@@ -54,11 +56,14 @@ class VolumeGrowth:
         self,
         allocate: Callable[[DataNode, int, VolumeGrowOption], None],
         rng: random.Random | None = None,
+        registered: Callable[[], None] | None = None,
     ):
         """`allocate(dn, vid, option)` performs AllocateVolume on the
-        target server (raises on failure)."""
+        target server (raises on failure); `registered()`, when given,
+        is called after each replica a grow registers."""
         self._allocate = allocate
         self._rng = rng or random.Random()
+        self._registered = registered
         self._lock = threading.Lock()
 
     def automatic_grow_by_type(
@@ -206,3 +211,5 @@ class VolumeGrowth:
             )
             server.add_or_update_volume(vi)
             topo._register_volume(vi, server)
+            if self._registered is not None:
+                self._registered()

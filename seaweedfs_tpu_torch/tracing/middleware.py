@@ -26,12 +26,16 @@ unbounded label values for the span histogram otherwise).
 The port's copy of ``seaweedfs_tpu/tracing/middleware.py``; every port
 server routes through it. One difference: each `TracedRouter` also
 keeps its server's own `RequestTally` (`.tally`), fed with every
-request span it finishes, for that server's telemetry snapshot. A
-request to a route of `UNTIMED` counts in the tally's requests and
-errors but leaves its duration out of the tally's latency.
+request span it finishes, for that server's telemetry snapshot, with
+its slowest timed answers of the telemetry window (`.tally.slow`, read
+by `slow_answers` for each server of an in-process fleet). A request to a
+route of `UNTIMED` counts in the tally's requests and errors but leaves
+its duration out of the tally's latency and slow answers.
 """
 
 from __future__ import annotations
+
+import weakref
 
 from ..telemetry import debug as telemetry_debug
 from ..telemetry import profile as telemetry_profile
@@ -73,11 +77,11 @@ def _finish(span: Span, tally: recorder.RequestTally, timed: bool,
     """Finish a request span, offer it to the slow ledger and count it
     in its server's tally exactly once (streamed responses may race
     close() with exhaustion); an untimed one's duration stays out of
-    the tally's latency."""
+    the tally's latency and slow answers."""
     if span._recorded:
         return
     recorder.finish(span, status=status)
-    tally.observe(span.duration if timed else None, span.status)
+    tally.observe(span.duration if timed else None, span.status, span)
     LEDGER.offer_span(span)
 
 
@@ -121,12 +125,15 @@ class _SpanStream:
 class TracedRouter:
     """Router wrapper: extract traceparent, dispatch under a server
     span, finish the span with the response; `tally` counts the
-    requests this router's server answered."""
+    requests this router's server answered, and `port` is the port its
+    first request arrived on."""
 
     def __init__(self, inner: Router, component: str):
         self.inner = inner
         self.component = component
         self.tally = recorder.RequestTally()
+        self.port: int | None = None
+        ROUTERS.add(self)
 
     def dispatch(self, req: Request) -> Response:
         parent = extract(req.headers)
@@ -141,6 +148,8 @@ class TracedRouter:
             try:
                 peer = conn.getpeername()
                 span.attrs["peer"] = f"{peer[0]}:{peer[1]}"
+                if self.port is None:
+                    self.port = conn.getsockname()[1]
             except (OSError, IndexError):
                 pass
         timed = (self.component, req.method, req.path) not in UNTIMED
@@ -159,6 +168,27 @@ class TracedRouter:
             _finish(span, self.tally, timed)
         resp.headers.setdefault("X-Trace-Id", span.trace_id)
         return resp
+
+
+# every TracedRouter of this process that is still referenced: an
+# in-process fleet's servers, told apart by component and port
+ROUTERS: "weakref.WeakSet[TracedRouter]" = weakref.WeakSet()
+
+
+def slow_answers() -> dict[tuple[str, int], list[dict]]:
+    """Each server of this process that has answered, by (component,
+    port): its slowest timed answers of the telemetry window and those
+    no collect has counted yet, slowest first. What holds a server's
+    own `p99` in an in-process fleet, where `/debug/slow` is the whole
+    process's."""
+    out: dict[tuple[str, int], list[dict]] = {}
+    for router in list(ROUTERS):
+        if router.port is not None:
+            out.setdefault((router.component, router.port), []).extend(
+                router.tally.slow.entries())
+    for answers in out.values():
+        answers.sort(key=lambda e: e["duration"], reverse=True)
+    return out
 
 
 def _h_debug_traces(req: Request) -> Response:

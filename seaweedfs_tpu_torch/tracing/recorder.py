@@ -21,6 +21,7 @@ import time
 from collections import deque
 
 from ..stats.metrics import REGISTRY, Histogram
+from ..telemetry.slow import WindowSlow
 from .span import Span, current, set_current
 
 SPAN_SECONDS = REGISTRY.histogram(
@@ -54,21 +55,28 @@ class RequestTally:
     that server's tracing middleware beside the process-wide families;
     read by its telemetry collector, so each server of an in-process
     fleet reports its own requests, as a server in its own process
-    does."""
+    does. ``slow`` keeps its slowest timed answers of the window, which
+    its collector stamps at each collect."""
 
     def __init__(self):
         self.seconds = Histogram(
             SPAN_SECONDS.name, SPAN_SECONDS.help
         )
+        # the slowest timed answers of the collector's window
+        self.slow = WindowSlow()
         self._lock = threading.Lock()
         self._total = 0  # guarded-by: self._lock
         self._classes = {"4xx": 0, "5xx": 0}  # guarded-by: self._lock
 
-    def observe(self, seconds: float | None, status: int) -> None:
+    def observe(self, seconds: float | None, status: int,
+                span: Span | None = None) -> None:
         """One answered request; ``seconds`` None leaves its duration
-        out of the latency buckets (a stream, a bulk job)."""
+        out of the latency buckets (a stream, a bulk job) and out of
+        ``slow``, which gets ``span`` otherwise."""
         if seconds is not None:
             self.seconds.observe(seconds)
+            if span is not None:
+                self.slow.offer_span(span)
         cls = status_class(status)
         with self._lock:
             self._total += 1
