@@ -392,7 +392,11 @@ and its three slowest timed answers of the window, with route, seconds,
 and an assign's grow-lock wait and allocations or a filer write's hops
 (``ConvergeTap``; each server's snapshot counts the requests it
 answered), and, marked or not, each master's and filer's three
-slowest answers seen during the wait. Phase 16 also prints the
+slowest answers seen during the wait, and every assign seen that ran
+a grow: its seconds and grow-lock wait, and each allocation's server,
+volume and seconds beside that server's own allocation answers with
+their hops (the volume's files and the wait for the pulse in flight:
+an allocation sends no heartbeat of its own). Phase 16 also prints the
 master's assigns that waited on a grow (how many, summed and largest
 wait), and names each contention row's lock
 (``MasterServer._grow_lock``) beside its site. When a step of phases
@@ -3552,6 +3556,36 @@ class ConvergeTap:
                             self.port_of(s.get("url", "")))})
         return out
 
+    def grows(self) -> list[dict]:
+        """Every assign seen that ran a grow: its master, seconds and
+        grow-lock wait, and each allocation (url, volume, seconds) with
+        the allocated server's own allocation answers seen (seconds and
+        hops: the volume's files and the wait for the pulse in
+        flight), slowest assign first."""
+        own: dict[str, list] = {}
+        for (comp, vport), kept in self.seen.items():
+            if comp == "volume":
+                own[f"127.0.0.1:{vport}"] = sorted(
+                    ((round(e["duration"], 4), e.get("hops"))
+                     for e in kept.values() if e["op"] == ALLOCATION),
+                    key=lambda a: a[0], reverse=True)
+        out = []
+        for (comp, port), kept in sorted(self.seen.items()):
+            for e in kept.values():
+                grow = e.get("grow")
+                if comp != "master" or not grow or not grow["allocations"]:
+                    continue
+                out.append({
+                    "master": f"127.0.0.1:{port}",
+                    "seconds": round(e["duration"], 4),
+                    "grow_wait_s": grow["wait_s"],
+                    "allocations": [
+                        {"url": a["url"], "volume": a["volume"],
+                         "seconds": a["seconds"],
+                         "answers": own.get(a["url"], [])}
+                        for a in grow["allocations"]]})
+        return sorted(out, key=lambda g: g["seconds"], reverse=True)
+
     def watched(self) -> dict[str, list[dict]]:
         return {f"{comp}@127.0.0.1:{port}": self.slowest(comp, port)
                 for comp, port in sorted(self.seen)
@@ -3562,7 +3596,8 @@ class ConvergeTap:
                "converge_seconds": detail["converge_seconds"],
                "polls": self.polls, "unhealthy_polls": self.unhealthy,
                "last_unhealthy": self.last,
-               "slowest_seen": self.watched()}
+               "slowest_seen": self.watched(),
+               "grows": self.grows()}
         verdict = ("converged" if detail["converged"]
                    else "DID NOT CONVERGE")
         on_card(f"converge: {verdict} in {detail['converge_seconds']} s, "
@@ -3582,6 +3617,15 @@ class ConvergeTap:
             on_card(f"  {server}'s slowest answers seen:")
             for a in answers:
                 on_card(self.describe(a))
+        for g in out["grows"]:
+            on_card(f"  growing assign at master@{g['master']}: "
+                    f"{g['seconds']} s, grow-lock wait {g['grow_wait_s']} "
+                    f"s, {len(g['allocations'])} allocations")
+            for a in g["allocations"]:
+                on_card(f"    allocation volume {a['volume']} at {a['url']}"
+                        f" {a['seconds']} s; the server's allocation "
+                        "answers (s, hops): " + "; ".join(
+                            f"{secs} {hops}" for secs, hops in a["answers"]))
         return out
 
     @staticmethod

@@ -20,7 +20,10 @@ has a card by construction, so a failing probe is a fault to surface,
 not a reason to hide the card. And :func:`reprobe`, which the reference
 lacks, measures the link again and seeds the card path's estimate anew;
 the port's volume server calls it as each bulk EC job (generate,
-rebuild) starts.
+rebuild) starts. The job's first dispatch that the seeded estimate
+would send to the host goes to the card (``reason="probe"``), so the
+card's estimate comes from one of the job's own slabs, not only from a
+link probe taken while other jobs load the host.
 
 Decisions are counted in ``seaweedfs_codec_route_total{path,reason}`` and
 the live estimates shown in ``seaweedfs_codec_link_gbps{path}``, both in
@@ -116,7 +119,10 @@ class LinkState:
         res = _measure_link(device)
         with self._lock:
             self.probe_result = res
-            self._since_device = 0
+            # the next dispatch the host would win tries the card: a
+            # probe under contention can seed an estimate no slab of
+            # the job would ever correct
+            self._since_device = _REPROBE_EVERY - 1
             self._seed_device(res)
         return res
 

@@ -27,9 +27,17 @@ filter of ``query/`` and ``/admin/tier/{upload,download}`` move a .dat to
 a plain-HTTP or an S3 tier and back. A chunk-manifest
 needle resolves through the port's ``operation/`` client, as the reference's does. The server routes
 through the request-tracing middleware, which serves ``/debug/*``. An
-``/admin/assign_volume`` answer carries ``hops`` on its span: the
-seconds of the volume's files, of the wait for the heartbeat in flight
-and of the heartbeat that reports the volume.
+``/admin/assign_volume`` answer sends no heartbeat of its own, where
+the reference's does: it answers once the pulses collected before the
+volume existed have reached the master (one of those, applied after a
+grow registered the volume, would drop it again), and the next pulse of
+the loop reports the volume, as upstream's ``AllocateVolume`` rpc
+answers once the volume exists. Its span carries ``hops``: the seconds
+of the volume's files and of the wait for the pulse in flight. A needle
+write's span carries ``hops`` too: the seconds of the local write (its
+lock wait included), of the replicas' lookup and of each push. A server
+builds the native host codec its needles' CRC runs on before it serves,
+so no request waits for the compiler.
 """
 
 from __future__ import annotations
@@ -43,7 +51,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from .. import fault, resolve_device, tracing
+from .. import fault, native, resolve_device, tracing
 from ..ops import link
 from ..ops.codec import DEVICE_MIN_BYTES, RSCodec
 from ..storage import needle as needle_mod
@@ -209,11 +217,16 @@ class VolumeServer:
         self._running = False
         self._hb_stream = None  # bidi stream conn (SendHeartbeat analog)
         # one heartbeat at a time: the pulse loop and the admin handlers
-        # (mount, assign, delete, decode) all send one, and two senders
+        # (mount, delete, decode) all send one, and two senders
         # on the one stream connection can each read the other's answer
         # line, leaving one waiting out the socket timeout while the
         # master holds a stale view
         self._hb_lock = threading.Lock()
+        # pulses that ended, delivered or failed, in the order the
+        # store collected them (both under _hb_lock): an allocation
+        # waits here for those collected before its volume existed
+        self._pulse_cond = threading.Condition()
+        self._pulses_ended = 0
         self._hb_thread = threading.Thread(
             target=self._heartbeat_loop, daemon=True
         )
@@ -231,6 +244,11 @@ class VolumeServer:
         return self.server.url
 
     def start(self) -> None:
+        # the host codec every needle's CRC runs on, built (once a
+        # process, at its first use) before the server answers: a build
+        # on the request path held each first write of a fresh checkout
+        # for the compiler's seconds
+        native.library()
         self._running = True
         self.server.start()
         mark_started("volume")
@@ -252,6 +270,14 @@ class VolumeServer:
 
     def _heartbeat_once(self) -> None:
         hb = self.store.collect_heartbeat()
+        try:
+            self._send_pulse(hb)
+        finally:
+            with self._pulse_cond:
+                self._pulses_ended += 1
+                self._pulse_cond.notify_all()
+
+    def _send_pulse(self, hb) -> None:
         # report degraded writes so the master's repair loop can drive
         # re-replication once the missing peer returns
         with self._ur_lock:
@@ -575,14 +601,23 @@ class VolumeServer:
             n.set_last_modified(int(time.time()))
         if ttl := req.param("ttl"):
             n.set_ttl(t.TTL.parse(ttl))
+        # where the write spends its time: the local write (its lock
+        # wait included), then the replicas' lookup and each push
+        hops: list[dict] = []
+        span = tracing.current()
+        if span is not None:
+            span.attrs["hops"] = hops
+        t0 = time.perf_counter()
         try:
             _, size = vol.write_needle(
                 n, fsync=req.param("fsync") == "true"
             )
         except VolumeReadOnlyError as e:
             return Response.error(str(e), 409)
+        finally:
+            hops.append({"write_s": round(time.perf_counter() - t0, 6)})
         if req.param("type") != "replicate":
-            err = self._replicate(req, fid, "POST")
+            err = self._replicate(req, fid, "POST", hops)
             if err:
                 return Response.error(
                     f"replication failed: {err}", 500
@@ -692,29 +727,37 @@ class VolumeServer:
         return None
 
     def _replicate(
-        self, req: Request, fid: FileId, method: str
+        self, req: Request, fid: FileId, method: str,
+        hops: list[dict] | None = None,
     ) -> str | None:
         """Synchronous fan-out to the other replicas
         (store_replicate.go:21-93,147-162). Returns None when enough
         copies landed (quorum semantics — see _quorum); a shortfall
         that still meets quorum is recorded under-replicated for the
-        master's repair loop instead of failing the request."""
+        master's repair loop instead of failing the request. ``hops``,
+        when given, gets the lookup's seconds and each push's."""
         vol = self.store.find_volume(fid.volume_id)
         if vol is None or vol.super_block.replica_placement.copy_count <= 1:
             return None
+        if hops is None:
+            hops = []
         copy_count = vol.super_block.replica_placement.copy_count
         quorum = self._quorum(copy_count)
+        t0 = time.perf_counter()
         try:
             info = http.get_json(
                 f"{self.master_url}/dir/lookup?volumeId={fid.volume_id}",
                 retry=retry_mod.LOOKUP,
             )
         except http.HttpError as e:
+            hops.append({"lookup_s": round(time.perf_counter() - t0, 6),
+                         "error": str(e)[:200]})
             # no peer is reachable through the master: only the local
             # copy landed
             return self._settle_fanout(
                 fid, method, 1, copy_count, quorum, [f"lookup: {e}"]
             )
+        hops.append({"lookup_s": round(time.perf_counter() - t0, 6)})
         peers = [
             loc["url"]
             for loc in info.get("locations", [])
@@ -741,6 +784,8 @@ class VolumeServer:
 
         def send(peer):
             prev = retry_mod.set_deadline(budget)
+            hop = {"peer": peer}
+            t1 = time.perf_counter()
             try:
                 with tracing.attach(span):
                     fault.point(
@@ -755,8 +800,11 @@ class VolumeServer:
                     )
             except (http.HttpError, fault.FaultInjected) as e:
                 errors.append(f"{peer}: {e}")
+                hop["error"] = str(e)[:200]
             finally:
                 retry_mod.set_deadline(prev)
+                hop["push_s"] = round(time.perf_counter() - t1, 6)
+                hops.append(hop)
 
         # long-lived pool; futures (not map) so one slow peer doesn't
         # hide the others' results on teardown
@@ -928,7 +976,7 @@ class VolumeServer:
     # -- admin handlers --------------------------------------------------
 
     def _h_status(self, req: Request) -> Response:
-        hb = self.store.collect_heartbeat()
+        hb = self.store.collect_heartbeat(pulse=False)
         # collect_heartbeat drains deltas; re-add them for the real loop
         self.store.new_volumes = hb.new_volumes + self.store.new_volumes
         self.store.deleted_volumes = (
@@ -961,25 +1009,27 @@ class VolumeServer:
     def _h_assign_volume(self, req: Request) -> Response:
         body = req.json()
         t0 = time.perf_counter()
-        self.store.add_volume(
+        before = self.store.allocate_volume(
             int(body["volume"]),
             body.get("collection", ""),
             body.get("replication") or "000",
             body.get("ttl", ""),
         )
         t1 = time.perf_counter()
-        with self._hb_lock:
-            t2 = time.perf_counter()
-            self._heartbeat_once()  # weedcheck: ignore[lock-held-across-blocking]: the lock EXISTS to serialize heartbeat sends on the one stream connection; a contender must wait its turn
+        # no heartbeat of its own: the pulses collected before the add
+        # lack the volume, and one applied after the master's grow
+        # registered it would drop it again, so the answer waits for
+        # them; the loop's next pulse reports the volume
+        with self._pulse_cond:
+            while self._pulses_ended < before:
+                self._pulse_cond.wait()
         span = tracing.current()
         if span is not None:
             # where an allocation of a master's grow spends its time:
-            # the volume's files, the wait for the heartbeat in flight,
-            # and the heartbeat that reports the volume
+            # the volume's files and the wait for the pulse in flight
             span.attrs["hops"] = [{
                 "add_volume_s": round(t1 - t0, 6),
-                "hb_lock_wait_s": round(t2 - t1, 6),
-                "heartbeat_s": round(time.perf_counter() - t2, 6)}]
+                "pulse_wait_s": round(time.perf_counter() - t1, 6)}]
         return Response.json({"ok": True})
 
     def _h_delete_volume(self, req: Request) -> Response:

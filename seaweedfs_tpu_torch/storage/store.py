@@ -5,8 +5,11 @@ loading, vid maps), weed/storage/store.go:32-336 (needle op routing,
 heartbeat collection, EC mounts). Loading uses a thread pool like the
 reference's goroutine pool.
 
-The port's copy of ``seaweedfs_tpu/storage/store.py``. One difference:
-a store resolves its device once, at construction (``device=None`` is
+The port's copy of ``seaweedfs_tpu/storage/store.py``. Two differences.
+A store counts the heartbeat pulses it collects, and ``allocate_volume``
+returns the count at its add (``server/volume.py``'s allocation waits
+for those pulses, where the reference's sends a heartbeat of its own).
+And a store resolves its device once, at construction (``device=None`` is
 the card and raises without one; ``"cpu"`` the kernels' plain
 versions), and every ``EcVolume`` it mounts gets a codec of its own on
 that device with the store's ``device_min_bytes`` and ``link_aware`` —
@@ -167,6 +170,10 @@ class Store:
         self.deleted_volumes: list[VolumeInformationMessage] = []
         self.new_ec_shards: list[EcShardInformationMessage] = []
         self.deleted_ec_shards: list[EcShardInformationMessage] = []
+        # heartbeat pulses collected so far (not status reads): a
+        # volume server's allocation answers once the pulses collected
+        # before its volume was added have reached the master
+        self.pulses_collected = 0
 
     # -- volume lookup/admin --------------------------------------------
 
@@ -221,6 +228,20 @@ class Store:
             loc.volumes[vid] = vol
             self.new_volumes.append(self._volume_message(vol))
             return vol
+
+    def allocate_volume(
+        self,
+        vid: int,
+        collection: str = "",
+        replica_placement: str = "000",
+        ttl: str = "",
+    ) -> int:
+        """``add_volume``, returning the count of pulses collected
+        before the volume existed: those its allocation waits to see
+        delivered, since each one's full volume list lacks it."""
+        with self._lock:
+            self.add_volume(vid, collection, replica_placement, ttl)
+            return self.pulses_collected
 
     def mount_volume(self, vid: int, collection: str = "") -> None:
         """Load an on-disk volume into the store (VolumeMount rpc,
@@ -384,7 +405,10 @@ class Store:
             modified_at_second=vol.modified_at_second,
         )
 
-    def collect_heartbeat(self) -> Heartbeat:
+    def collect_heartbeat(self, pulse: bool = True) -> Heartbeat:
+        """The heartbeat of this store's state, draining its deltas;
+        ``pulse=False`` for a read that sends nothing (it is not
+        counted in ``pulses_collected``)."""
         with self._lock:
             volumes, max_key = [], 0
             for loc in self.locations:
@@ -433,6 +457,8 @@ class Store:
             self.deleted_volumes = []
             self.new_ec_shards = []
             self.deleted_ec_shards = []
+            if pulse:
+                self.pulses_collected += 1
             return hb
 
     def close(self) -> None:

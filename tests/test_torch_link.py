@@ -219,6 +219,22 @@ def test_reprobe_seeds_the_device_estimate_anew(states, monkeypatch):
     assert ref.choose(10 * MIB) == (False, "link")
 
 
+def test_reprobe_under_contention_tries_the_card_once(states, monkeypatch):
+    """A link probe taken while other jobs load the host can seed a card
+    estimate below the host's, and then every slab of the job would go
+    to the host. After ``reprobe`` the job's first dispatch the host
+    would win goes to the card (``probe``), so a real slab teaches the
+    card's estimate; the next goes by the estimates again."""
+    port, _ref = states
+    slow = dict(PROBE, h2d_gbps=0.2, d2h_gbps=0.2)
+    monkeypatch.setattr(link, "_measure_link", lambda device=None: slow)
+    for _ in range(20):
+        port.observe("host", 10 * MIB, 10 * MIB / 5e9)
+    assert link.reprobe() == slow
+    assert port.choose(10 * MIB) == (True, "probe")
+    assert port.choose(10 * MIB) == (False, "link")
+
+
 def test_volume_server_bulk_jobs_reprobe(monkeypatch):
     """The volume server's bulk EC jobs (generate, generate_batch,
     rebuild) take their codec from ``_codec``, which reprobes the link

@@ -385,8 +385,8 @@ def test_assign_span_carries_grow_wait_and_allocations(monkeypatch):
 
 def test_allocation_answer_carries_its_hops(tmp_path):
     """A volume server's answer to a grow's allocation carries where it
-    went: the volume's files, the wait for the heartbeat in flight and
-    the heartbeat that reports the volume."""
+    went: the volume's files and the wait for the pulse in flight (it
+    sends no heartbeat of its own)."""
     vs = VolumeServer("http://127.0.0.1:9", [str(tmp_path)], device="cpu")
     vs.start()
     try:
@@ -398,7 +398,7 @@ def test_allocation_answer_carries_its_hops(tmp_path):
         vs.stop()
     [alloc] = [e for e in answers if e["op"] == "POST /admin/assign_volume"]
     [hops] = alloc["hops"]
-    assert set(hops) == {"add_volume_s", "hb_lock_wait_s", "heartbeat_s"}
+    assert set(hops) == {"add_volume_s", "pulse_wait_s"}
     assert all(v >= 0.0 for v in hops.values())
     assert alloc["duration"] >= sum(hops.values())
 

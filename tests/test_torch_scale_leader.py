@@ -13,6 +13,13 @@ filer shards (``f2``) records ``detail.filer``; it reads the
 process-wide filer-shard ledger, so it runs in a fresh interpreter. No
 case asserts a wall-clock budget.
 
+The leader round failed in a checkout where the port's native host codec
+was not built yet: the first needle write of each volume server ran the
+compiler inside the round, its writes answered seconds late, and one
+server's `p99` mark held the round for its 30 s window (or its load out
+of the failover window). A volume server now builds the codec before it
+serves; a case holds that no write runs the compiler.
+
 A file of its own, so that ``--dist loadfile`` puts these rounds on
 another worker than ``test_torch_scale.py``'s.
 """
@@ -235,6 +242,38 @@ def test_leader_round_matches_reference(tmp_path, port_witness_kept,
         stored = json.load(f)
     assert stored["detail"]["failover"]["kill_landed"]
     assert port_round.run_check(port, port_json, out=lambda *_: None) == 0
+
+
+def test_volume_server_builds_its_codec_before_it_serves(tmp_path,
+                                                        monkeypatch):
+    """With no host codec loaded in the process, ``VolumeServer.start``
+    builds (or loads) it before it returns, and the server's first
+    allocation, write and read run no compiler."""
+    from seaweedfs_tpu_torch import native
+    from seaweedfs_tpu_torch.server.volume import VolumeServer
+    from seaweedfs_tpu_torch.util import http
+
+    builds: list[str] = []
+    compile_library = native.compile_library
+
+    def counted(*a, **kw):
+        builds.append(threading.current_thread().name)
+        return compile_library(*a, **kw)
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "compile_library", counted)
+    vs = VolumeServer("http://127.0.0.1:9", [str(tmp_path)],
+                      pulse_seconds=3600.0, device="cpu")
+    vs.start()
+    try:
+        assert native._lib is not None, "the codec was not loaded at start"
+        assert len(builds) == 1
+        http.post_json(f"{vs.url}/admin/assign_volume", {"volume": 3})
+        http.request("POST", f"{vs.url}/3,01637037d6", b"x" * 1000)
+        assert http.request("GET", f"{vs.url}/3,01637037d6") == b"x" * 1000
+    finally:
+        vs.stop()
+    assert len(builds) == 1, builds
 
 
 _FILER_ROUND = """\
